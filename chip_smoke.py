@@ -8,8 +8,8 @@ NVIDIA Hopper card and the CUDA toolkit:
 Phases (any failed check exits non-zero before the final line):
 
 1. report the card and build the kernels from the sources in the checkout
-   (the CUDA scan kernel with nvcc and the native featurizer with g++, in
-   parallel);
+   (the two CUDA kernels with nvcc and the native featurizer with g++, all
+   started together);
 2. hold the top2_scan kernel against its plain torch version on the card:
    int8 / bf16 / f32 storage, Rs in {100, 128, 1000, 70001}, d in {128,
    384, 3072}, Q in {1, 8, 512}, ip and l2, ~5% dead rows. int8: identical
@@ -17,6 +17,12 @@ Phases (any failed check exits non-zero before the final line):
    1e-6), first rows identical wherever a block's top-2 gap exceeds 1e-4,
    and every picked row scoring as the plain version's pick (runner-ups
    may swap with a near-tied third: f32 sums run in another order);
+2b. hold the ivf_scan kernel against its plain version on the card: int8 /
+   bf16 / f32 cluster blocks with ~10% empty slots and duplicated rows, d in
+   {128, 384, 3072}, cmax in {128, 2176}, Q in {1, 8, 512}, nprobe in {1,
+   16, 32, 128}, k in {10, 64}. int8: bit-identical scores and identical
+   ids wherever a score stands apart from its neighbours; bf16/f32: scores
+   within rtol 1e-5 (atol 1e-6), ids the same way at a 1e-5 gap;
 3. the main path end to end: IndexerService ingests the repository's own
    ``semcode_tpu/`` (the frozen query set's corpus) into a flat int8 store
    routed through the kernel (index_scan_impl="pallas"), and the RAG
@@ -26,6 +32,11 @@ Phases (any failed check exits non-zero before the final line):
    recall@10 and p50 single-query latency on the kernel and full-matrix
    routes, and checks the first 8 queries' top-10 paths against the same
    engine on the CPU (plain versions);
+3b. the store over IVF: the same self-ingest with index_kind="auto",
+   index_ivf_min_size=128, nlist 16, nprobe 4 must promote to IVFIndex;
+   the 102 queries' MRR@10 within 0.01 of the flat store's full-matrix
+   route, the first 8 queries' top-10 paths equal to the same engine's on
+   the CPU, and a saved and reloaded store returning identical hits;
 4. scale: a 1M x 384 int8 FlatIndex with its f32 rescore mirror (the JAX
    package's bench.py flagship shape, a clustered Gaussian mixture made on
    the card from a seeded torch.Generator): recall@10 against an f32
@@ -33,7 +44,18 @@ Phases (any failed check exits non-zero before the final line):
    kernel route), QPS at batch 512, p50 latency at batch 8, and the
    kernel's time per batch-512 call (CUDA events) beside its plain
    version, one PyTorch-library computation of the same selection, and
-   its bound; plus a torch.profiler breakdown of one batch-512 search.
+   its bound; plus a torch.profiler breakdown of one batch-512 search;
+4b. IVF at scale (bench.py's flagship IVF shape): the same mixture built
+   through IVFIndex.bulk into 1M x 384 int8 + f32 mirror, nlist 1024, 10
+   k-means iterations, on the card (a second k-means on the same sample
+   must reproduce the centroids bit for bit). Mode "ivf" at nprobe 32 and 16:
+   recall@10 against the f32 oracle (>= 0.95 required at nprobe 32), ids
+   equal to the gather-scan route's on the same layout, QPS at batch 512
+   and p50 at batch 8; the cost model's choice at batch 8 / nprobe 8 under
+   mode "auto" (must be "ivf" and launch the kernel); the kernel's time per
+   Q=512, nprobe-32 call beside its plain version, one PyTorch-library
+   computation of the same selection and its bound; and a torch.profiler
+   breakdown of one batch-512 probe search.
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -53,6 +75,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N_ROWS = 1_000_000
 DIM = 384
+NLIST = 1024  # bench.py's IVF flagship layout
+KMEANS_ITERS = 10
 BATCH = 512
 SERVE_BATCH = 8
 # published H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core
@@ -198,6 +222,93 @@ def check_kernel() -> float:
     return worst
 
 
+# -- phase 2b: the IVF kernel against its plain version ------------------------
+
+
+def ivf_inputs(storage, nlist, cmax, d, nq, nprobe, gen):
+    """Cluster blocks with ~10% empty slots and duplicated rows (ties)."""
+    import torch
+
+    from semcode_tpu_torch.index.flat import quantize_rows_device
+
+    x = torch.randn(nlist, cmax, d, generator=gen, device="cuda")
+    x = x / x.norm(dim=2, keepdim=True)
+    x[:, 8:16] = x[:, 0:8]
+    ids = torch.arange(nlist * cmax, device="cuda", dtype=torch.int32)
+    empty = torch.rand(nlist, cmax, generator=gen, device="cuda") < 0.1
+    ids = torch.where(empty, -1, ids.reshape(nlist, cmax))
+    q = torch.randn(nq, d, generator=gen, device="cuda")
+    q = q / q.norm(dim=1, keepdim=True)
+    probes = torch.argsort(torch.rand(nq, nlist, generator=gen, device="cuda"),
+                           dim=1)[:, :nprobe]
+    if storage == "int8":
+        data, scales = quantize_rows_device(x)
+        return data, ids, q, probes, scales
+    dt = torch.bfloat16 if storage == "bfloat16" else torch.float32
+    return x.to(dt), ids, q, probes, None
+
+
+def untied_ids_equal(s_ref, i_ref, i_got, tol) -> bool:
+    """Ids equal at every position whose reference score stands apart from
+    both neighbours by more than ``tol``; the last column (the boundary with
+    the candidates not returned) is excluded."""
+    import torch
+
+    gap = s_ref[:, :-1] - s_ref[:, 1:]
+    apart = torch.ones_like(s_ref, dtype=torch.bool)
+    apart[:, 1:] &= gap > tol
+    apart[:, :-1] &= gap > tol
+    apart[:, -1] = False
+    return bool(torch.equal(i_got[apart], i_ref[apart]))
+
+
+# (storage, nlist, cmax, d, Q, nprobe, k): every value of each axis appears
+IVF_CASES = [
+    ("int8", 16, 128, 128, 1, 1, 10),
+    ("int8", 1024, 2176, 384, 512, 32, 64),
+    ("int8", 64, 128, 3072, 8, 16, 64),
+    ("int8", 256, 128, 384, 8, 128, 10),
+    ("bfloat16", 64, 2176, 128, 8, 16, 64),
+    ("bfloat16", 128, 128, 3072, 512, 16, 10),
+    ("bfloat16", 256, 128, 384, 1, 128, 64),
+    ("float32", 256, 2176, 384, 512, 32, 64),
+    ("float32", 32, 2176, 3072, 8, 16, 10),
+    ("float32", 16, 128, 128, 1, 1, 64),
+]
+
+
+def check_ivf_kernel() -> float:
+    import torch
+
+    from semcode_tpu_torch.ops.ivf_scan import ivf_scan, ivf_scan_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    worst = 0.0
+    for storage, nlist, cmax, d, nq, nprobe, k in IVF_CASES:
+        data, ids, q, probes, scales = ivf_inputs(storage, nlist, cmax, d, nq,
+                                                  nprobe, gen)
+        s, i = ivf_scan(data, ids, q, probes, k, scales)
+        torch.cuda.synchronize()
+        rs, ri = ivf_scan_reference(data, ids, q, probes, k, scales)
+        err = (s - rs).abs().max().item()
+        worst = max(worst, err)
+        tag = f"{storage} nlist={nlist} cmax={cmax} d={d} Q={nq} nprobe={nprobe} k={k}"
+        if storage == "int8":
+            if not torch.equal(s, rs):
+                fail(f"ivf_scan {tag}: scores not bit-identical (max err {err})")
+            tol = 0.0
+        else:
+            if not torch.allclose(s, rs, rtol=1e-5, atol=1e-6):
+                fail(f"ivf_scan {tag}: scores off by {err}")
+            tol = 1e-5
+        if not untied_ids_equal(rs, ri, i, tol):
+            fail(f"ivf_scan {tag}: ids differ at untied positions")
+        del data, ids, q, probes, scales, s, i, rs, ri
+    log(f"[kernel] ivf_scan matches its plain version in {len(IVF_CASES)} "
+        f"cases (max |score err| {worst:.3g})")
+    return worst
+
+
 # -- phase 3: the main path end to end -----------------------------------------
 
 
@@ -319,6 +430,92 @@ def main_path(workdir: Path):
         "p50_xla_ms": p50_xla, "chunks": res.chunk_count,
         "stages_ms": stages, "breakdown": profile,
     }
+
+
+# -- phase 3b: the store over IVF ----------------------------------------------
+
+
+def ivf_store(workdir: Path, mrr_flat_xla: float):
+    from semcode_tpu_torch.index.ivf import IVFIndex
+    from semcode_tpu_torch.index.store import VectorStore
+    from semcode_tpu_torch.rag import SemanticSearchPipeline
+    from semcode_tpu_torch.services import IndexerService
+    from semcode_tpu_torch.settings import AppSettings
+
+    queries = frozen_queries()
+    questions = [q for q, _ in queries]
+    labels = [rel for _, rel in queries]
+
+    def config(device: str, **extra):
+        return AppSettings(
+            workspace_root=workdir / f"ivf-{device}",
+            index_kind="auto",
+            index_ivf_min_size=128,
+            index_nlist=16,
+            index_nprobe=4,
+            rag_provider="fallback",
+            rag_query_cache_size=0,
+            **extra,
+        )
+
+    def ingest(device: str):
+        cfg = config(device)
+        svc = IndexerService(config=cfg, device=device)
+        res = svc.index_repository([ROOT / "semcode_tpu"], "semcode_tpu")
+        pipe = SemanticSearchPipeline(config=cfg, vector_store=svc.vector_store,
+                                      embeddings=svc.embeddings, device=device)
+        return res, svc, pipe
+
+    t0 = time.perf_counter()
+    res, svc, pipe = ingest("cuda")
+    t_ingest = time.perf_counter() - t0
+    store = svc.vector_store
+    if not isinstance(store._index, IVFIndex):
+        fail(f"the store did not promote to IVF at {res.chunk_count} chunks")
+    t0 = time.perf_counter()
+    results = pipe.query_batch(questions, top_k=10)
+    t_batch = time.perf_counter() - t0
+    mrr, recall = rank_metrics(results, labels)
+    stats = store.stats()
+    log(f"[ivf-e2e] ingested {res.chunk_count} chunks in {t_ingest:.2f} s; "
+        f"promoted to IVF (nlist {stats['nlist']}, cmax {stats['cmax']}); "
+        f"102 queries in {t_batch * 1e3:.1f} ms: MRR@10 {mrr:.4f} "
+        f"recall@10 {recall:.4f} (flat full-matrix {mrr_flat_xla:.4f})")
+    if abs(mrr - mrr_flat_xla) > 0.01:
+        fail(f"IVF store MRR@10 {mrr:.4f} is not within 0.01 of the flat "
+             f"store's {mrr_flat_xla:.4f}")
+
+    _, svc_cpu, pipe_cpu = ingest("cpu")
+    if not isinstance(svc_cpu.vector_store._index, IVFIndex):
+        fail("the CPU store did not promote to IVF")
+    for qtext, a, b in zip(questions, results,
+                           pipe_cpu.query_batch(questions[:8], top_k=10)):
+        pa = [s["path"] for s in a["sources"]]
+        pb = [s["path"] for s in b["sources"]]
+        if pa != pb:
+            fail(f"IVF store: card and CPU disagree on {qtext!r}:\n{pa}\n{pb}")
+
+    # save, reload into a fresh store, query again: identical hits
+    import numpy as np
+
+    qvecs = np.asarray(pipe.embeddings.embed_queries(questions), dtype=np.float32)
+    before = store.search_batch(qvecs, top_k=10)
+    snap = store.save(workdir / "ivf-snapshot")
+    again = VectorStore(config("cuda", index_snapshot_dir=snap), device="cuda")
+    again.connect()
+    if not isinstance(again._index, IVFIndex) or again.count() != store.count():
+        fail("the reloaded store is not the saved IVF store")
+    after = again.search_batch(qvecs, top_k=10)
+    for hb, ha in zip(before, after):
+        if [h.id for h in hb] != [h.id for h in ha] or any(
+            abs(x.score - y.score) > 1e-5 for x, y in zip(hb, ha)
+        ):
+            fail("the reloaded IVF store returns other hits")
+    log("[ivf-e2e] first 8 queries: card top-10 paths equal the CPU engine's; "
+        "saved + reloaded store returns identical hits for all 102 queries")
+    return {"mrr": mrr, "recall": recall, "chunks": res.chunk_count,
+            "cmax": stats["cmax"], "ingest_s": t_ingest,
+            "batch_ms": t_batch * 1e3}
 
 
 # -- phase 4: scale -----------------------------------------------------------
@@ -481,6 +678,184 @@ def scale_phase():
     return out
 
 
+# -- phase 4b: IVF at scale ------------------------------------------------------
+
+
+def timed_search(search, q, iters: int = 20):
+    """(QPS at the batch of ``q``, p50 ms at batch 8) of ``search(q)``."""
+    import torch
+
+    search(q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        search(q)
+    torch.cuda.synchronize()
+    qps = q.shape[0] * iters / (time.perf_counter() - t0)
+    lat = []
+    for i in range(50):
+        qb = q[(i * SERVE_BATCH) % q.shape[0]:][:SERVE_BATCH]
+        t0 = time.perf_counter()
+        search(qb)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return qps, statistics.median(lat)
+
+
+def ivf_library(data, ids, scales, qq, qsc, probing, k):
+    """One PyTorch computation of the kernel's selection: cuBLASLt int8 GEMM
+    of the queries against the probed union's rows (in slabs of 128
+    clusters), the epilogue, the probe/slot mask and a running topk."""
+    import torch
+
+    from semcode_tpu_torch.ops.ivf_scan import NEG
+
+    nlist, cmax, d = data.shape
+    union = torch.nonzero(probing.any(dim=0)).flatten()
+    best_s = torch.full((qq.shape[0], k), NEG, device="cuda")
+    best_i = torch.full((qq.shape[0], k), -1, dtype=torch.int32, device="cuda")
+    for lo in range(0, union.numel(), 128):
+        cl = union[lo:lo + 128]
+        raw = torch._int_mm(qq, data[cl].reshape(-1, d).T).float()
+        s = raw * qsc[:, None] * scales[cl].reshape(1, -1)
+        blk_ids = ids[cl].reshape(1, -1)
+        ok = (blk_ids >= 0) & probing[:, cl].repeat_interleave(cmax, dim=1)
+        s = torch.where(ok, s, NEG)
+        best_s, pos = torch.topk(torch.cat([best_s, s], dim=1), k, dim=1)
+        best_i = torch.gather(
+            torch.cat([best_i, blk_ids.expand(qq.shape[0], -1)], dim=1), 1, pos)
+    return best_s, best_i
+
+
+def ivf_scale_phase():
+    import gc
+
+    import numpy as np
+    import torch
+
+    from semcode_tpu_torch.device import f32_matmul
+    from semcode_tpu_torch.index.ivf import IVFIndex
+    from semcode_tpu_torch.index.scan import quantize_queries_device, stable_topk
+    from semcode_tpu_torch.ops.ivf_scan import ivf_scan, ivf_scan_reference
+
+    gc.collect()
+    torch.cuda.empty_cache()  # phase 4's flat index is gone
+    gen = torch.Generator(device="cuda").manual_seed(42)  # phase 4's corpus
+    x = mixture(gen, N_ROWS, DIM)
+    pick = torch.randperm(N_ROWS, generator=gen, device="cuda")[:BATCH]
+    q = x[pick] + 0.05 * torch.randn(BATCH, DIM, generator=gen, device="cuda")
+    q = q / torch.clamp(q.norm(dim=1, keepdim=True), min=1e-9)
+    truth = oracle_top10(x, q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = IVFIndex(DIM, nlist=NLIST, nprobe=32, metric="ip", dtype="int8",
+                     kmeans_iters=KMEANS_ITERS, device="cuda")
+    with index.bulk(expected_rows=N_ROWS):
+        for lo in range(0, N_ROWS, 131072):
+            index.add(x[lo:lo + 131072])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del x
+    dev = index._ensure_device()
+    log(f"[ivf-scale] {N_ROWS} x {DIM} int8 IVF (nlist {NLIST}, "
+        f"{KMEANS_ITERS} k-means iterations) + f32 mirror built in "
+        f"{build_s:.1f} s: cmax {index.cmax}, rescore "
+        f"{'on' if index.device_rescore_active else 'off'}")
+
+    # the build repeats: a second k-means on the same training sample must
+    # give the same centroids, bit for bit
+    built = index.centroids
+    index.train()
+    if not np.array_equal(index.centroids, built):
+        fail("a second k-means on the same sample gave other centroids")
+    index.centroids = built
+    log("[ivf-scale] a second k-means on the same sample reproduces the "
+        "centroids bit for bit")
+    out = {"build_s": build_s, "cmax": index.cmax}
+
+    def searcher(nprobe):
+        return lambda qb: index.search_device(qb, 10, nprobe=nprobe, mode="ivf")
+
+    # timings in turns (32, 16, 16, 32): one machine's host noise must not
+    # decide which width reads faster
+    for nprobe in (32, 16, 16, 32):
+        qps, p50 = timed_search(searcher(nprobe), q)
+        rec = out.setdefault(f"nprobe{nprobe}", {"qps": [], "p50_b8_ms": []})
+        rec["qps"].append(qps)
+        rec["p50_b8_ms"].append(p50)
+    for nprobe in (32, 16):
+        _, ids = searcher(nprobe)(q)
+        rec = out[f"nprobe{nprobe}"]
+        rec["recall"] = recall_at_10(ids, truth)
+        log(f"[ivf-scale] nprobe {nprobe}: recall@10 {rec['recall']:.4f}  "
+            f"QPS@{BATCH} " + " / ".join(f"{v:.0f}" for v in rec["qps"])
+            + f"  p50@{SERVE_BATCH} "
+            + " / ".join(f"{v:.2f}" for v in rec["p50_b8_ms"]) + " ms")
+        # the same layout through the reference's gather-scan route
+        index.use_pallas = "never"
+        s_g, ids_g = searcher(nprobe)(q)
+        index.use_pallas = "auto"
+        if not untied_ids_equal(s_g, ids_g, ids, 1e-5):
+            fail(f"IVF nprobe {nprobe}: kernel route and gather-scan route "
+                 "disagree at untied positions")
+    if out["nprobe32"]["recall"] < 0.95:
+        fail(f"IVF recall@10 {out['nprobe32']['recall']:.4f} < 0.95 at nprobe 32")
+    log("[ivf-scale] kernel-route ids equal the gather-scan route's at "
+        "nprobe 32 and 16 (untied positions)")
+
+    # the cost model at batch 8 / nprobe 8, through the default mode
+    mode = index._pick_mode(SERVE_BATCH, 8, 10)
+    ivf_scan.launches = 0
+    index.search(q[:SERVE_BATCH].cpu().numpy(), k=10, nprobe=8)
+    launches = ivf_scan.launches
+    log(f"[ivf-scale] mode='auto' at batch {SERVE_BATCH}, nprobe 8 picks "
+        f"{mode!r}; ivf_scan launches {launches}")
+    if mode != "ivf" or launches < 1:
+        fail("the auto-mode batch-8 search did not probe through the kernel")
+    out["auto_mode_b8"] = mode
+    out["breakdown"] = device_breakdown(
+        lambda: index.search_device(q, 10, nprobe=32, mode="ivf"),
+        f"batch-{BATCH} IVF probe search (nprobe 32)",
+    )
+
+    # the kernel at the main path's shape: the probes _ivf_search picks and
+    # the scan width it asks for (max(4k, 64) with the rescore mirror)
+    _, probes = stable_topk(f32_matmul(q, dev.centroids.T), 32)
+    args = (dev.data, dev.ids, q, probes, 64, dev.scales)
+    calls = ivf_scan.launches
+    kernel_ms = cuda_ms(lambda: ivf_scan(*args), iters=20)
+    s, i = ivf_scan(*args)
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(lambda: ivf_scan_reference(*args), iters=2, warmup=1)
+    rs, ri = ivf_scan_reference(*args)
+    if not torch.equal(s, rs) or not untied_ids_equal(rs, ri, i, 0.0):
+        fail("ivf_scan differs from its plain version at the main-path shape")
+    err = (s - rs).abs().max().item()
+    qq, qsc = quantize_queries_device(q)
+    probing = torch.zeros((BATCH, NLIST), dtype=torch.bool, device="cuda")
+    probing.scatter_(1, probes, True)
+    library_ms = cuda_ms(
+        lambda: ivf_library(dev.data, dev.ids, dev.scales, qq, qsc, probing, 64),
+        iters=3, warmup=1,
+    )
+    n_union = int(probing.any(dim=0).sum())
+    cmax = index.cmax
+    n_bytes = n_union * cmax * (DIM + 8)
+    n_ops = 2 * BATCH * 32 * cmax * DIM
+    bound_ms = max(n_bytes / PEAK_HBM_BYTES, n_ops / PEAK_INT8_OPS) * 1e3
+    bound_by = "operations" if n_ops / PEAK_INT8_OPS >= n_bytes / PEAK_HBM_BYTES else "bytes"
+    log(f"[ivf-scale] ivf_scan Q={BATCH} nprobe 32 k 64 over {n_union} probed "
+        f"clusters (cmax {cmax}): {kernel_ms:.3f} ms per call (plain "
+        f"{plain_ms:.1f} ms, _int_mm+mask+topk {library_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms by {bound_by}); {ivf_scan.launches - calls} "
+        "timing launches")
+    out["kernel"] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": err,
+                     "launches": launches, "union": n_union}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -490,7 +865,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import semcode_tpu_torch  # noqa: F401 - fails outside a checkout
     from semcode_tpu_torch.embeddings.native import get_native
-    from semcode_tpu_torch.ops import scan_top2
+    from semcode_tpu_torch.ops import ivf_scan, scan_top2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -498,18 +873,23 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} CUDA {torch.version.cuda}; {card}")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        kernel_lib = pool.submit(scan_top2.build_library)
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        top2_lib = pool.submit(scan_top2.build_library)
+        ivf_lib = pool.submit(ivf_scan.build_library)
         native = pool.submit(get_native)
-        scan_top2._library.get(kernel_lib.result())
+        scan_top2._library.get(top2_lib.result())
+        ivf_scan._library.get(ivf_lib.result())
         if native.result() is None:
             fail("the native featurizer did not build")
     log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
 
     worst = check_kernel()
+    worst_ivf = check_ivf_kernel()
     with tempfile.TemporaryDirectory(prefix="semcode_smoke_") as tmp:
         e2e = main_path(Path(tmp))
+        ivf_e2e = ivf_store(Path(tmp), e2e["mrr_xla"])
     scale = scale_phase()
+    ivf_scale = ivf_scale_phase()
 
     kern = scale["kernel"]
     record = {
@@ -526,12 +906,29 @@ def main() -> int:
         "library_ms": kern["library_ms"],
         "matched": True,
     }
+    ik = ivf_scale["kernel"]
+    ivf_record = {
+        "name": "ivf_scan",
+        "route": "cuda",
+        "source": "semcode_tpu_torch/ops/csrc/ivf_scan.cu",
+        "replaces": "semcode_tpu/ops/kernels.py:247",
+        "launches": ik["launches"],
+        "max_abs_err": max(worst_ivf, ik["max_abs_err"]),
+        "ms": ik["ms"],
+        "plain_ms": ik["plain_ms"],
+        "bound_ms": ik["bound_ms"],
+        "bound_by": ik["bound_by"],
+        "library_ms": ik["library_ms"],
+        "matched": True,
+    }
     summary = {
         "e2e": e2e,
+        "ivf_e2e": ivf_e2e,
         "scale": {k: v for k, v in scale.items() if k != "kernel"},
+        "ivf_scale": {k: v for k, v in ivf_scale.items() if k != "kernel"},
     }
     log(f"[summary] {json.dumps(summary)}")
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [record, ivf_record]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({
         "ok": True,

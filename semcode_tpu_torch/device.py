@@ -58,6 +58,21 @@ def storage_name(dtype: torch.dtype) -> str:
     return {torch.int8: "int8", torch.bfloat16: "bfloat16"}.get(dtype, "float32")
 
 
+def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in true float32: TF32 is held off for the call, whatever
+    the process-wide setting (a TF32 product keeps ~3 decimal digits, enough
+    to flip a nearest-centroid argmin or a probe choice). The flag is
+    process-wide: it is written only when a caller has turned TF32 on."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    if not prev or not a.is_cuda:
+        return a @ b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def round_up(value: int, multiple: int) -> int:
     if multiple <= 0:
         return value

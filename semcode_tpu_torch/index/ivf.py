@@ -1,0 +1,1416 @@
+"""IVF_FLAT-equivalent ANN index on one device.
+
+Counterpart of ``semcode_tpu/index/ivf.py``; the reference shards the
+cluster lists over a device mesh, this engine holds them on one device, so
+every per-shard merge reduces to a top-k over the one shard's candidates.
+
+- **Device-authoritative storage**: the row-major flat mirror on the device
+  (storage-dtype vectors + scales + norms + optional f32 or two-level int8
+  rescore mirror + tags) IS the corpus. The host keeps only O(N) metadata
+  (liveness, cluster assignment, slot map, tags). Ingest uploads f32 rows
+  and quantizes/normalizes on the device; builds, re-packs and compactions
+  gather from the mirror on the device.
+- **Build**: k-means coarse quantizer trained on the device
+  (``ops/kmeans.py``), capacity-balanced assignment, then the vectors are
+  laid out in capacity-padded cluster blocks ``data[nlist, cmax, dim]``.
+- **Scan**: centroid scores pick ``nprobe`` clusters per query; the probing
+  kernel (``ops/ivf_scan.py``, the Hopper counterpart of the Pallas
+  ``ivf_scan_shard``) or the reference's gather-scan route scores their
+  rows; an exact f32 rescore re-orders the merged candidates.
+- **Exact mode** scans the flat mirror through ``scan.exact_scan``.
+- **Streaming inserts**: nearest cluster with a free slot; layout rebuilds
+  (cluster overflow / retrain) are amortized; past a device-memory
+  threshold inserts land in a small exact-scanned pending tail.
+
+Device state is swapped as whole tuples and readers' tensors are never
+edited in place (out-of-place scatters), so a search racing a writer sees
+a consistent old or new snapshot. Only tensors no reader has seen yet (a
+fresh layout, the mirror inside ``bulk()`` before any snapshot exists) are
+written in place. Tombstones (``ids == -1``) support upsert-by-id from the
+store layer.
+"""
+
+from __future__ import annotations
+
+import collections
+import math
+from contextlib import contextmanager
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, f32_matmul, resolve_device, round_up, storage_dtype, storage_name
+from ..logger import get_logger
+from ..ops import ivf_scan as ivf_ops
+from ..ops.kmeans import TRAIN_POINTS_PER_CENTROID, balanced_assign, kmeans_fit_dev, topm_step
+from .flat import (
+    DEVICE_RESCORE_MAX_BYTES,
+    RESIDUAL_RESCORE_MAX_BYTES,
+    pad_allow,
+    quantize_residual_device,
+    quantize_rows_device,
+    split_rescore,
+)
+from .scan import (
+    exact_scan,
+    exact_scan_batched,
+    quantize_queries_device,
+    rescore_global,
+    rescore_global_residual,
+    resolve_rescore_width,
+    stable_topk,
+)
+
+log = get_logger("index.ivf")
+
+# One atomically-swapped device snapshot (lock-free readers). The padded
+# cluster layout (data/ids/sqnorms/scales/centroids) serves the probing path;
+# the flat row-major mirror (f*, position == global row id) serves the exact
+# path and is the authoritative storage. Fields:
+#   data       (nlist, cmax, d) storage dtype
+#   ids        (nlist, cmax) int32 row ids, -1 = empty/tombstone
+#   sqnorms    (nlist, cmax) f32
+#   scales     (nlist, cmax) f32 or None (int8 only)
+#   centroids  (nlist, d) f32
+#   fvecs      (R, d) storage dtype flat mirror
+#   fvalid     (R,) bool
+#   fnorms     (R,) f32
+#   fscales    (R,) f32 (int8) or zeros
+#   frescore   (R, d) f32, or (int8 residual (R, d), f32 scales (R,)), or None
+#   ftags      (R,) int32 row tags (device-side filtered search)
+_Dev = collections.namedtuple(
+    "_Dev",
+    [
+        "data", "ids", "sqnorms", "scales", "centroids",
+        "fvecs", "fvalid", "fnorms", "fscales", "frescore", "ftags",
+    ],
+)
+
+# The mirror half on its own (writer-side working state; _Dev references the
+# same tensors, so swapping _Dev snapshots stays atomic for readers).
+_Mirror = collections.namedtuple(
+    "_Mirror", ["fvecs", "fvalid", "fnorms", "fscales", "frescore", "ftags"]
+)
+
+_NEG_INF = np.float32(-3.0e38)
+_NEG = -3.0e38
+
+# rows per device chunk for ingest / pack / gather steps: bounds transient
+# device memory (chunk * dim * 4 B)
+_CHUNK_ROWS = 131072
+
+
+def _cost_bucket(n: int, floor: int = 8) -> int:
+    """The query count the reference's cost model sees: it pads every batch
+    to a power-of-two bucket (>= 8) before choosing a mode."""
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+def _set(arr: torch.Tensor, idx, vals: torch.Tensor, inplace: bool):
+    """Row scatter ``arr[idx] = vals``: in place only on tensors no reader
+    holds; otherwise out of place (readers keep the previous tensor)."""
+    vals = vals.to(arr.dtype)
+    if isinstance(idx, tuple):
+        if inplace:
+            return arr.index_put_(idx, vals)
+        return arr.index_put(idx, vals)
+    if inplace:
+        return arr.index_copy_(0, idx, vals)
+    return arr.index_copy(0, idx, vals)
+
+
+def _pad_rows(arr: torch.Tensor, new_rows: int) -> torch.Tensor:
+    pad = new_rows - arr.shape[0]
+    return torch.cat([arr, arr.new_zeros((pad,) + tuple(arr.shape[1:]))])
+
+
+def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
+    x = x.to(torch.float32)
+    n = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    return x / torch.clamp(n, min=1e-12)
+
+
+def _row_norms(x: torch.Tensor) -> torch.Tensor:
+    x = x.to(torch.float32)
+    return torch.sum(x * x, dim=1)
+
+
+class IVFIndex:
+    """Inverted-file index with capacity-padded cluster blocks on one device.
+
+    The reference's approximate full-scan selection (``approx_topk``,
+    ``approx_recall_target``) exists only on a TPU, so those options have no
+    counterpart here: every selection is exact."""
+
+    kind = "ivf"
+
+    def __init__(
+        self,
+        dim: int,
+        *,
+        nlist: int = 128,
+        nprobe: int = 16,
+        metric: str = "ip",
+        dtype: str = "bfloat16",
+        kmeans_iters: int = 12,
+        seed: int = 0,
+        use_pallas: str = "auto",  # auto | always | never (probing kernel)
+        balance_cap: float = 2.0,  # cluster capacity cap, x mean occupancy
+        device_rescore: Optional[bool] = None,  # None = auto by memory budget
+        score_dtype: str = "auto",  # auto | float32 | float16 (exact path)
+        fetch_width: int = 0,  # 0 = auto (max(4k, 128)); rescore candidate pool
+        rescore_width: int = 0,  # top-W gather slice; 0 = auto, -1 = full fetch
+        scan_impl: str = "auto",  # auto | xla | pallas (exact-scan kernel)
+        rescore_mode: str = "auto",  # auto | f32 | residual | off
+        device: DeviceLike = None,
+    ):
+        if metric not in ("ip", "cosine", "l2"):
+            raise ValueError(f"unknown metric: {metric}")
+        if score_dtype not in ("auto", "float32", "float16"):
+            raise ValueError(f"unknown score_dtype: {score_dtype}")
+        if scan_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown scan_impl: {scan_impl}")
+        if rescore_mode not in ("auto", "f32", "residual", "off"):
+            raise ValueError(f"unknown rescore_mode: {rescore_mode}")
+        if use_pallas not in ("auto", "always", "never"):
+            raise ValueError(f"unknown use_pallas: {use_pallas}")
+        self.dim = int(dim)
+        self.metric = metric
+        self.device = resolve_device(device)
+        self.nlist = int(nlist)
+        self.nprobe = min(int(nprobe), self.nlist)
+        self.kmeans_iters = kmeans_iters
+        self.seed = seed
+        self.use_pallas = use_pallas
+        self.balance_cap = float(balance_cap)
+        self._dtype = storage_dtype(dtype)
+        self.device_rescore = device_rescore
+        self.rescore_mode = rescore_mode
+        self.score_dtype = score_dtype
+        self.fetch_width = int(fetch_width)
+        self.rescore_width = int(rescore_width)
+        self.scan_impl = scan_impl
+        # the reference's lcm(n_shards * 8, 128) with one shard
+        self._row_multiple = math.lcm(8, 128)
+        self._mirror_cap = 0  # flat-mirror rows currently materialized
+
+        # host metadata (O(N), amortized-growth buffers; NO vector payloads)
+        self.size = 0  # live rows (excluding tombstones)
+        self._n_rows = 0  # total rows ever added
+        self._meta_cap = 0
+        self._assign = np.zeros((0,), dtype=np.int32)
+        self._loc = np.zeros((0, 2), dtype=np.int32)  # row -> (cluster, slot)
+        self._alive = np.zeros((0,), dtype=bool)
+        # int32 row tags for device-side filtered search (0 = untagged)
+        self._tags = np.zeros((0,), dtype=np.int32)
+        self.centroids: Optional[np.ndarray] = None  # (nlist, dim) f32
+        self._counts = np.zeros((self.nlist,), dtype=np.int32)  # slots used
+        self.cmax = 0
+
+        # device state: the authoritative mirror + one atomically-swapped
+        # _Dev snapshot so lock-free readers always see consistent tensors
+        self._mir: Optional[_Mirror] = None
+        self._dev: Optional[_Dev] = None
+        self._dirty = True
+        # host f32 copy, maintained incrementally ONLY when no device rescore
+        # mirror exists (the store's host rescore then needs it); otherwise
+        # hydrated on demand for persistence
+        self._host_cache: Optional[np.ndarray] = None
+        self._host_ingest_only = True  # False once a device tensor is added
+        self._bulk = False  # inside a bulk() block: defer layout/materialize
+        # pending tail: streaming inserts past a device-memory threshold land
+        # in a small exact-scanned side buffer (see _use_pending)
+        self._pend: Optional[tuple] = None  # (vecs, ids, tags, n_used)
+
+    # -- helpers ---------------------------------------------------------------
+
+    @property
+    def is_trained(self) -> bool:
+        return self.centroids is not None
+
+    @property
+    def _host(self) -> np.ndarray:
+        """Full-precision host copy of rows 0..n_rows (hydrated from the
+        device when not incrementally maintained; persistence only)."""
+        if self._host_cache is not None:
+            return self._host_cache[: self._n_rows]
+        return self.hydrate_host()
+
+    def hydrate_host(self) -> np.ndarray:
+        """Fetch the f32 corpus (n_rows, dim) from the device mirror."""
+        self._fold_pending()  # pending rows live only in the side buffer
+        n = self._n_rows
+        if n == 0 or self._mir is None:
+            return np.zeros((0, self.dim), dtype=np.float32)
+        if n * self.dim * 4 > 1 << 30:
+            log.warning("hydrate_host_large", rows=n, dim=self.dim)
+        out = np.empty((n, self.dim), dtype=np.float32)
+        for lo in range(0, n, _CHUNK_ROWS):
+            hi = min(lo + _CHUNK_ROWS, n)
+            idx = torch.arange(lo, hi, device=self.device)
+            out[lo:hi] = self._f32_chunk(idx).cpu().numpy()
+        return out
+
+    def _check_vectors(self, x, *, device_ok: bool = True):
+        if isinstance(x, torch.Tensor):
+            if not device_ok:
+                x = x.detach().cpu().numpy()
+            elif x.dim() != 2 or x.shape[1] != self.dim:
+                raise ValueError(
+                    f"expected (n, {self.dim}) vectors, got {tuple(x.shape)}"
+                )
+            else:
+                return x.to(self.device, torch.float32)
+        x = np.ascontiguousarray(x, dtype=np.float32)
+        if x.ndim != 2 or x.shape[1] != self.dim:
+            raise ValueError(f"expected (n, {self.dim}) vectors, got {x.shape}")
+        return x
+
+    def _extend_meta_capacity(self, need: int) -> None:
+        """Pre-size the host metadata buffers (no rows appended)."""
+        if need > self._meta_cap:
+            self._extend_meta_grow(max(need, max(1024, self._meta_cap * 2)))
+
+    def _extend_meta_grow(self, new_cap: int) -> None:
+        for name, fill in (("_assign", -1), ("_alive", False), ("_tags", 0)):
+            old = getattr(self, name)
+            buf = np.full((new_cap,), fill, dtype=old.dtype)
+            buf[: self._n_rows] = old[: self._n_rows]
+            setattr(self, name, buf)
+        loc = np.full((new_cap, 2), -1, dtype=np.int32)
+        loc[: self._n_rows] = self._loc[: self._n_rows]
+        self._loc = loc
+        if self._host_cache is not None:
+            host = np.zeros((new_cap, self.dim), dtype=np.float32)
+            host[: self._n_rows] = self._host_cache[: self._n_rows]
+            self._host_cache = host
+        self._meta_cap = new_cap
+
+    def _extend_meta(self, n: int, tags: np.ndarray) -> np.ndarray:
+        """Append n rows to the host metadata buffers; returns new row ids."""
+        need = self._n_rows + n
+        if need > self._meta_cap:
+            self._extend_meta_grow(max(need, max(1024, self._meta_cap * 2)))
+        rows = np.arange(self._n_rows, need, dtype=np.int64)
+        self._alive[rows] = True
+        self._tags[rows] = tags
+        self._n_rows = need
+        self.size += n
+        return rows
+
+    def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
+        arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:  # torch wants a writable buffer
+            arr = arr.copy()
+        return torch.from_numpy(arr).to(self.device)
+
+    # -- device mirror (authoritative storage) ---------------------------------
+
+    def _mirror_target_cap(self, n_rows: int) -> int:
+        return round_up(n_rows + max(1024, n_rows // 8), self._row_multiple)
+
+    def _zeros(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _rescore_kind(self, mirror_rows: int) -> str:
+        """Fused device-rescore policy: 'f32', 'residual' (two-level int8,
+        int8 storage only) or 'none' (see FlatIndex._rescore_kind)."""
+        if self._dtype == torch.float32:
+            return "none"  # storage is already exact
+        if self.rescore_mode == "off":
+            return "none"
+        if self.rescore_mode == "f32":
+            return "f32"
+        if self.rescore_mode == "residual":
+            return "residual" if self._dtype == torch.int8 else "f32"
+        if self.device_rescore is False:
+            return "none"
+        if self.device_rescore is True:
+            return "f32"
+        if mirror_rows * self.dim * 4 <= DEVICE_RESCORE_MAX_BYTES:
+            return "f32"
+        if (
+            self._dtype == torch.int8
+            and mirror_rows * (self.dim + 4) <= RESIDUAL_RESCORE_MAX_BYTES
+        ):
+            return "residual"
+        return "none"
+
+    def _ensure_mirror(self, need_rows: int, *, exact: bool = False) -> None:
+        """Create or grow the device mirror to hold ``need_rows`` rows.
+
+        ``exact`` allocates exactly ``need_rows`` (lane-rounded) with no
+        growth headroom: the exact scan's cost is linear in ALLOCATED mirror
+        rows, so a bulk build with a declared row count must not carry the
+        +12.5% amortization pad."""
+        if self._mir is not None and need_rows <= self._mirror_cap:
+            return
+        mcap = (round_up(max(need_rows, 1), self._row_multiple)
+                if exact else self._mirror_target_cap(need_rows))
+
+        def _fresh_rescore(kind):
+            if kind == "f32":
+                return self._zeros((mcap, self.dim), torch.float32)
+            if kind == "residual":
+                return (
+                    self._zeros((mcap, self.dim), torch.int8),
+                    self._zeros((mcap,), torch.float32),
+                )
+            return None
+
+        if self._mir is None:
+            kind = self._rescore_kind(mcap)
+            self._mir = _Mirror(
+                fvecs=self._zeros((mcap, self.dim), self._dtype),
+                fvalid=self._zeros((mcap,), torch.bool),
+                fnorms=self._zeros((mcap,), torch.float32),
+                fscales=self._zeros((mcap,), torch.float32),
+                frescore=_fresh_rescore(kind),
+                ftags=self._zeros((mcap,), torch.int32),
+            )
+            if kind == "none" and self._dtype != torch.float32:
+                # the store's host rescore needs f32 somewhere: keep it on host
+                self._host_cache = np.zeros(
+                    (max(self._meta_cap, 1024), self.dim), dtype=np.float32
+                )
+            self._mirror_cap = mcap
+            return
+        mir = self._mir
+        new_kind = self._rescore_kind(mcap) if mir.frescore is not None else "none"
+        is_resid = isinstance(mir.frescore, tuple)
+        old_kind = "none" if mir.frescore is None else (
+            "residual" if is_resid else "f32"
+        )
+        if old_kind != "none" and new_kind == "none":
+            log.warning("frescore_dropped_on_growth", rows=need_rows)
+            if self._host_ingest_only:
+                # host-fed store: back-fill the host cache before dropping
+                # the f32 mirror so exactness survives the transition
+                host = self.hydrate_host()
+                cache = np.zeros((self._meta_cap, self.dim), dtype=np.float32)
+                cache[: host.shape[0]] = host
+                self._host_cache = cache
+        if old_kind == "f32" and new_kind == "f32":
+            frescore = _pad_rows(mir.frescore, mcap)
+        elif old_kind == "residual" and new_kind in ("residual", "f32"):
+            # an existing residual never upgrades to f32 on growth (the
+            # dropped bits are gone); pad it
+            frescore = (
+                _pad_rows(mir.frescore[0], mcap),
+                _pad_rows(mir.frescore[1], mcap),
+            )
+        elif old_kind == "f32" and new_kind == "residual":
+            # downgrade across the memory budget: requantize the residual
+            # FROM the f32 mirror on the device, then free the mirror
+            log.info("frescore_downgraded_to_residual", rows=need_rows)
+            rq, rs = quantize_residual_device(
+                mir.frescore, mir.fvecs.to(torch.float32), mir.fscales
+            )
+            frescore = (_pad_rows(rq, mcap), _pad_rows(rs, mcap))
+        else:
+            frescore = None
+        grown = _Mirror(
+            fvecs=_pad_rows(mir.fvecs, mcap),
+            fvalid=_pad_rows(mir.fvalid, mcap),
+            fnorms=_pad_rows(mir.fnorms, mcap),
+            fscales=_pad_rows(mir.fscales, mcap),
+            frescore=frescore,
+            ftags=_pad_rows(mir.ftags, mcap),
+        )
+        self._mir = grown
+        self._mirror_cap = mcap
+        # the padded cluster layout is untouched by mirror growth; refresh
+        # the reader snapshot so searches see the grown mirror
+        if self._dev is not None and not self._dirty:
+            self._dev = self._dev._replace(**grown._asdict())
+
+    def _ingest_rows(self, x, rows: np.ndarray, tags: np.ndarray) -> None:
+        """Scatter new/updated rows into the device mirror (chunked).
+
+        ``x``: (n, dim) f32 numpy array or device tensor, NOT yet
+        metric-normalized. Quantization/normalization run on the device."""
+        mir = self._mir
+        n = rows.shape[0]
+        cache = self._host_cache
+        if isinstance(x, torch.Tensor):
+            self._host_ingest_only = False
+        # exclusive bulk build with no reader snapshot: scatter in place
+        # instead of copying the whole mirror per chunk
+        inplace = self._bulk and self._dev is None
+        for lo in range(0, n, _CHUNK_ROWS):
+            hi = min(lo + _CHUNK_ROWS, n)
+            xc = x[lo:hi]
+            xd = (xc if isinstance(xc, torch.Tensor) else self._to_dev(xc))
+            xd = xd.to(torch.float32)
+            if self.metric == "cosine":
+                xd = _normalize_rows(xd)
+            rows_d = self._to_dev(rows[lo:hi].astype(np.int64))
+            tags_d = self._to_dev(np.asarray(tags[lo:hi], dtype=np.int32))
+            nrm = _row_norms(xd)
+            fscales = mir.fscales
+            if self._dtype == torch.int8:
+                qx, scl = quantize_rows_device(xd)
+                fvecs = _set(mir.fvecs, rows_d, qx, inplace)
+                fscales = _set(mir.fscales, rows_d, scl, inplace)
+            else:
+                fvecs = _set(mir.fvecs, rows_d, xd, inplace)
+            fvalid = _set(mir.fvalid, rows_d,
+                          torch.ones_like(rows_d, dtype=torch.bool), inplace)
+            fnorms = _set(mir.fnorms, rows_d, nrm, inplace)
+            frescore = mir.frescore
+            if isinstance(frescore, tuple):
+                rq, rs = quantize_residual_device(xd, qx, scl)
+                frescore = (_set(frescore[0], rows_d, rq, inplace),
+                            _set(frescore[1], rows_d, rs, inplace))
+            elif frescore is not None:
+                frescore = _set(frescore, rows_d, xd, inplace)
+            ftags = _set(mir.ftags, rows_d, tags_d, inplace)
+            mir = _Mirror(fvecs, fvalid, fnorms, fscales, frescore, ftags)
+            self._mir = mir
+            if cache is not None:
+                if isinstance(xc, torch.Tensor):
+                    # fetching every device chunk back to the host would undo
+                    # the device-authoritative build; drop the cache and
+                    # hydrate on demand if persistence needs it
+                    log.warning("host_cache_dropped_for_device_ingest")
+                    self._host_cache = cache = None
+                elif self.metric == "cosine":
+                    # normalize on host rather than fetching the device copy
+                    cache[rows[lo:hi]] = xc / np.maximum(
+                        np.linalg.norm(xc, axis=1, keepdims=True), 1e-12
+                    )
+                else:
+                    cache[rows[lo:hi]] = xc
+
+    def _f32_chunk(self, idx: torch.Tensor) -> torch.Tensor:
+        """Gather f32(-grade) rows from the mirror by row id (on device).
+        With the residual mirror the reconstruction carries ~16 bits of
+        mantissa — exact enough for k-means samples, host rescores and
+        persistence round trips."""
+        mir = self._mir
+        if isinstance(mir.frescore, tuple):
+            return (
+                mir.fvecs[idx].to(torch.float32) * mir.fscales[idx][:, None]
+                + mir.frescore[0][idx].to(torch.float32)
+                * mir.frescore[1][idx][:, None]
+            )
+        if mir.frescore is not None:
+            return mir.frescore[idx]
+        if self._dtype == torch.int8:
+            return mir.fvecs[idx].to(torch.float32) * mir.fscales[idx][:, None]
+        return mir.fvecs[idx].to(torch.float32)
+
+    def gather_f32(self, rows: np.ndarray):
+        """Exact f32 values for the given row ids, host-side, gathering ONLY
+        those rows. Returns ``(vals, ok)`` where ``ok`` marks in-bounds ids
+        (stale ids racing a compaction are masked, not dereferenced)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        ok = (rows >= 0) & (rows < self._n_rows)
+        safe = np.where(ok, rows, 0)
+        if self._host_cache is not None:
+            return self._host_cache[safe], ok
+        if self._mir is None or self._n_rows == 0:
+            return np.zeros((rows.shape[0], self.dim), dtype=np.float32), ok
+        out = np.empty((rows.shape[0], self.dim), dtype=np.float32)
+        for lo in range(0, rows.shape[0], _CHUNK_ROWS):
+            hi = min(lo + _CHUNK_ROWS, rows.shape[0])
+            out[lo:hi] = self._f32_chunk(self._to_dev(safe[lo:hi])).cpu().numpy()
+        return out, ok
+
+    def _topm_rows(self, rows: np.ndarray, m: int) -> np.ndarray:
+        """Per-row m nearest clusters, computed on the device from the mirror."""
+        cent = self._to_dev(np.asarray(self.centroids, dtype=np.float32))
+        out = np.empty((rows.shape[0], m), dtype=np.int32)
+        for lo in range(0, rows.shape[0], _CHUNK_ROWS):
+            hi = min(lo + _CHUNK_ROWS, rows.shape[0])
+            xd = self._f32_chunk(self._to_dev(rows[lo:hi].astype(np.int64)))
+            out[lo:hi] = topm_step(xd, cent, m).cpu().numpy()
+        return out
+
+    # -- build -------------------------------------------------------------------
+
+    def train(self, x: Optional[np.ndarray] = None) -> None:
+        """Train the coarse quantizer (on provided sample or current rows)."""
+        if x is not None:
+            x = self._check_vectors(x, device_ok=False)
+            if self.metric == "cosine":
+                x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+            sample_dev = self._to_dev(x)
+        else:
+            live = np.flatnonzero(self._alive[: self._n_rows])
+            if live.size == 0:
+                raise ValueError("cannot train IVF on an empty corpus")
+            max_train = self.nlist * TRAIN_POINTS_PER_CENTROID
+            if live.size > max_train:
+                rng = np.random.default_rng(self.seed)
+                live = rng.choice(live, size=max_train, replace=False)
+            sample_dev = self._f32_chunk(self._to_dev(live.astype(np.int64)))
+        if sample_dev.shape[0] == 0:
+            raise ValueError("cannot train IVF on an empty corpus")
+        self.centroids = kmeans_fit_dev(
+            sample_dev, self.nlist, iters=self.kmeans_iters, seed=self.seed
+        )
+
+    @contextmanager
+    def bulk(self, expected_rows: Optional[int] = None):
+        """Deferred-materialization ingest for large streamed builds.
+
+        Inside the block, ``add()`` only uploads rows into the device mirror;
+        training, cluster placement and the padded-layout materialization all
+        happen ONCE when the block exits. ``expected_rows`` pre-sizes the
+        mirror exactly so chunked adds never trigger a grow-copy.
+
+        Searching inside the block serves the pre-bulk snapshot if one
+        exists; on a fresh index it raises. Not for concurrent use: callers
+        hold the store write lock or own the index outright."""
+        if self._bulk:
+            raise RuntimeError("bulk() blocks do not nest")
+        if expected_rows is not None and expected_rows > 0:
+            self._extend_meta_capacity(expected_rows)
+            self._ensure_mirror(max(expected_rows, 1), exact=True)
+        self._bulk = True
+        try:
+            yield self
+        finally:
+            self._bulk = False
+            if self._n_rows > 0:
+                if not self.is_trained:
+                    self.train()
+                self._rebuild_layout()
+                self._materialize()
+
+    def add(self, x, tags=None) -> np.ndarray:
+        """Append rows; trains the quantizer on first call. Returns row ids.
+
+        ``x`` may be a numpy array or a torch tensor (a corpus generated on
+        the device needs no host round trip). ``tags`` (optional int32 per
+        row, >= 0) enable device-side filtered search on the exact path;
+        None = tag 0."""
+        x = self._check_vectors(x)
+        if x.shape[0] == 0:
+            return np.zeros((0,), dtype=np.int64)
+        n = x.shape[0]
+        if tags is None:
+            tags = np.zeros((n,), dtype=np.int32)
+        else:
+            tags = np.asarray(tags, dtype=np.int32).ravel()
+            if tags.shape[0] != n:
+                raise ValueError(f"expected {n} tags, got {tags.shape[0]}")
+        if self._use_pending(n):
+            return self._add_pending(x, tags)
+        rows = self._extend_meta(n, tags)
+        self._ensure_mirror(self._n_rows)
+        self._ingest_rows(x, rows, tags)
+        if self._bulk:
+            # layout/materialization deferred to bulk() exit; the mirror is
+            # authoritative so nothing is lost if the block exits early
+            self._dirty = True
+            return rows
+        if not self.is_trained:
+            self.train()
+            self._rebuild_layout()
+            self._materialize()
+            return rows
+        if self.cmax == 0:
+            self._rebuild_layout()
+            self._materialize()
+            return rows
+        self._stream_place(rows)
+        return rows
+
+    def _stream_place(self, rows: np.ndarray) -> None:
+        """Streaming placement: nearest candidate cluster with a free slot;
+        a full layout rebuild when every candidate cluster is full."""
+        cands = self._topm_rows(rows, m=min(4, self.nlist))
+        assign = np.empty(len(rows), dtype=np.int32)
+        counts = self._counts.copy()
+        overflow = False
+        for i, row_cands in enumerate(cands):
+            for c in row_cands:
+                if counts[c] < self.cmax:
+                    assign[i] = c
+                    counts[c] += 1
+                    break
+            else:
+                overflow = True
+                break
+        if overflow:
+            self._rebuild_layout()
+        else:
+            self._place_rows(rows, assign)
+        if self._dirty:
+            self._materialize()  # eager: readers never materialize dirty state
+
+    # -- pending tail (streaming inserts past the memory threshold) --------------
+
+    # streaming adds scatter copy-on-write into the authoritative mirror; past
+    # this footprint inserts land in a small exact-scanned side buffer merged
+    # into every search instead (the reference's constants, kept as they are)
+    PENDING_THRESHOLD_BYTES = 2 << 30
+    PENDING_CAP = 8192
+
+    def _scatter_copy_bytes(self) -> int:
+        """Transient bytes a copy-on-write mirror scatter materializes."""
+        mir = self._mir
+        if mir is None:
+            return 0
+        total = mir.fvecs.numel() * mir.fvecs.element_size()
+        resc = mir.frescore[0] if isinstance(mir.frescore, tuple) else mir.frescore
+        if resc is not None:
+            total += resc.numel() * resc.element_size()
+        return total
+
+    def _use_pending(self, n: int) -> bool:
+        return (
+            not self._bulk
+            and self.is_trained
+            and self.cmax > 0
+            and n <= self.PENDING_CAP
+            and self._scatter_copy_bytes() > self.PENDING_THRESHOLD_BYTES
+        )
+
+    def _add_pending(self, x, tags: np.ndarray) -> np.ndarray:
+        n = x.shape[0]
+        pend = self._pend
+        used = 0 if pend is None else pend[3]
+        if used + n > self.PENDING_CAP:
+            # fold the tail into the main layout (one big scatter, the cost
+            # this path amortizes PENDING_CAP rows deep)
+            self._fold_pending()
+            used = 0
+        rows = self._extend_meta(n, tags)
+        xd = (x if isinstance(x, torch.Tensor) else self._to_dev(x)).to(torch.float32)
+        if self._pend is None:
+            cap, d = self.PENDING_CAP, self.dim
+            self._pend = (
+                self._zeros((cap, d), torch.float32),
+                torch.full((cap,), -1, dtype=torch.int32, device=self.device),
+                self._zeros((cap,), torch.int32),
+                0,
+            )
+            used = 0
+        vecs, pids, ptags, _ = self._pend
+        idx = torch.arange(used, used + n, device=self.device)
+        self._pend = (
+            _set(vecs, idx, xd, False),
+            _set(pids, idx, self._to_dev(rows.astype(np.int32)), False),
+            _set(ptags, idx, self._to_dev(tags), False),
+            used + n,
+        )
+        self._host_ingest_only = self._host_ingest_only and not isinstance(
+            x, torch.Tensor
+        )
+        return rows
+
+    def _fold_pending(self, place: bool = True) -> None:
+        """Scatter the pending tail into the authoritative mirror (+ layout
+        placement unless the caller is about to rebuild the layout anyway)."""
+        pend = self._pend
+        self._pend = None
+        if pend is None or pend[3] == 0:
+            return
+        vecs, pids, ptags, n = pend
+        pid_np = pids[:n].cpu().numpy()
+        mask = pid_np >= 0  # tombstoned-in-pending rows drop here
+        if not mask.any():
+            return
+        rows = pid_np[mask].astype(np.int64)
+        keep = self._to_dev(np.flatnonzero(mask).astype(np.int64))
+        self._ensure_mirror(self._n_rows)
+        self._ingest_rows(vecs[keep], rows, ptags[:n].cpu().numpy()[mask])
+        if place:
+            self._stream_place(rows)
+
+    def _allow_dev(self, allow_tags):
+        if allow_tags is None:
+            return None
+        return self._to_dev(pad_allow(allow_tags))
+
+    def _merge_pending_into(self, scores, ids, q_dev, allow_tags=None):
+        """Chain the pending-tail exact scan onto in-flight (scores, ids)."""
+        pend = self._pend
+        if pend is None or pend[3] == 0:
+            return scores, ids
+        vecs, pids, ptags, _ = pend
+        return _pending_merge(scores, ids, q_dev, vecs, pids, ptags,
+                              self.metric, self._allow_dev(allow_tags))
+
+    def _merge_pending_into_batched(self, scores, ids, qs_dev, allow_tags=None):
+        pend = self._pend
+        if pend is None or pend[3] == 0:
+            return scores, ids
+        vecs, pids, ptags, _ = pend
+        allow = self._allow_dev(allow_tags)
+        outs = [
+            _pending_merge(scores[b], ids[b], qs_dev[b], vecs, pids, ptags,
+                           self.metric, allow)
+            for b in range(qs_dev.shape[0])
+        ]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+
+    def remove(self, rows: np.ndarray) -> None:
+        """Tombstone rows (device slots masked via ids == -1)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        rows = rows[self._alive[rows]]
+        if rows.size == 0:
+            return
+        self._alive[rows] = False
+        self.size -= int(rows.size)
+        locs = self._loc[rows]
+        placed = locs[:, 0] >= 0
+        rows_d = self._to_dev(rows)
+        pend = self._pend
+        if pend is not None and pend[3] > 0:
+            vecs, pids, ptags, n_used = pend
+            hit = torch.isin(pids, rows_d.to(torch.int32))
+            self._pend = (vecs, torch.where(hit, -1, pids), ptags, n_used)
+        if self._mir is not None:
+            self._mir = self._mir._replace(
+                fvalid=self._mir.fvalid.index_fill(0, rows_d, False)
+            )
+        dev = self._dev
+        if not self._dirty and dev is not None:
+            new = dev._replace(fvalid=self._mir.fvalid)
+            if placed.any():
+                c = self._to_dev(locs[placed, 0].astype(np.int64))
+                s = self._to_dev(locs[placed, 1].astype(np.int64))
+                new = new._replace(ids=new.ids.index_put(
+                    (c, s), torch.tensor(-1, dtype=torch.int32, device=self.device)
+                ))
+            self._dev = new
+
+    def _pack(self, data, ids, sqnorms, scales, mir, rows_d, c_d, s_d,
+              inplace: bool):
+        """Scatter mirror rows into the padded cluster layout (device)."""
+        data = _set(data, (c_d, s_d), mir.fvecs[rows_d], inplace)
+        ids = _set(ids, (c_d, s_d), rows_d, inplace)
+        sqnorms = _set(sqnorms, (c_d, s_d), mir.fnorms[rows_d], inplace)
+        if scales is not None:
+            scales = _set(scales, (c_d, s_d), mir.fscales[rows_d], inplace)
+        return data, ids, sqnorms, scales
+
+    def _place_rows(self, rows: np.ndarray, assign: np.ndarray) -> None:
+        """Assign slots for new rows and scatter them into the device layout."""
+        # vectorized slot assignment: rows headed to the same cluster take
+        # consecutive slots starting at the cluster's current count
+        order = np.argsort(assign, kind="stable")
+        sorted_assign = assign[order]
+        group_start = np.zeros(len(order), dtype=np.int64)
+        new_group = np.flatnonzero(np.diff(sorted_assign)) + 1
+        group_start[new_group] = new_group
+        np.maximum.accumulate(group_start, out=group_start)
+        rank_in_group = np.arange(len(order), dtype=np.int64) - group_start
+        slots = np.empty(len(assign), dtype=self._counts.dtype)
+        slots[order] = self._counts[sorted_assign] + rank_in_group
+        np.add.at(self._counts, assign, 1)
+        self._assign[rows] = assign
+        self._loc[rows, 0] = assign
+        self._loc[rows, 1] = slots
+        dev = self._dev
+        if self._dirty or dev is None:
+            return
+        mir = self._mir
+        data, ids, sqnorms, scales = self._pack(
+            dev.data, dev.ids, dev.sqnorms, dev.scales, mir,
+            self._to_dev(rows.astype(np.int64)),
+            self._to_dev(assign.astype(np.int64)),
+            self._to_dev(slots.astype(np.int64)), inplace=False,
+        )
+        self._dev = dev._replace(data=data, ids=ids, sqnorms=sqnorms,
+                                 scales=scales, **mir._asdict())
+
+    def _rebuild_layout(self) -> None:
+        """Re-pack live rows into capacity-padded cluster blocks.
+
+        Assignment is capacity-balanced: clusters are capped near the mean
+        occupancy and excess points spill to their next-nearest cluster, so
+        the padded layout stays dense (bounded cmax = bounded scan traffic)
+        even on skewed corpora. Candidate clusters are scored on the device;
+        only the (N, m) int32 candidate table and the O(N) greedy assignment
+        run on the host."""
+        # pending rows live only in the side buffer; the re-pack below reads
+        # every live row from the mirror, so fold first (no placement)
+        self._fold_pending(place=False)
+        live = np.flatnonzero(self._alive[: self._n_rows])
+        mean = max(1.0, live.size / self.nlist)
+        cap = max(8, int(np.ceil(mean * self.balance_cap)))
+        # m=8 spill candidates: enough fallthrough that the cap holds
+        cands = self._topm_rows(live, m=min(8, self.nlist))
+        assign = balanced_assign(cands, self.nlist, cap)
+        self._assign[live] = assign
+        counts = np.bincount(assign, minlength=self.nlist).astype(np.int32)
+        # headroom so streaming inserts don't immediately re-trigger a
+        # rebuild; the probing kernel needs 128-aligned cluster blocks
+        slot_align = 128 if self._pallas_eligible() else 8
+        self.cmax = max(
+            slot_align, round_up(int(counts.max() * 1.1) + 8, slot_align)
+        )
+        order = np.argsort(assign, kind="stable")
+        sorted_rows = live[order]
+        sorted_assign = assign[order]
+        starts = np.zeros(self.nlist + 1, dtype=np.int64)
+        np.cumsum(counts, out=starts[1:])
+        slots = np.arange(len(order), dtype=np.int64) - starts[sorted_assign]
+        self._loc[sorted_rows, 0] = sorted_assign
+        self._loc[sorted_rows, 1] = slots.astype(np.int32)
+        self._counts = counts
+        self._dirty = True
+        log.info(
+            "ivf_layout_rebuilt",
+            nlist=self.nlist,
+            cmax=self.cmax,
+            rows=int(live.size),
+            fill=float(live.size / max(self.nlist * self.cmax, 1)),
+        )
+
+    def _materialize(self) -> tuple:
+        """(Re)build the padded cluster layout from the device mirror. All
+        vector bytes move device to device; the host contributes only the
+        int32 location table and the liveness/tag refresh."""
+        self._ensure_mirror(max(self._n_rows, 1))
+        mir = self._mir
+        # refresh liveness/tags from the host authority (covers external
+        # _tags writes, e.g. store.load re-deriving tags)
+        mcap = self._mirror_cap
+        fvalid_h = np.zeros((mcap,), dtype=bool)
+        fvalid_h[: self._n_rows] = self._alive[: self._n_rows]
+        ftags_h = np.zeros((mcap,), dtype=np.int32)
+        ftags_h[: self._n_rows] = self._tags[: self._n_rows]
+        mir = mir._replace(fvalid=self._to_dev(fvalid_h),
+                           ftags=self._to_dev(ftags_h))
+        self._mir = mir
+
+        live = np.flatnonzero(self._alive[: self._n_rows])
+        c_all = self._loc[live, 0]
+        s_all = self._loc[live, 1]
+        shape2 = (self.nlist, self.cmax)
+        data = self._zeros(shape2 + (self.dim,), self._dtype)
+        ids = torch.full(shape2, -1, dtype=torch.int32, device=self.device)
+        sqnorms = self._zeros(shape2, torch.float32)
+        scales = (self._zeros(shape2, torch.float32)
+                  if self._dtype == torch.int8 else None)
+        # chunk so the transient (chunk, dim) gather stays bounded at high dim
+        chunk = max(8192, min(_CHUNK_ROWS, (256 << 20) // max(self.dim * 4, 1)))
+        for lo in range(0, live.size, chunk):
+            hi = min(lo + chunk, live.size)
+            # fresh tensors no reader has seen: pack in place
+            data, ids, sqnorms, scales = self._pack(
+                data, ids, sqnorms, scales, mir,
+                self._to_dev(live[lo:hi].astype(np.int64)),
+                self._to_dev(c_all[lo:hi].astype(np.int64)),
+                self._to_dev(s_all[lo:hi].astype(np.int64)), inplace=True,
+            )
+        dev = _Dev(
+            data=data,
+            ids=ids,
+            sqnorms=sqnorms,
+            scales=scales,
+            centroids=self._to_dev(np.asarray(self.centroids, dtype=np.float32)),
+            **mir._asdict(),
+        )
+        self._dev = dev  # single atomic swap
+        self._dirty = False
+        return dev
+
+    @property
+    def device_rescore_active(self) -> bool:
+        """True when exact-path searches already return exact-grade rescored
+        results (f32 mirror or two-level int8 residual), so the store skips
+        its host-side rescore."""
+        mir = self._mir
+        if mir is not None:
+            return mir.frescore is not None
+        return self._rescore_kind(max(self._n_rows, 1)) != "none"
+
+    def _ensure_device(self) -> tuple:
+        """Reader-side snapshot. Materialization is a writer responsibility
+        (writers call it eagerly after layout rebuilds); a stale-but-
+        consistent snapshot is always safe to search."""
+        dev = self._dev
+        if dev is None:
+            if self._bulk:
+                raise RuntimeError(
+                    "index is inside a bulk() ingest and has no materialized "
+                    "snapshot yet; finish the bulk block before searching"
+                )
+            dev = self._materialize()
+        return dev
+
+    # -- search ------------------------------------------------------------------
+
+    def _pallas_eligible(self) -> bool:
+        if self.use_pallas == "never":
+            return False
+        return self.metric in ("ip", "cosine") and self.dim % 128 == 0
+
+    def _storage_name(self) -> str:
+        return storage_name(self._dtype)
+
+    def _fetch_width(self, k: int, rows: int, rescore) -> int:
+        """Candidate width for the exact path (see FlatIndex)."""
+        if rescore is None:
+            return min(k, rows)
+        if self.fetch_width > 0:
+            return min(max(self.fetch_width, k), rows)
+        if isinstance(rescore, tuple):
+            return min(max(4 * k, 96), rows)
+        return min(max(4 * k, 128), rows)
+
+    def _rescore_width(self, k: int, rescore) -> int:
+        return resolve_rescore_width(
+            self.rescore_width, self.fetch_width, k, rescore
+        )
+
+    def _score_dtype(self, rescore) -> str:
+        if self.score_dtype == "float16" and rescore is None:
+            return "float32"  # nothing re-orders the quantized fp16 scores
+        if self.score_dtype != "auto":
+            return self.score_dtype
+        return "float32"
+
+    @property
+    def rows_allocated(self) -> int:
+        """Upper bound (exclusive) of valid row ids, tombstoned rows
+        included (``size`` counts live rows only)."""
+        return self._n_rows
+
+    def _scan_impl(self) -> str:
+        """Exact-scan routing (see FlatIndex._scan_impl)."""
+        if self.scan_impl != "pallas" or self.dim % 128 != 0:
+            return "xla"
+        return "pallas"
+
+    def _pallas_mode(self) -> str:
+        """'off' | 'compiled' | 'plain': the probing kernel on a CUDA device,
+        its plain version on the CPU when asked for (``use_pallas="always"``,
+        as the reference's Pallas interpret mode), or the gather-scan route."""
+        if not self._pallas_eligible() or self.cmax % 128 != 0:
+            return "off"
+        if self.device.type == "cuda":
+            return "compiled"
+        return "plain" if self.use_pallas == "always" else "off"
+
+    # Per-row fixed overhead of the probing path in dim-equivalent bytes, as
+    # the reference calibrated it on its own hardware (ivf.py:1088-1097).
+    # Kept unchanged so _pick_mode makes the reference's decision for the
+    # same layout; recalibrating it for this card is separate work.
+    _PROBE_ROW_OVERHEAD = 1536.0
+
+    def _pick_mode(self, n_q_padded: int, nprobe: int, k: int) -> str:
+        """Cost-based scan selection: probing reads each probed cluster once
+        per batch, U * cmax * (dim + overhead) bytes with U the expected
+        number of distinct probed clusters; the exact path reads the flat
+        mirror once, N * dim bytes. Probing wins on wide rows at small batch
+        and loses at large batch (the union saturates toward nlist)."""
+        if nprobe >= self.nlist:
+            return "exact"
+        draws = n_q_padded * nprobe
+        u_expect = self.nlist * (1.0 - (1.0 - 1.0 / self.nlist) ** draws)
+        ivf_bytes = u_expect * self.cmax * (self.dim + self._PROBE_ROW_OVERHEAD)
+        scan_rows = self._mirror_cap or (self.nlist * self.cmax)
+        if scan_rows * self.dim <= ivf_bytes:
+            return "exact"
+        return "ivf"
+
+    def _exact(self, dev, q_dev, k, k_out, allow_tags, batched=False):
+        rows = dev.fvecs.shape[0]
+        k = min(k, rows)
+        resc_f32, resid, rscl = split_rescore(dev.frescore)
+        fn = exact_scan_batched if batched else exact_scan
+        return fn(
+            dev.fvecs, dev.fnorms, dev.fvalid, dev.fscales, resc_f32, q_dev,
+            k, self._fetch_width(k, rows, dev.frescore), self.metric,
+            self._storage_name(),
+            k_out=k_out,
+            score_dtype=self._score_dtype(dev.frescore),
+            tags=dev.ftags if allow_tags is not None else None,
+            allow=self._allow_dev(allow_tags),
+            scan_impl=self._scan_impl(),
+            resid=resid,
+            rscales=rscl,
+            rescore_width=self._rescore_width(k, dev.frescore),
+        )
+
+    def _probe(self, dev, q_dev, k, np_probe):
+        """Probing path + merged exact rescore; returns (scores, ids) with
+        ``k_eff`` columns."""
+        rows_total = dev.data.shape[0] * dev.data.shape[1]
+        # with a rescore mirror, over-fetch candidates so the exact rescore
+        # can recover int8-ranking misses (64 keeps the kernel eligible)
+        fetch = max(4 * k, 64) if dev.frescore is not None else k
+        k_shard = min(fetch, dev.data.shape[1] * np_probe, rows_total)
+        k_eff = min(k, k_shard)
+        scores, ids = _ivf_search(
+            dev.data, dev.ids, dev.sqnorms,
+            dev.scales if dev.scales is not None else dev.sqnorms,
+            dev.centroids, q_dev, k_shard, np_probe, self.metric,
+            self._pallas_mode(), self._dtype == torch.int8,
+            min(fetch, k_shard),
+        )
+        scores, ids = self._rescore_merged(dev, q_dev, scores, ids)
+        return scores[:, :k_eff], ids[:, :k_eff]
+
+    def search(
+        self,
+        queries: np.ndarray,
+        k: int = 10,
+        nprobe: Optional[int] = None,
+        mode: str = "auto",  # auto | ivf | exact
+        allow_tags=None,  # device-side filter: forces the exact path
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        q = np.ascontiguousarray(np.atleast_2d(queries), dtype=np.float32)
+        if q.shape[1] != self.dim:
+            raise ValueError(f"expected queries of dim {self.dim}, got {q.shape}")
+        n_q = q.shape[0]
+        if self.size == 0 or not self.is_trained:
+            if self._bulk and self.size > 0:
+                raise RuntimeError(
+                    "index is inside a bulk() ingest with no materialized "
+                    "snapshot; finish the bulk block before searching"
+                )
+            return (
+                np.full((n_q, k), _NEG_INF, dtype=np.float32),
+                np.full((n_q, k), -1, dtype=np.int64),
+            )
+        if self.metric == "cosine":
+            q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        dev = self._ensure_device()
+        np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
+        q_dev = self._to_dev(q)
+        if allow_tags is not None:
+            # tag masking lives on the flat mirror; the probing layout is
+            # cluster-addressed and unfiltered, so filtered searches take the
+            # exact path
+            mode = "exact"
+        if mode == "auto":
+            mode = self._pick_mode(_cost_bucket(n_q), np_probe, k)
+        if mode == "exact":
+            k_eff = min(k, dev.fvecs.shape[0])
+            scores, ids = self._exact(dev, q_dev, k_eff, k_eff, allow_tags)
+        else:
+            scores, ids = self._probe(dev, q_dev, k, np_probe)
+            k_eff = scores.shape[1]
+        scores, ids = self._merge_pending_into(scores, ids, q_dev, allow_tags)
+        scores = scores.cpu().numpy().astype(np.float32)
+        ids = ids.cpu().numpy().astype(np.int64)
+        bad = (ids < 0) | (scores <= _NEG_INF / 2)
+        scores = np.where(bad, _NEG_INF, scores)
+        ids = np.where(bad, -1, ids)
+        if k_eff < k:
+            scores = np.pad(scores, ((0, 0), (0, k - k_eff)), constant_values=_NEG_INF)
+            ids = np.pad(ids, ((0, 0), (0, k - k_eff)), constant_values=-1)
+        return scores, ids
+
+    def _rescore_merged(self, dev, q_dev, scores, ids):
+        """Post-merge exact re-ranking of probing-path candidates via the
+        f32 mirror or the two-level int8 residual; no-op without a device
+        rescore tier."""
+        if dev.frescore is None:
+            return scores, ids
+        if isinstance(dev.frescore, tuple):
+            exact = rescore_global_residual(
+                dev.fvecs, dev.fscales, dev.frescore[0], dev.frescore[1],
+                dev.fnorms, q_dev, ids, self.metric,
+            )
+        else:
+            exact = rescore_global(dev.frescore, dev.fnorms, q_dev, ids,
+                                   self.metric)
+        return _resort(exact, ids)
+
+    def search_device(
+        self, q_dev, k: int, nprobe: Optional[int] = None, mode: str = "auto",
+        allow_tags=None,
+    ):
+        """Device-to-device IVF search (see FlatIndex.search_device):
+        ``q_dev`` (Q, dim) metric-normalized on this index's device; returns
+        device tensors (scores, ids)."""
+        dev = self._ensure_device()
+        np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
+        if allow_tags is not None:
+            mode = "exact"  # see search(): tag masking rides the flat mirror
+        if mode == "auto":
+            mode = self._pick_mode(_cost_bucket(q_dev.shape[0]), np_probe, k)
+        if mode == "exact":
+            scores, ids = self._exact(dev, q_dev, k, None, allow_tags)
+        else:
+            scores, ids = self._probe(dev, q_dev, k, np_probe)
+        return self._merge_pending_into(scores, ids, q_dev, allow_tags)
+
+    def search_device_batched(
+        self, qs_dev, k: int, allow_tags=None, mode: str = "exact",
+        nprobe: Optional[int] = None,
+    ):
+        """Search over B query batches: ``qs_dev`` (B, Q, dim) metric-
+        normalized. ``mode``: "exact" scans the flat mirror; "probe" runs the
+        nprobe cluster-scan path (the reference chains B batches into one
+        dispatch; here it is a loop). Returns (scores (B, Q, k), ids)."""
+        if mode not in ("exact", "probe"):
+            raise ValueError(
+                f"search_device_batched mode must be 'exact' or 'probe', "
+                f"got {mode!r} (no 'auto' here: the chained launch commits "
+                f"all B batches to one path)"
+            )
+        dev = self._ensure_device()
+        if allow_tags is not None:
+            mode = "exact"  # tag masking rides the flat mirror (see search())
+        if mode == "exact":
+            scores, ids = self._exact(dev, qs_dev, k, None, allow_tags,
+                                      batched=True)
+        else:
+            np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
+            outs = [self._probe(dev, qs_dev[b], k, np_probe)
+                    for b in range(qs_dev.shape[0])]
+            scores = torch.stack([o[0] for o in outs])
+            ids = torch.stack([o[1] for o in outs])
+        return self._merge_pending_into_batched(scores, ids, qs_dev, allow_tags)
+
+    # -- maintenance / persistence -------------------------------------------------
+
+    def retrain(self) -> None:
+        """Re-train the quantizer on the live corpus and re-pack the layout."""
+        self.train()
+        self._rebuild_layout()
+        self._materialize()
+
+    def _like(self) -> "IVFIndex":
+        return IVFIndex(
+            self.dim,
+            nlist=self.nlist,
+            nprobe=self.nprobe,
+            metric=self.metric,
+            dtype=self._storage_name(),
+            kmeans_iters=self.kmeans_iters,
+            seed=self.seed,
+            use_pallas=self.use_pallas,
+            balance_cap=self.balance_cap,
+            device_rescore=self.device_rescore,
+            score_dtype=self.score_dtype,
+            fetch_width=self.fetch_width,
+            scan_impl=self.scan_impl,
+            rescore_mode=self.rescore_mode,
+            rescore_width=self.rescore_width,
+            device=self.device,
+        )
+
+    def compacted(self) -> Tuple["IVFIndex", np.ndarray]:
+        """Build a NEW index holding only the live rows, renumbered densely.
+
+        Returns (new_index, remap) where remap maps old row -> new row (-1
+        for dropped rows). The caller (store.compact) installs the new index
+        and freshly-built row maps in ONE view swap."""
+        # the gather below reads every live row from the mirror; fold the
+        # pending tail in first (writer-side mutation, same lock)
+        self._fold_pending()
+        live = np.flatnonzero(self._alive[: self._n_rows])
+        remap = np.full(self._n_rows, -1, dtype=np.int64)
+        remap[live] = np.arange(live.size)
+        new = self._like()
+        new.centroids = None if self.centroids is None else self.centroids.copy()
+        n = int(live.size)
+        if n == 0:
+            return new, remap
+        new_rows = new._extend_meta(n, self._tags[live])
+        new._ensure_mirror(n)
+        # device-to-device renumbering gather into the new (unread) mirror
+        mir, nm = self._mir, new._mir
+        cache = new._host_cache
+        for lo in range(0, n, _CHUNK_ROWS):
+            hi = min(lo + _CHUNK_ROWS, n)
+            src = self._to_dev(live[lo:hi].astype(np.int64))
+            dst = self._to_dev(new_rows[lo:hi].astype(np.int64))
+            fvecs = _set(nm.fvecs, dst, mir.fvecs[src], True)
+            fvalid = _set(nm.fvalid, dst,
+                          torch.ones_like(dst, dtype=torch.bool), True)
+            fnorms = _set(nm.fnorms, dst, mir.fnorms[src], True)
+            fscales = _set(nm.fscales, dst, mir.fscales[src], True)
+            frescore = nm.frescore
+            if frescore is not None and mir.frescore is not None:
+                old_resid = isinstance(mir.frescore, tuple)
+                if isinstance(frescore, tuple):
+                    if old_resid:
+                        rq, rs = mir.frescore[0][src], mir.frescore[1][src]
+                    else:  # auto-kind flip across the rebuild: re-derive
+                        rq, rs = quantize_residual_device(
+                            mir.frescore[src], mir.fvecs[src].to(torch.float32),
+                            mir.fscales[src],
+                        )
+                    frescore = (_set(frescore[0], dst, rq, True),
+                                _set(frescore[1], dst, rs, True))
+                else:
+                    frescore = _set(frescore, dst, self._f32_chunk(src), True)
+            ftags = _set(nm.ftags, dst, self._to_dev(self._tags[live[lo:hi]]),
+                         True)
+            nm = _Mirror(fvecs, fvalid, fnorms, fscales, frescore, ftags)
+            if cache is not None:
+                if self._host_cache is not None:
+                    cache[lo:hi] = self._host_cache[live[lo:hi]]
+                else:
+                    cache[lo:hi] = self._f32_chunk(src).cpu().numpy()
+        new._mir = nm
+        if not new.is_trained:
+            new.train()
+        new._rebuild_layout()
+        new._materialize()
+        return new, remap
+
+    def compact(self) -> np.ndarray:
+        """Drop tombstoned rows and re-pack IN PLACE (legacy surface).
+
+        Builds the compacted index as a new object and adopts its state, so
+        readers holding the previous snapshot keep a consistent corpus.
+        Returns the remap array (old row -> new row, -1 for dropped rows)."""
+        new, remap = self.compacted()
+        for name in (
+            "size", "_n_rows", "_meta_cap", "_assign", "_loc", "_alive",
+            "_tags", "centroids", "_counts", "cmax", "_mir", "_dirty",
+            "_host_cache", "_mirror_cap", "_pend",
+        ):
+            setattr(self, name, getattr(new, name))
+        self._dev = new._dev  # last: readers swap to the new snapshot whole
+        return remap
+
+    def state_dict(self) -> dict:
+        """Same keys and dtypes as the reference's ``IVFIndex.state_dict``."""
+        # the host hydration below reads the mirror; pending-tail rows live
+        # only in the side buffer until folded
+        self._fold_pending()
+        live = np.flatnonzero(self._alive[: self._n_rows])
+        host = self._host
+        return {
+            "kind": self.kind,
+            "dim": self.dim,
+            "metric": self.metric,
+            "nlist": self.nlist,
+            "nprobe": self.nprobe,
+            "centroids": None if self.centroids is None else self.centroids.copy(),
+            "vectors": host[live].copy(),
+            "assignments": self._assign[live].copy(),
+            "rows": live.copy(),
+            "tags": self._tags[live].copy(),
+        }
+
+    @classmethod
+    def from_state(cls, state: dict, **kwargs) -> "IVFIndex":
+        """Rebuild from a state dict: the saved vectors are re-added under
+        the saved centroids (rows renumber densely in saved order)."""
+        idx = cls(
+            int(state["dim"]),
+            nlist=int(state["nlist"]),
+            nprobe=int(state["nprobe"]),
+            metric=str(state["metric"]),
+            **kwargs,
+        )
+        vecs = np.asarray(state["vectors"], dtype=np.float32)
+        if state.get("centroids") is not None:
+            idx.centroids = np.asarray(state["centroids"], dtype=np.float32)
+        if vecs.size:
+            tags = state.get("tags")
+            tags = (
+                np.asarray(tags, dtype=np.int32)
+                if tags is not None
+                else np.zeros((vecs.shape[0],), dtype=np.int32)
+            )
+            # saved vectors are already metric-normalized; add() would
+            # re-normalize (a no-op for unit rows) on the device
+            idx.add(vecs, tags=tags)
+        return idx
+
+
+def _resort(scores, ids):
+    """Order (scores, ids) by descending score, ties to the lower position."""
+    s, pos = stable_topk(scores, scores.shape[1])
+    return s, torch.gather(ids, 1, pos)
+
+
+def _pending_merge(scores, ids, q, pvecs, pids, ptags, metric, allow):
+    """Exact-scan the pending tail and fold it into (scores, ids).
+
+    Score conventions match the main paths: ip = dot on the raw stored
+    vectors, cosine = dot on unit rows (queries arrive normalized), l2 =
+    -||q - x||^2."""
+    k = scores.shape[1]
+    qf = q.to(torch.float32)
+    pv = pvecs
+    if metric == "cosine":
+        pv = pv / torch.clamp(torch.linalg.vector_norm(pv, dim=1, keepdim=True),
+                              min=1e-9)
+    ps = f32_matmul(qf, pv.T)
+    if metric == "l2":
+        pn = torch.sum(pv * pv, dim=1)
+        qn = torch.sum(qf * qf, dim=1, keepdim=True)
+        ps = 2.0 * ps - pn[None, :] - qn
+    valid = pids >= 0
+    if allow is not None:
+        valid = valid & (ptags[:, None] == allow[None, :]).any(dim=1)
+    ps = torch.where(valid[None, :], ps, _NEG)
+    all_s = torch.cat([scores.to(torch.float32), ps], dim=1)
+    all_i = torch.cat(
+        [ids.to(torch.int64),
+         pids.to(torch.int64)[None, :].expand(ps.shape[0], -1)], dim=1
+    )
+    s, pos = stable_topk(all_s, k)
+    return s, torch.gather(all_i, 1, pos)
+
+
+def _ivf_search(data, ids, sqnorms, scales, centroids, q, k, nprobe, metric,
+                pallas_mode="off", quantized=False, k_out=None):
+    """IVF query step (ivf.py:1849-2009): probe selection, the probed
+    clusters' scan, and the merge (on one device, a top-k over the one
+    shard's candidates). ``k`` is the scan's top-k width; the result has
+    ``k_out`` (default k) columns, ids int64. For l2, scores are
+    -||q - x||^2."""
+    k_out = k if k_out is None else min(k_out, k)
+    q = q.to(torch.float32)
+    qc = f32_matmul(q, centroids.T)  # (Q, nlist)
+    if metric == "l2":
+        probe_scores = 2.0 * qc - torch.sum(centroids * centroids, dim=1)[None, :]
+    else:
+        probe_scores = qc
+    _, probes = stable_topk(probe_scores, nprobe)
+    if pallas_mode != "off" and k <= ivf_ops.MAX_K and nprobe <= ivf_ops.MAX_PROBE:
+        top_s, top_i = ivf_ops.ivf_scan(data, ids, q, probes, k,
+                                        scales if quantized else None)
+    else:
+        top_s, top_i = _gather_scan(data, ids, sqnorms, scales, q, probes, k,
+                                    metric, quantized)
+    # the results are sorted: the one-shard merge keeps the first k_out
+    top_s, top_i = top_s[:, :k_out], top_i[:, :k_out].to(torch.int64)
+    if metric == "l2":
+        top_s = top_s - torch.sum(q * q, dim=1, keepdim=True)
+    return top_s, top_i
+
+
+def _gather_scan(data, ids, sqnorms, scales, q, probes, k, metric, quantized):
+    """The reference's gather-scan route (ivf.py:1932-1987): for each probe
+    rank, gather every query's cluster block, score it and merge it into a
+    running top-k (ties to the earlier probe rank, then the lower slot).
+    int8 rows score with exact integer products, as the kernel does."""
+    n_q = q.shape[0]
+    if quantized:
+        q_int, q_scl = quantize_queries_device(q)
+        qv = q_int.to(torch.float32)
+    else:
+        qv, q_scl = q, None
+    best_s = torch.full((n_q, k), _NEG, dtype=torch.float32, device=q.device)
+    best_i = torch.full((n_q, k), -1, dtype=torch.int32, device=q.device)
+    for j in range(probes.shape[1]):
+        pl = probes[:, j]
+        blocks = data[pl].to(torch.float32)  # (Q, cmax, d)
+        scores = f32_matmul(blocks, qv[:, :, None])[:, :, 0]
+        if quantized:
+            scores = scores * q_scl[:, None]
+            scores = scores * scales[pl]
+        ids_blk = ids[pl]
+        if metric == "l2":
+            scores = 2.0 * scores - sqnorms[pl]
+        scores = torch.where(ids_blk >= 0, scores, _NEG)
+        merged_s = torch.cat([best_s, scores], dim=1)
+        merged_i = torch.cat([best_i, ids_blk], dim=1)
+        best_s, pos = stable_topk(merged_s, k)
+        best_i = torch.gather(merged_i, 1, pos)
+    return best_s, best_i

@@ -238,6 +238,41 @@ def exact_scan(
     return s, pos
 
 
+def _rescore_candidates(cand, nrm, q, ids, metric):
+    """Exact f32 scores of gathered candidate rows (Q, K, d) against the
+    queries: an elementwise product and sum, which no TF32 setting lowers
+    (the reference's HIGHEST-precision einsum). -3e38 where ids < 0."""
+    q = q.to(torch.float32)
+    exact = (cand * q[:, None, :]).sum(dim=2)
+    if metric == "l2":
+        exact = 2.0 * exact - nrm
+        exact = exact - torch.sum(q * q, dim=1, keepdim=True)
+    return torch.where(ids >= 0, exact, NEG)
+
+
+def rescore_global(frescore, fnorms, q, ids, metric):
+    """Exact f32 re-scoring of merged candidates identified by global row id
+    (scan.py:418-467), aligned with ``ids`` and NOT re-sorted. The reference
+    gathers each candidate on the shard whose mirror range holds it and sums
+    the shards' parts; on one device that is a plain gather. For l2 the
+    scores follow the -||q-x||^2 convention."""
+    li = ids.to(torch.int64).clamp(0, frescore.shape[0] - 1)
+    return _rescore_candidates(frescore[li], fnorms[li], q, ids, metric)
+
+
+def rescore_global_residual(fvecs, fscales, fresid, frscales, fnorms, q, ids,
+                            metric):
+    """``rescore_global`` for the two-level int8 mirror (scan.py:469-517):
+    candidates are rebuilt from the int8 corpus plus the int8 residual
+    (~16-bit precision) and re-scored in f32."""
+    li = ids.to(torch.int64).clamp(0, fvecs.shape[0] - 1)
+    cand = (
+        fvecs[li].to(torch.float32) * fscales[li][:, :, None]
+        + fresid[li].to(torch.float32) * frscales[li][:, :, None]
+    )
+    return _rescore_candidates(cand, fnorms[li], q, ids, metric)
+
+
 def exact_scan_batched(vecs, norms, valid, scales, rescore, qs, k, fetch,
                        metric, storage, **kwargs):
     """``exact_scan`` over B query batches (qs: (B, Q, d)); returns

@@ -8,9 +8,9 @@ compaction. The snapshot format is the reference's (index.npz +
 rows.msgpack + store.json), so a store saved by either package loads in
 the other.
 
-This engine holds the flat index only. ``index_kind="auto"`` behaves as
-the reference below ``index_ivf_min_size``; reaching it, or asking for
-``index_kind="ivf"``, raises: IVF is not ported yet.
+``index_kind``: ``flat`` (exact scan), ``ivf`` (k-means cluster layout,
+probed), or ``auto``: flat until the corpus reaches ``index_ivf_min_size``
+live rows, then promoted to IVF in one view swap.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from ..logger import get_logger
 from ..settings import AppSettings, settings as default_settings
 from ..utils.tracing import StageTimer
 from .flat import FlatIndex, _NEG_INF as _SCORE_SENTINEL
+from .ivf import IVFIndex
 from .lexical import (
     LexicalFingerprints,
     featurize_queries,
@@ -82,12 +83,6 @@ class SearchHit:
     language: Optional[str] = None
     text: Optional[str] = None
     metadata: Dict[str, Any] = field(default_factory=dict)
-
-
-IVF_NOT_PORTED = (
-    "IVF is not ported to the PyTorch engine yet: use index_kind='flat' "
-    "(or keep an 'auto' store below index_ivf_min_size rows)"
-)
 
 
 class VectorStore:
@@ -168,8 +163,6 @@ class VectorStore:
         """Initialize the engine; loads a snapshot if one exists."""
         if self._connected:
             return
-        if self.config.index_kind == "ivf":
-            raise NotImplementedError(IVF_NOT_PORTED)
         snap = self.snapshot_dir()
         if snap is not None and (snap / "store.json").exists():
             self.load(snap)
@@ -192,19 +185,22 @@ class VectorStore:
     def _ensure_index(self):
         index, row_to_id, row_meta, id_to_row = self._view
         if index is None:
-            # flat, or auto below the IVF threshold (connect() refuses ivf)
-            index = FlatIndex(
-                self.dim,
-                metric=self.metric,
-                capacity=self.config.index_capacity,
-                **self._index_options(),
-            )
+            if self.config.index_kind == "ivf":
+                index = self._new_ivf()
+            else:  # flat | auto start flat; auto promotes later
+                index = FlatIndex(
+                    self.dim,
+                    metric=self.metric,
+                    capacity=self.config.index_capacity,
+                    **self._index_options(),
+                )
             self._view = (index, row_to_id, row_meta, id_to_row)
         return index
 
     def _index_options(self) -> Dict[str, Any]:
-        """FlatIndex options from the settings. Used for new indexes AND
-        snapshot loads: the reference's load passes only the dtype, so a
+        """Index options from the settings (FlatIndex's; IVFIndex adds its
+        own). Used for new indexes AND snapshot loads: the reference's load
+        passes only the dtype, so a
         reloaded store silently reverts scan_impl, the rescore tier and the
         fetch widths to their defaults (a store configured for the kernel
         route serves the full-matrix route after a restart)."""
@@ -220,20 +216,51 @@ class VectorStore:
             device=self.device,
         )
 
-    def _check_promotion(self, n_new: int) -> None:
-        """auto mode: the reference switches flat -> IVF once the corpus
-        reaches ``index_ivf_min_size`` live rows; this engine has no IVF
-        yet, so an upsert that would reach the threshold raises before it
-        writes anything, instead of quietly staying flat."""
+    def _ivf_options(self) -> Dict[str, Any]:
+        """IVFIndex options from the settings (new indexes and loads; the
+        nlist/nprobe/metric of a load come from the snapshot)."""
+        return dict(kmeans_iters=self.config.index_kmeans_iters,
+                    **self._index_options())
+
+    def _new_ivf(self) -> IVFIndex:
+        return IVFIndex(
+            self.dim,
+            nlist=self.config.index_nlist,
+            nprobe=self.config.index_nprobe,
+            metric=self.metric,
+            **self._ivf_options(),
+        )
+
+    def _maybe_promote(self) -> None:
+        """auto mode: switch flat -> IVF once the corpus justifies ANN."""
         if self.config.index_kind != "auto":
             return
         idx = self._index
-        live = (idx.n_live if idx is not None else 0) + n_new
-        if live >= self.config.index_ivf_min_size:
-            raise NotImplementedError(
-                f"{IVF_NOT_PORTED} ({live} live rows would reach "
-                f"index_ivf_min_size={self.config.index_ivf_min_size})"
-            )
+        if not isinstance(idx, FlatIndex):
+            return
+        if idx.n_live < self.config.index_ivf_min_size:
+            return
+        log.info("index_promotion_started", rows=idx.n_live)
+        live = np.flatnonzero(idx._alive[: idx.size])
+        ivf = self._new_ivf()
+        new_rows = ivf.add(idx._host[live], idx._tags[live])
+        remap = dict(zip(live.tolist(), new_rows.tolist()))
+        # Promotion renumbers rows: build FRESH maps and install them together
+        # with the new index in one view swap, so a concurrent lock-free
+        # search never maps flat row numbers through IVF-numbered dicts.
+        old_meta = self._row_meta
+        id_to_row = {k: remap[v] for k, v in self._id_to_row.items()}
+        if self._lex is not None:
+            remap_arr = np.full(max(idx.size, 1), -1, dtype=np.int64)
+            remap_arr[live] = new_rows
+            self._lex.remap(remap_arr)
+        self._view = (
+            ivf,
+            {r: i for i, r in id_to_row.items()},
+            {remap[r]: m for r, m in old_meta.items()},
+            id_to_row,
+        )
+        log.info("index_promotion_done", rows=int(ivf.size))
 
     # -- mutation ----------------------------------------------------------------
 
@@ -275,9 +302,6 @@ class VectorStore:
                             "the original [embeddings] settings)"
                         )
             index = self._ensure_index()
-            self._check_promotion(
-                len({p.id for p in payloads} - self._id_to_row.keys())
-            )
             for start in range(0, total, batch):
                 chunk = payloads[start : start + batch]
                 vecs = np.asarray([p.vector for p in chunk], dtype=np.float32)
@@ -309,16 +333,31 @@ class VectorStore:
                     rows = np.asarray(
                         [self._id_to_row[p.id] for p in old_items], dtype=np.int64
                     )
-                    index.update_rows(rows, old_vecs, old_tags)
-                    for p, m in zip(old_items, old_metas):
-                        self._row_meta[self._id_to_row[p.id]] = m
-                    if lex is not None:
-                        lex.set_rows(rows, old_metas)
+                    if isinstance(index, IVFIndex):
+                        # IVF slots are cluster-addressed: tombstone + re-add
+                        index.remove(rows)
+                        new_rows = index.add(old_vecs, old_tags)
+                        for p, r, m in zip(old_items, new_rows, old_metas):
+                            old_row = self._id_to_row[p.id]
+                            self._row_meta.pop(old_row, None)
+                            self._row_to_id.pop(old_row, None)
+                            self._id_to_row[p.id] = int(r)
+                            self._row_to_id[int(r)] = p.id
+                            self._row_meta[int(r)] = m
+                        if lex is not None:
+                            lex.set_rows(new_rows, old_metas)
+                    else:
+                        index.update_rows(rows, old_vecs, old_tags)
+                        for p, m in zip(old_items, old_metas):
+                            self._row_meta[self._id_to_row[p.id]] = m
+                        if lex is not None:
+                            lex.set_rows(rows, old_metas)
                 done += len(chunk)
                 if progress is not None:
                     progress(done, total)
+            self._maybe_promote()
             self.version += 1
-            self._maybe_compact()
+            self._maybe_compact()  # IVF upserts tombstone + re-add
         return done
 
     @staticmethod
@@ -523,7 +562,7 @@ class VectorStore:
         idx = self._index
         if idx is None:
             return
-        allocated = int(idx.size)
+        allocated = _allocated(idx)
         live = self.count()
         dead = allocated - live
         if dead >= max(self.config.index_auto_compact_min, ratio * max(live, 1)):
@@ -547,14 +586,14 @@ class VectorStore:
             if idx is None:
                 return 0
 
-            before = int(idx.size)
+            before = _allocated(idx)
             if before - self.count() == 0:
                 # nothing tombstoned: skip the device re-pack entirely
                 # (compacted() would otherwise build a full new layout —
                 # minutes at 1M x 3072 — only to be discarded below)
                 return 0
             new_idx, remap = idx.compacted()
-            reclaimed = before - int(new_idx.size)
+            reclaimed = before - _allocated(new_idx)
             if reclaimed == 0:
                 return 0
             old_meta = self._row_meta
@@ -586,17 +625,18 @@ class VectorStore:
         vector: VectorLike,
         *,
         top_k: Any = 10,  # validated/coerced via validate_top_k (API passes raw JSON)
+        nprobe: Optional[int] = None,
         filters: Optional[Dict[str, Any]] = None,
         query_text: Optional[str] = None,
     ) -> List[SearchHit]:
-        """Single-vector search returning enriched hits. (The reference's
-        ``nprobe`` argument returns with IVF.)"""
+        """Single-vector ANN search returning enriched hits."""
         self.connect()
         if self._index is None or self.count() == 0:
             return []
         hits_batch = self.search_batch(
             np.asarray(vector, dtype=np.float32)[None, :],
             top_k=top_k,
+            nprobe=nprobe,
             filters=filters,
             query_texts=[query_text] if query_text is not None else None,
         )
@@ -607,6 +647,7 @@ class VectorStore:
         vectors: np.ndarray,
         *,
         top_k: Any = 10,  # validated/coerced via validate_top_k (API passes raw JSON)
+        nprobe: Optional[int] = None,
         filters: Optional[Dict[str, Any]] = None,
         query_texts: Optional[Sequence[Optional[str]]] = None,
         timer=None,  # optional StageTimer: per-stage serving attribution
@@ -633,7 +674,12 @@ class VectorStore:
         fetch_k = self._fetch_k(index, window, residual)
         use_dev = self._use_device_rerank(index, query_texts, residual)
         with timer.stage("search_device"):
-            scores, ids = index.search(q, k=fetch_k, allow_tags=allow)
+            if isinstance(index, IVFIndex):
+                scores, ids = index.search(
+                    q, k=fetch_k, nprobe=nprobe, allow_tags=allow
+                )
+            else:
+                scores, ids = index.search(q, k=fetch_k, allow_tags=allow)
             if use_dev:
                 scores, ids = self._device_rerank_np(
                     scores, ids, query_texts
@@ -656,6 +702,7 @@ class VectorStore:
         q_dev,
         *,
         top_k: Any = 10,  # validated/coerced via validate_top_k (API passes raw JSON)
+        nprobe: Optional[int] = None,
         filters: Optional[Dict[str, Any]] = None,
         query_texts: Optional[Sequence[Optional[str]]] = None,
         timer=None,  # optional StageTimer: per-stage serving attribution
@@ -686,7 +733,14 @@ class VectorStore:
         fetch_k = self._fetch_k(index, window, residual)
         use_dev = self._use_device_rerank(index, query_texts, residual)
         with timer.stage("search_device"):
-            scores, ids = index.search_device(q_dev, fetch_k, allow_tags=allow)
+            if isinstance(index, IVFIndex):
+                scores, ids = index.search_device(
+                    q_dev, fetch_k, nprobe=nprobe, allow_tags=allow
+                )
+            else:
+                scores, ids = index.search_device(
+                    q_dev, fetch_k, allow_tags=allow
+                )
             if use_dev:
                 # second-stage blend chained on device: no host round trip
                 # between the scan and the rerank
@@ -1025,8 +1079,8 @@ class VectorStore:
         self.metric = str(meta["metric"])
         kind = meta.get("kind")
         if kind == "ivf":
-            raise NotImplementedError(IVF_NOT_PORTED)
-        if kind == "flat":
+            index = IVFIndex.from_state(state, **self._ivf_options())
+        elif kind == "flat":
             index = FlatIndex.from_state(state, **self._index_options())
         else:
             index = None
@@ -1040,6 +1094,20 @@ class VectorStore:
         else:  # snapshots from before the msgpack split
             id_to_row = {k: int(v) for k, v in meta["id_to_row"].items()}
             row_meta = {int(k): v for k, v in meta["row_meta"].items()}
+        if kind == "ivf" and "rows" in state:
+            # IVFIndex.from_state renumbers the saved LIVE rows densely
+            # (0..n-1 in saved order); remap the id/meta maps to match, else a
+            # snapshot taken after any delete dereferences the wrong vectors
+            remap = {
+                int(old): new
+                for new, old in enumerate(np.asarray(state["rows"]).tolist())
+            }
+            id_to_row = {
+                pid: remap[r] for pid, r in id_to_row.items() if r in remap
+            }
+            row_meta = {
+                remap[r]: m for r, m in row_meta.items() if r in remap
+            }
         self._pair_ids = {
             (str(repo), str(lang)): int(tag)
             for repo, lang, tag in meta.get("pair_ids", [])
@@ -1079,10 +1147,30 @@ class VectorStore:
             # (repo, language) pairs filterable on device
             "version": self.version,
             "filter_pairs": len(self._pair_ids),
-            # allocated minus live = reclaimable via compact()
-            "tombstones": int(idx.size) - int(idx.n_live) if idx else 0,
+            # allocated minus live = reclaimable via compact(). FlatIndex
+            # counts allocation in .size/.n_live; IVFIndex in ._n_rows/.size
+            "tombstones": (
+                int(idx._n_rows) - int(idx.size)
+                if isinstance(idx, IVFIndex)
+                else int(idx.size) - int(idx.n_live)
+            )
+            if idx
+            else 0,
         }
+        if isinstance(idx, IVFIndex):
+            info.update(
+                nlist=idx.nlist,
+                nprobe=idx.nprobe,
+                cmax=idx.cmax,
+                trained=idx.is_trained,
+            )
         return info
+
+
+def _allocated(index) -> int:
+    """Rows allocated, tombstones included: FlatIndex counts them in
+    ``size``, IVFIndex in ``_n_rows`` (its ``size`` counts live rows)."""
+    return int(index._n_rows) if isinstance(index, IVFIndex) else int(index.size)
 
 
 @runtime_checkable

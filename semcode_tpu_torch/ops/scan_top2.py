@@ -31,83 +31,32 @@ version; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import threading
-from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
+
+from .build import KernelLibrary
 
 NEG = -3.0e38  # dead-row / masked-slot sentinel (f32)
 BLOCK = 128  # rows per top-2 block
 
 _STORAGE_CODES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "top2_scan.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-)
+
+def _bind(lib: ctypes.CDLL) -> None:
+    # seven pointers, Rs, d, Q, storage code, stream
+    lib.semcode_top2_scan.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    )
+    lib.semcode_top2_scan.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = Path(cuda_home) / "bin" / "nvcc"
-    return str(path) if path.exists() else "nvcc"
+_library = KernelLibrary("top2_scan", _bind)
 
 
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/top2_scan.cu`` into ``build/kernels`` (git-ignored).
-
-    Each build writes its own file and renames it into place, so concurrent
-    processes never load a partial library. Raises on a compiler error."""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = _BUILD_DIR / "libsemcode_top2_scan.so"
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed building {_SRC.name}:\n{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, lib)
-    return lib
-
-
-class _Library:
-    """The compiled kernel, built and loaded at first launch."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._lib: Optional[ctypes.CDLL] = None
-
-    def get(self, lib_path: Optional[Path] = None) -> ctypes.CDLL:
-        """The loaded library; ``lib_path`` installs one built elsewhere
-        (a caller may build in parallel with other work)."""
-        with self._lock:
-            if self._lib is None or lib_path is not None:
-                lib = ctypes.CDLL(str(lib_path or build_library()))
-                # seven pointers, Rs, d, Q, storage code, stream
-                lib.semcode_top2_scan.argtypes = (
-                    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                    + [ctypes.c_void_p]
-                )
-                lib.semcode_top2_scan.restype = ctypes.c_int
-                self._lib = lib
-            return self._lib
-
-
-_library = _Library()
+def build_library(verbose: bool = False):
+    """Compile ``csrc/top2_scan.cu`` into ``build/kernels`` (git-ignored)."""
+    return _library.build(verbose=verbose)
 
 
 def _top2_lanes(scores: torch.Tensor, nb: int) -> Tuple[torch.Tensor, ...]:

@@ -90,7 +90,7 @@ class AppSettings:
     # dots (s8 x s8 -> s32) — tighter scores than bf16 at half the bytes;
     # the fused f32 device rescore makes final ordering exact (index/scan.py)
     index_dtype: str = "int8"  # int8 | bfloat16 | float32
-    # IVF fields: IVF is not ported yet (auto raises at ivf_min_size rows)
+    # IVF fields: auto promotes the flat index to IVF at ivf_min_size rows
     index_nlist: int = 128  # reference milvus_store.py:81
     index_nprobe: int = 16  # reference milvus_store.py:144
     index_ivf_min_size: int = 8192  # below this, auto uses flat exact scan

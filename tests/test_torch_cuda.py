@@ -64,6 +64,67 @@ def test_top2_scan_matches_plain_version(cuda, storage, rs, d, nq):
         torch.testing.assert_close(bm, rm, rtol=1e-5, atol=1e-6)
 
 
+def _ivf_operands(storage, nlist, cmax, d, nq, nprobe, gen, device):
+    """Cluster blocks with ~10% empty slots and duplicated rows (ties)."""
+    x = torch.randn(nlist, cmax, d, generator=gen, device=device)
+    x = x / x.norm(dim=2, keepdim=True)
+    x[:, 8:16] = x[:, 0:8]
+    ids = torch.arange(nlist * cmax, device=device, dtype=torch.int32)
+    ids = ids.reshape(nlist, cmax)
+    empty = torch.rand(nlist, cmax, generator=gen, device=device) < 0.1
+    ids = torch.where(empty, -1, ids)
+    q = torch.randn(nq, d, generator=gen, device=device)
+    q = q / q.norm(dim=1, keepdim=True)
+    probes = torch.argsort(torch.rand(nq, nlist, generator=gen, device=device),
+                           dim=1)[:, :nprobe].to(torch.int32)
+    scales = None
+    if storage == "int8":
+        scales = torch.clamp(x.abs().amax(2), min=1e-12) / 127.0
+        x = torch.clamp(torch.round(x / scales[..., None]), -127, 127).to(torch.int8)
+    else:
+        x = x.to(torch.bfloat16 if storage == "bfloat16" else torch.float32)
+    return x, ids, q, probes, scales
+
+
+def untied_ids_equal(s_ref, i_ref, i_got, tol):
+    """Ids equal at every position whose reference score stands apart from
+    its neighbours by more than ``tol`` (the last column, the boundary with
+    the unreturned candidates, is excluded)."""
+    gap = s_ref[:, :-1] - s_ref[:, 1:]
+    apart = torch.ones_like(s_ref, dtype=torch.bool)
+    apart[:, 1:] &= gap > tol
+    apart[:, :-1] &= gap > tol
+    apart[:, -1] = False
+    return bool(torch.equal(i_got[apart], i_ref[apart]))
+
+
+@pytest.mark.parametrize("storage", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("nlist,cmax,d,nq,nprobe,k", [
+    (16, 128, 128, 1, 1, 10),
+    (64, 256, 384, 8, 16, 64),
+    (256, 128, 128, 8, 128, 10),
+    (32, 128, 3072, 8, 4, 64),
+    (1024, 2176, 384, 512, 32, 64),
+])
+def test_ivf_scan_matches_plain_version(cuda, storage, nlist, cmax, d, nq,
+                                        nprobe, k):
+    from semcode_tpu_torch.ops import ivf_scan as ivf_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(nlist + cmax + d + nq)
+    data, ids, q, probes, scales = _ivf_operands(storage, nlist, cmax, d, nq,
+                                                 nprobe, gen, cuda)
+    before = ivf_ops.ivf_scan.launches
+    s, i = ivf_ops.ivf_scan(data, ids, q, probes, k, scales)
+    torch.cuda.synchronize()
+    assert ivf_ops.ivf_scan.launches == before + 1
+    rs, ri = ivf_ops.ivf_scan_reference(data, ids, q, probes, k, scales)
+    if storage == "int8":
+        assert torch.equal(s, rs) and torch.equal(i, ri)
+    else:
+        torch.testing.assert_close(s, rs, rtol=1e-5, atol=1e-6)
+        assert untied_ids_equal(rs, ri, i, 1e-5)
+
+
 def test_flat_index_card_matches_cpu(cuda):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((5000, 384)).astype(np.float32)
@@ -77,6 +138,43 @@ def test_flat_index_card_matches_cpu(cuda):
         out[dev] = idx.search(q, 10)
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5, atol=1e-6)
+
+
+def test_ivf_index_card_matches_cpu(cuda):
+    """One saved state loaded on both devices holds one cluster layout; the
+    card's probing path (the kernel) and exact path return the CPU's ids
+    (plain versions). An index built on the card from scratch reaches the
+    same recall."""
+    from semcode_tpu_torch.index.ivf import IVFIndex
+    from semcode_tpu_torch.ops import ivf_scan as ivf_ops
+
+    rng = np.random.default_rng(1)
+    centers = rng.standard_normal((64, 384)).astype(np.float32)
+    x = centers[rng.integers(0, 64, 20000)]
+    x += 0.3 * rng.standard_normal(x.shape).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[:16] + 0.05 * rng.standard_normal((16, 384)).astype(np.float32)
+    kw = dict(dtype="int8", use_pallas="always")
+    built = IVFIndex(384, nlist=64, nprobe=8, device="cpu", **kw)
+    built.add(x)
+    built.remove(np.arange(0, 20000, 13))
+    state = built.state_dict()
+    cpu = IVFIndex.from_state(state, device="cpu", **kw)
+    card = IVFIndex.from_state(state, device=cuda, **kw)
+    assert card._pallas_mode() == "compiled" and card.cmax == cpu.cmax
+    for mode in ("ivf", "exact"):
+        before = ivf_ops.ivf_scan.launches
+        sc, ic = card.search(q, 10, mode=mode)
+        sp, ip = cpu.search(q, 10, mode=mode)
+        assert (ivf_ops.ivf_scan.launches > before) == (mode == "ivf")
+        np.testing.assert_array_equal(ic, ip)
+        np.testing.assert_allclose(sc, sp, rtol=1e-5, atol=1e-6)
+    truth = np.argsort(-(q @ x.T), axis=1)[:, :10]
+    fresh = IVFIndex(384, nlist=64, nprobe=8, device=cuda, **kw)
+    fresh.add(x)
+    _, ids = fresh.search(q, 10, mode="ivf")
+    hits = sum(len(set(a) & set(b)) for a, b in zip(ids.tolist(), truth.tolist()))
+    assert hits / truth.size >= 0.95
 
 
 def test_hash_projection_card_equals_cpu(cuda):

@@ -183,21 +183,118 @@ def test_filters_delete_compact_match(tmp_path, mesh1):
     assert {k: st[k] for k in sj} == sj
 
 
-def test_ivf_is_not_ported(tmp_path):
-    rng = np.random.default_rng(1)
-    auto = VectorStore(_settings(AppSettings, tmp_path / "a", index_kind="auto",
-                                 embedding_dimension=32, index_ivf_min_size=64),
-                       device="cpu")
-    payloads, _ = _payloads(EmbeddingPayload, rng, 64, "c", "r")
-    auto.upsert_embeddings(payloads[:63])  # below the threshold: flat
-    assert auto.stats()["kind"] == "flat"
-    with pytest.raises(NotImplementedError, match="IVF is not ported"):
-        auto.upsert_embeddings(payloads[63:])
-    assert auto.count() == 63  # nothing was written
-    ivf = VectorStore(_settings(AppSettings, tmp_path / "i", index_kind="ivf",
-                                embedding_dimension=32), device="cpu")
-    with pytest.raises(NotImplementedError, match="IVF is not ported"):
-        ivf.connect()
+def test_ivf_store_matches_reference(tmp_path, mesh1, repo):
+    kw = dict(index_kind="ivf", index_nlist=4, index_nprobe=2)
+    jsvc, tsvc, jp, tp = _ingest_both(tmp_path, mesh1, repo, **kw)
+    assert tsvc.vector_store.stats() == jsvc.vector_store.stats()
+    assert tsvc.vector_store.stats()["kind"] == "ivf"
+    _assert_same_hits(_hits(jp.query_batch(QUESTIONS, top_k=5)),
+                      _hits(tp.query_batch(QUESTIONS, top_k=5)))
+    _assert_same_hits(_hits([jp.query(QUESTIONS[2], top_k=5)]),
+                      _hits([tp.query(QUESTIONS[2], top_k=5)]))
+
+
+def _ids(hits_batch):
+    return [[h.id for h in hs] for hs in hits_batch]
+
+
+def test_auto_promotion_and_ivf_upserts(tmp_path, mesh1):
+    """auto: flat below index_ivf_min_size, IVF from it on (rows renumbered,
+    lexical fingerprints remapped); IVF upserts tombstone and re-add."""
+    kw = dict(embedding_dimension=32, index_kind="auto", index_ivf_min_size=64,
+              index_nlist=4, index_nprobe=4, index_auto_compact_ratio=0.0)
+    j = JaxStore(_settings(JaxSettings, tmp_path / "j", **kw), mesh=mesh1)
+    t = VectorStore(_settings(AppSettings, tmp_path / "t", **kw), device="cpu")
+    texts = ["text 3 repo_a", "text 70 repo_b", "text 12"]
+    for cls, store in ((JaxPayload, j), (EmbeddingPayload, t)):
+        r = np.random.default_rng(0)
+        pa, va = _payloads(cls, r, 40, "a", "repo_a")
+        pb, _ = _payloads(cls, r, 40, "b", "repo_b")
+        store.upsert_embeddings(pa[:23] + pb[:40])  # 63 rows: still flat
+        assert store.stats()["kind"] == "flat"
+        store.upsert_embeddings(pa[23:24])  # reaches 64: promoted
+        assert store.stats()["kind"] == "ivf"
+        store.upsert_embeddings(pa[24:] + pa[:5])  # new rows + re-adds
+        store.delete([f"b{i}" for i in range(0, 40, 4)])
+    assert t.stats() == j.stats()
+    assert t.stats()["tombstones"] == 15
+    assert sorted(t._id_to_row.items()) == sorted(j._id_to_row.items())
+    q = va[:3]
+    for filters in (None, {"repo": "repo_b"}):
+        assert _ids(t.search_batch(q, top_k=6, filters=filters)) == _ids(
+            j.search_batch(q, top_k=6, filters=filters))
+    # with query texts: the device BM25 rerank reads remapped fingerprints
+    ht = t.search_batch(q, top_k=6, query_texts=texts)
+    hj = j.search_batch(q, top_k=6, query_texts=texts)
+    assert _ids(ht) == _ids(hj)
+    np.testing.assert_allclose([h.score for hs in ht for h in hs],
+                               [h.score for hs in hj for h in hs], rtol=1e-5)
+    assert t.compact() == j.compact() == 15
+    assert _ids(t.search_batch(q, top_k=6)) == _ids(j.search_batch(q, top_k=6))
+
+
+def test_ivf_snapshots_cross_load(tmp_path, mesh1):
+    """kind="ivf" snapshots load in either package with the saved centroids
+    (same cluster layout, so the probing path agrees too) and the live rows
+    renumbered densely."""
+    kw = dict(embedding_dimension=128, index_kind="ivf", index_nlist=4,
+              index_nprobe=2, index_auto_compact_ratio=0.0)
+    j = JaxStore(_settings(JaxSettings, tmp_path / "j", **kw), mesh=mesh1)
+    t = VectorStore(_settings(AppSettings, tmp_path / "t", **kw), device="cpu")
+    for cls, store in ((JaxPayload, j), (EmbeddingPayload, t)):
+        r = np.random.default_rng(3)
+        pa, va = _payloads(cls, r, 300, "a", "repo_a", dim=128)
+        store.upsert_embeddings(pa)
+        store.delete([f"a{i}" for i in range(0, 300, 7)])
+        store.save()
+    q = va[:6]
+
+    def reload(cls, cfg_cls, snap, **extra):
+        cfg = _settings(cfg_cls, tmp_path / "x", index_snapshot_dir=snap, **kw)
+        store = cls(cfg, **extra)
+        store.connect()
+        return store
+
+    t_from_j = reload(VectorStore, AppSettings, j.snapshot_dir(), device="cpu")
+    j_from_t = reload(JaxStore, JaxSettings, t.snapshot_dir(), mesh=mesh1)
+    for src, dst in ((j, t_from_j), (t, j_from_t)):
+        assert dst.stats()["kind"] == "ivf" and dst.count() == src.count()
+        np.testing.assert_array_equal(dst._index.centroids, src._index.centroids)
+        assert sorted(dst._id_to_row) == sorted(src._id_to_row)
+        assert _ids(dst.search_batch(q, top_k=8)) == _ids(src.search_batch(q, top_k=8))
+    # both packages reloading one snapshot hold one layout: the probing
+    # path itself agrees
+    j_again = reload(JaxStore, JaxSettings, j.snapshot_dir(), mesh=mesh1)
+    assert t_from_j._index.cmax == j_again._index.cmax
+    sa, ia = j_again._index.search(q, k=8, mode="ivf")
+    sb, ib = t_from_j._index.search(q, k=8, mode="ivf")
+    np.testing.assert_array_equal(ib, ia)
+    np.testing.assert_allclose(sb, sa, rtol=1e-5, atol=1e-5)
+
+
+def test_search_passes_nprobe(tmp_path):
+    kw = dict(embedding_dimension=128, index_kind="ivf", index_nlist=8,
+              index_nprobe=1)
+    store = VectorStore(_settings(AppSettings, tmp_path, **kw), device="cpu")
+    payloads, vecs = _payloads(EmbeddingPayload, np.random.default_rng(4), 400,
+                               "c", "r", dim=128)
+    store.upsert_embeddings(payloads)
+    seen = []
+    real = store._index.search
+
+    def spy(q, k=10, nprobe=None, mode="auto", allow_tags=None):
+        seen.append(nprobe)
+        return real(q, k=k, nprobe=nprobe, mode=mode, allow_tags=allow_tags)
+
+    store._index.search = spy
+    full = store.search(vecs[0], top_k=5, nprobe=8)
+    default = store.search(vecs[0], top_k=5)
+    assert seen == [8, None]
+    assert full[0].id == "c0" and default
+    # every cluster probed: the probing path returns the exact top-k
+    s, ids = real(vecs[:4], k=5, nprobe=8, mode="ivf")
+    se, ie = real(vecs[:4], k=5, mode="exact")
+    np.testing.assert_array_equal(ids, ie)
 
 
 def test_reload_keeps_index_options(tmp_path):
