@@ -8,8 +8,8 @@ NVIDIA Hopper card and the CUDA toolkit:
 Phases (any failed check exits non-zero before the final line):
 
 1. report the card and build the kernels from the sources in the checkout
-   (the two CUDA kernels with nvcc and the native featurizer with g++, all
-   started together);
+   (the three CUDA kernels with nvcc and the native featurizer with g++,
+   all started together);
 2. hold the top2_scan kernel against its plain torch version on the card:
    int8 / bf16 / f32 storage, Rs in {100, 128, 1000, 70001}, d in {128,
    384, 3072}, Q in {1, 8, 512}, ip and l2, ~5% dead rows. int8: identical
@@ -23,6 +23,11 @@ Phases (any failed check exits non-zero before the final line):
    16, 32, 128}, k in {10, 64}. int8: bit-identical scores and identical
    ids wherever a score stands apart from its neighbours; bf16/f32: scores
    within rtol 1e-5 (atol 1e-6), ids the same way at a 1e-5 gap;
+2c. hold the dot_max kernel against its plain version on the card: modes
+   s32 and bf16, every row tile (64, 128, 256), N in {1, 100, 128, 70001},
+   d in {128, 384, 3072 (s32 only)}, Q in {1, 8, 64, 512}; rows and queries
+   hold the extremes (+127 and -128 in s32, -127 in bf16) so the sign and
+   the largest sums are exercised; equal bit for bit in every case;
 3. the main path end to end: IndexerService ingests the repository's own
    ``semcode_tpu/`` (the frozen query set's corpus) into a flat int8 store
    routed through the kernel (index_scan_impl="pallas"), and the RAG
@@ -56,6 +61,15 @@ Phases (any failed check exits non-zero before the final line):
    Q=512, nprobe-32 call beside its plain version, one PyTorch-library
    computation of the same selection and its bound; and a torch.profiler
    breakdown of one batch-512 probe search.
+4c. the dot_max kernel at phase 4's shape, on phase 4's own int8 rows and
+   quantized queries (the bytes top2_scan reads): ms per call in both modes
+   at every row tile beside TOP/s, the bound, its plain version and one
+   PyTorch-library computation (``torch._int_mm`` + ``amax``); the
+   decomposition of top2_scan's time into the GEMM (dot_max s32 at 128-row
+   tiles, top2_scan's tiling) and its selection epilogue; and one run of
+   the kernel-measurement tool ``semcode_tpu_torch.tools.dot_cuda`` at its
+   default 1M x 384 x 512 shape with a short SECS (the kernel's launch count
+   is read around this run).
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -79,9 +93,10 @@ NLIST = 1024  # bench.py's IVF flagship layout
 KMEANS_ITERS = 10
 BATCH = 512
 SERVE_BATCH = 8
-# published H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core
-# operations and HBM3 bandwidth; used for the kernel's bound
+# published H100 SXM peaks (NVIDIA data sheet, dense): int8 and bf16
+# tensor-core operations and HBM3 bandwidth; used for the kernels' bounds
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_OPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -100,24 +115,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` in ms, from CUDA events around ``iters``
-    calls after ``warmup`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # -- phase 2: kernel against its plain version ---------------------------------
@@ -307,6 +304,56 @@ def check_ivf_kernel() -> float:
     log(f"[kernel] ivf_scan matches its plain version in {len(IVF_CASES)} "
         f"cases (max |score err| {worst:.3g})")
     return worst
+
+
+# -- phase 2c: the dot-max kernel against its plain version --------------------
+
+
+def dot_inputs(mode, n, d, nq, gen):
+    """int8 rows and queries drawn over the mode's range, with the extremes
+    placed: a row of +127s at n // 2, a row of the lowest value at n - 1
+    (in the ragged last tile), and queries 0 and Q-1 of +127s and of the
+    lowest value, whose maxima are the largest sums of either sign."""
+    import torch
+
+    low = -128 if mode == "s32" else -127
+    rows = torch.randint(low, 128, (n, d), generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.int8)
+    q = torch.randint(low, 128, (nq, d), generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    rows[n // 2] = 127
+    rows[n - 1] = low
+    q[0] = 127
+    q[nq - 1] = low
+    return rows, q
+
+
+def check_dot_max() -> int:
+    import torch
+
+    from semcode_tpu_torch.ops.dot_max import RTILES, dot_max, dot_max_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    t0 = time.perf_counter()
+    n_cases = 0
+    for mode in ("s32", "bf16"):
+        for n in (1, 100, 128, 70001):
+            for d in ((128, 384, 3072) if mode == "s32" else (128, 384)):
+                for nq in (1, 8, 64, 512):
+                    rows, q = dot_inputs(mode, n, d, nq, gen)
+                    want = dot_max_reference(rows, q)
+                    for rtile in RTILES:
+                        got = dot_max(rows, q, mode=mode, rtile=rtile)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            bad = int((got != want).sum())
+                            fail(f"dot_max {mode} rtile={rtile} N={n} d={d} "
+                                 f"Q={nq}: {bad} maxima differ")
+                        n_cases += 1
+                    del rows, q, want
+    log(f"[kernel] dot_max equals its plain version bit for bit in {n_cases} "
+        f"cases (both modes, every row tile) in {time.perf_counter() - t0:.1f} s")
+    return n_cases
 
 
 # -- phase 3: the main path end to end -----------------------------------------
@@ -521,33 +568,6 @@ def ivf_store(workdir: Path, mrr_flat_xla: float):
 # -- phase 4: scale -----------------------------------------------------------
 
 
-def mixture(gen, n, d):
-    """bench.py's corpus: unit rows around max(64, n/1000) Gaussian centers."""
-    import torch
-
-    n_centers = max(64, n // 1000)
-    centers = torch.randn(n_centers, d, generator=gen, device="cuda")
-    assign = torch.randint(0, n_centers, (n,), generator=gen, device="cuda")
-    x = centers[assign]
-    x.add_(0.35 * torch.randn(n, d, generator=gen, device="cuda"))
-    return x / torch.clamp(x.norm(dim=1, keepdim=True), min=1e-9)
-
-
-def oracle_top10(x, q):
-    import torch
-
-    best_s, best_i = [], []
-    for lo in range(0, x.shape[0], 1 << 18):
-        s = q @ x[lo:lo + (1 << 18)].T  # f32, TF32 off
-        v, i = torch.topk(s, 10, dim=1)
-        best_s.append(v)
-        best_i.append(i + lo)
-    s = torch.cat(best_s, dim=1)
-    i = torch.cat(best_i, dim=1)
-    _, sel = torch.topk(s, 10, dim=1)
-    return torch.gather(i, 1, sel)
-
-
 def recall_at_10(ids, truth) -> float:
     hits = (ids[:, :, None] == truth[:, None, :]).any(dim=2).sum().item()
     return hits / truth.numel()
@@ -593,17 +613,17 @@ def scale_phase():
     from semcode_tpu_torch.index.flat import FlatIndex
     from semcode_tpu_torch.index.scan import quantize_queries_device
     from semcode_tpu_torch.ops.scan_top2 import NEG, top2_scan, top2_scan_reference
+    from semcode_tpu_torch.tools._corpus import mixture, oracle_topk, queries_near
+    from semcode_tpu_torch.tools._timing import cuda_ms
 
     gen = torch.Generator(device="cuda").manual_seed(42)
     t0 = time.perf_counter()
     x = mixture(gen, N_ROWS, DIM)
-    pick = torch.randperm(N_ROWS, generator=gen, device="cuda")[:BATCH]
-    q = x[pick] + 0.05 * torch.randn(BATCH, DIM, generator=gen, device="cuda")
-    q = q / torch.clamp(q.norm(dim=1, keepdim=True), min=1e-9)
+    q = queries_near(gen, x, BATCH)
     index = FlatIndex(DIM, metric="ip", dtype="int8", scan_impl="pallas",
                       device="cuda")
     index.add(x.cpu().numpy())
-    truth = oracle_top10(x, q)
+    truth = oracle_topk(x, q, 10)
     del x
     torch.cuda.synchronize()
     log(f"[scale] {N_ROWS} x {DIM} int8 index + f32 mirror built in "
@@ -675,7 +695,85 @@ def scale_phase():
         "timing launches")
     out["kernel"] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+    out["dot_max"] = dot_max_phase(vecs, qq, kernel_ms)
     return out
+
+
+# -- phase 4c: the dot-max kernel at the main shape ------------------------------
+
+
+def dot_max_phase(vecs, qq, top2_ms: float):
+    """dot_max on phase 4's own int8 rows and quantized queries; the
+    top2_scan decomposition; one run of the tools.dot_cuda entry point."""
+    import contextlib
+    import io
+
+    import torch
+
+    from semcode_tpu_torch.ops.dot_max import RTILES, dot_max, dot_max_reference
+    from semcode_tpu_torch.tools import dot_cuda
+    from semcode_tpu_torch.tools._timing import cuda_ms
+
+    t0 = time.perf_counter()
+    rows, d = vecs.shape
+    nq = qq.shape[0]
+    want = dot_max_reference(vecs, qq)
+    plain_ms = cuda_ms(lambda: dot_max_reference(vecs, qq), iters=3, warmup=1)
+    if not torch.equal(dot_cuda.int_mm_max(vecs, qq), want):
+        fail("torch._int_mm + amax differs from dot_max's plain version")
+    library_ms = cuda_ms(lambda: dot_cuda.int_mm_max(vecs, qq), iters=5)
+    n_ops = 2 * nq * rows * d
+    n_bytes = rows * d + nq * d + nq * 4
+    bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
+    bounds = {"s32": n_ops / PEAK_INT8_OPS * 1e3, "bf16": n_ops / PEAK_BF16_OPS * 1e3}
+    ms = {}
+    err = 0
+    for mode in ("s32", "bf16"):
+        for rtile in RTILES:
+            got = dot_max(vecs, qq, mode=mode, rtile=rtile)
+            torch.cuda.synchronize()
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            if not torch.equal(got, want):
+                fail(f"dot_max {mode} rtile={rtile} differs from its plain "
+                     "version at the main-path shape")
+            t = cuda_ms(lambda: dot_max(vecs, qq, mode=mode, rtile=rtile), iters=20)
+            ms[f"{mode}_{rtile}"] = t
+            log(f"[dot-max] {mode} rtile {rtile}: {t:.3f} ms per call, "
+                f"{n_ops / t / 1e9:.1f} TOP/s (bound {max(bounds[mode], bytes_ms):.3f} ms "
+                f"by {'operations' if bounds[mode] >= bytes_ms else 'bytes'})")
+    dot_ms = ms["s32_128"]
+    bound_ms = max(bounds["s32"], bytes_ms)
+    bound_by = "operations" if bounds["s32"] >= bytes_ms else "bytes"
+    log(f"[dot-max] {rows} x {d} int8, Q={nq}: s32 rtile 128 {dot_ms:.3f} ms "
+        f"(bound {bound_ms:.3f} ms by {bound_by}; plain {plain_ms:.1f} ms; "
+        f"_int_mm+amax {library_ms:.3f} ms)")
+    log(f"[dot-max] decomposition: top2_scan {top2_ms:.3f} ms = GEMM and read "
+        f"(dot_max s32, the same 128 x 64 tile) {dot_ms:.3f} ms + selection "
+        f"epilogue {top2_ms - dot_ms:.3f} ms ({100 * (top2_ms - dot_ms) / top2_ms:.1f}% "
+        "selection)")
+
+    # the kernel-measurement tool's path, at its default shape, short SECS
+    buf = io.StringIO()
+    dot_max.launches = 0
+    with contextlib.redirect_stdout(buf):
+        dot_cuda.main([], {"SECS": "0.1", "CHUNK_B": "4"})
+    launches = dot_max.launches
+    lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.strip()]
+    for rec in lines:
+        log(f"[dot_cuda] {json.dumps(rec)}")
+    kernel_lines = [r for r in lines if r["mode"] != "torch_int_mm_s8s8"]
+    if len(lines) != 1 + 2 * len(RTILES) or any("error" in r for r in lines):
+        fail("tools.dot_cuda did not print one result line per config")
+    if not all(r["max_equal"] for r in kernel_lines):
+        fail("tools.dot_cuda: a kernel line does not equal the _int_mm yardstick")
+    if launches < 1:
+        fail("tools.dot_cuda never launched the dot_max kernel")
+    log(f"[dot-max] tools.dot_cuda ran {len(lines)} configs; dot_max launches "
+        f"{launches}; phase 4c took {time.perf_counter() - t0:.1f} s")
+    return {"ms": dot_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": float(err),
+            "launches": launches, "ms_by_config": ms,
+            "selection_share": (top2_ms - dot_ms) / top2_ms}
 
 
 # -- phase 4b: IVF at scale ------------------------------------------------------
@@ -737,15 +835,15 @@ def ivf_scale_phase():
     from semcode_tpu_torch.index.ivf import IVFIndex
     from semcode_tpu_torch.index.scan import quantize_queries_device, stable_topk
     from semcode_tpu_torch.ops.ivf_scan import ivf_scan, ivf_scan_reference
+    from semcode_tpu_torch.tools._corpus import mixture, oracle_topk, queries_near
+    from semcode_tpu_torch.tools._timing import cuda_ms
 
     gc.collect()
     torch.cuda.empty_cache()  # phase 4's flat index is gone
     gen = torch.Generator(device="cuda").manual_seed(42)  # phase 4's corpus
     x = mixture(gen, N_ROWS, DIM)
-    pick = torch.randperm(N_ROWS, generator=gen, device="cuda")[:BATCH]
-    q = x[pick] + 0.05 * torch.randn(BATCH, DIM, generator=gen, device="cuda")
-    q = q / torch.clamp(q.norm(dim=1, keepdim=True), min=1e-9)
-    truth = oracle_top10(x, q)
+    q = queries_near(gen, x, BATCH)
+    truth = oracle_topk(x, q, 10)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index = IVFIndex(DIM, nlist=NLIST, nprobe=32, metric="ip", dtype="int8",
@@ -865,26 +963,29 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import semcode_tpu_torch  # noqa: F401 - fails outside a checkout
     from semcode_tpu_torch.embeddings.native import get_native
-    from semcode_tpu_torch.ops import ivf_scan, scan_top2
+    from semcode_tpu_torch.ops import dot_max, ivf_scan, scan_top2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"[card] torch {torch.__version__} CUDA {torch.version.cuda}; {card}")
 
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    t_start = t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool:
         top2_lib = pool.submit(scan_top2.build_library)
         ivf_lib = pool.submit(ivf_scan.build_library)
+        dot_lib = pool.submit(dot_max.build_library)
         native = pool.submit(get_native)
         scan_top2._library.get(top2_lib.result())
         ivf_scan._library.get(ivf_lib.result())
+        dot_max._library.get(dot_lib.result())
         if native.result() is None:
             fail("the native featurizer did not build")
     log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
 
     worst = check_kernel()
     worst_ivf = check_ivf_kernel()
+    check_dot_max()
     with tempfile.TemporaryDirectory(prefix="semcode_smoke_") as tmp:
         e2e = main_path(Path(tmp))
         ivf_e2e = ivf_store(Path(tmp), e2e["mrr_xla"])
@@ -921,14 +1022,32 @@ def main() -> int:
         "library_ms": ik["library_ms"],
         "matched": True,
     }
+    dk = scale["dot_max"]
+    dot_record = {
+        "name": "dot_max",
+        "route": "cuda",
+        "source": "semcode_tpu_torch/ops/csrc/dot_max.cu",
+        "replaces": "tools/dot_pallas.py:52",
+        "launches": dk["launches"],
+        "max_abs_err": dk["max_abs_err"],
+        "ms": dk["ms"],
+        "plain_ms": dk["plain_ms"],
+        "bound_ms": dk["bound_ms"],
+        "bound_by": dk["bound_by"],
+        "library_ms": dk["library_ms"],
+        "matched": True,
+    }
     summary = {
         "e2e": e2e,
         "ivf_e2e": ivf_e2e,
-        "scale": {k: v for k, v in scale.items() if k != "kernel"},
+        "scale": {k: v for k, v in scale.items() if k not in ("kernel", "dot_max")},
+        "dot_max": dk,
         "ivf_scale": {k: v for k, v in ivf_scale.items() if k != "kernel"},
     }
     log(f"[summary] {json.dumps(summary)}")
-    print(json.dumps({"kernels": [record, ivf_record]}), flush=True)
+    log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s after the "
+        "card check")
+    print(json.dumps({"kernels": [record, ivf_record, dot_record]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({
         "ok": True,

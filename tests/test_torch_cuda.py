@@ -7,8 +7,8 @@ imports nothing of JAX, so it runs on a card host that has no JAX:
 
 (``--noconftest``: the suite's conftest configures JAX's CPU mesh.)
 Comparisons hold each kernel against its plain torch version on the same
-card inputs: int8 bit-identical; bf16/f32 within rtol 1e-5 (f32 sums run
-in another order).
+card inputs: int8 bit-identical (dot_max, an integer maximum, in both
+modes); bf16/f32 within rtol 1e-5 (f32 sums run in another order).
 """
 
 import numpy as np
@@ -123,6 +123,28 @@ def test_ivf_scan_matches_plain_version(cuda, storage, nlist, cmax, d, nq,
     else:
         torch.testing.assert_close(s, rs, rtol=1e-5, atol=1e-6)
         assert untied_ids_equal(rs, ri, i, 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["s32", "bf16"])
+@pytest.mark.parametrize("rtile", [64, 128, 256])
+@pytest.mark.parametrize("n,d,nq", [(1, 128, 1), (100, 384, 8), (70001, 1024, 512)])
+def test_dot_max_matches_plain_version(cuda, mode, rtile, n, d, nq):
+    from semcode_tpu_torch.ops import dot_max as dot_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(n + d + nq + rtile)
+    low = -128 if mode == "s32" else -127
+    rows = torch.randint(low, 128, (n, d), generator=gen, device=cuda,
+                         dtype=torch.int32).to(torch.int8)
+    q = torch.randint(low, 128, (nq, d), generator=gen, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    rows[n // 2] = 127
+    rows[n - 1] = low
+    q[nq - 1] = low
+    before = dot_ops.dot_max.launches
+    got = dot_ops.dot_max(rows, q, mode=mode, rtile=rtile)
+    torch.cuda.synchronize()
+    assert dot_ops.dot_max.launches == before + 1
+    assert torch.equal(got, dot_ops.dot_max_reference(rows, q))
 
 
 def test_flat_index_card_matches_cpu(cuda):
