@@ -8,15 +8,20 @@ NVIDIA Hopper card and the CUDA toolkit:
 Phases (any failed check exits non-zero before the final line):
 
 1. report the card and build the kernels from the sources in the checkout
-   (the three CUDA kernels with nvcc and the native featurizer with g++,
-   all started together);
+   (the three CUDA kernels with nvcc, top2_scan with ptxas's registers,
+   shared memory and spills printed, its two measurement builds, and the
+   native featurizer with g++, all started together);
 2. hold the top2_scan kernel against its plain torch version on the card:
    int8 / bf16 / f32 storage, Rs in {100, 128, 1000, 70001}, d in {128,
-   384, 3072}, Q in {1, 8, 512}, ip and l2, ~5% dead rows. int8: identical
-   rows and bit-identical scores; bf16/f32: scores within rtol 1e-5 (atol
-   1e-6), first rows identical wherever a block's top-2 gap exceeds 1e-4,
-   and every picked row scoring as the plain version's pick (runner-ups
-   may swap with a near-tied third: f32 sums run in another order);
+   384, 3072}, Q in {1, 8, 512}, ip and l2, ~5% dead rows; then int8 at the
+   new kernel's tile edges: Q in {65, 1000}, Rs in {256k - 1, 256k, 256k +
+   1}, d in {384, 3072}, a corpus with more work items than CTAs, exact
+   duplicates on both sides of the block boundary inside a tile and
+   all-dead blocks in either half of a tile. int8: identical rows and
+   bit-identical scores; bf16/f32: scores within rtol 1e-5 (atol 1e-6),
+   first rows identical wherever a block's top-2 gap exceeds 1e-4, and
+   every picked row scoring as the plain version's pick (runner-ups may
+   swap with a near-tied third: f32 sums run in another order);
 2b. hold the ivf_scan kernel against its plain version on the card: int8 /
    bf16 / f32 cluster blocks with ~10% empty slots and duplicated rows, d in
    {128, 384, 3072}, cmax in {128, 2176}, Q in {1, 8, 512}, nprobe in {1,
@@ -47,9 +52,10 @@ Phases (any failed check exits non-zero before the final line):
    the card from a seeded torch.Generator): recall@10 against an f32
    brute-force oracle (TF32 off) on both routes (>= 0.99 required on the
    kernel route), QPS at batch 512, p50 latency at batch 8, and the
-   kernel's time per batch-512 call (CUDA events) beside its plain
+   kernel's time per call at Q=512 and Q=8 (CUDA events) beside its plain
    version, one PyTorch-library computation of the same selection, and
-   its bound; plus a torch.profiler breakdown of one batch-512 search;
+   its bound, with its two measurement builds (products alone, selection
+   alone) at both; plus a torch.profiler breakdown of one batch-512 search;
 4b. IVF at scale (bench.py's flagship IVF shape): the same mixture built
    through IVFIndex.bulk into 1M x 384 int8 + f32 mirror, nlist 1024, 10
    k-means iterations, on the card (a second k-means on the same sample
@@ -64,9 +70,10 @@ Phases (any failed check exits non-zero before the final line):
 4c. the dot_max kernel at phase 4's shape, on phase 4's own int8 rows and
    quantized queries (the bytes top2_scan reads): ms per call in both modes
    at every row tile beside TOP/s, the bound, its plain version and one
-   PyTorch-library computation (``torch._int_mm`` + ``amax``); the
-   decomposition of top2_scan's time into the GEMM (dot_max s32 at 128-row
-   tiles, top2_scan's tiling) and its selection epilogue; and one run of
+   PyTorch-library computation (``torch._int_mm`` + ``amax``), and s32 at
+   128- and 256-row tiles at Q=8 too; the new top2_scan against the old
+   tiling's GEMM with no selection (dot_max s32, mma.sync, synchronous
+   staging) on the same operands, at Q=512 and Q=8; and one run of
    the kernel-measurement tool ``semcode_tpu_torch.tools.dot_cuda`` at its
    default 1M x 384 x 512 shape with a short SECS (the kernel's launch count
    is read around this run).
@@ -214,9 +221,50 @@ def check_kernel() -> float:
                             check_float_rows(args, bm, br, rm, rr, tag)
                         n += 1
                         del args, bm, br, rm, rr
+    for rs, d, nq in TILE_EDGE_CASES:
+        for metric in ("ip", "l2"):
+            args = tile_edge_inputs(rs, d, nq, metric, gen)
+            bm, br = top2_scan(*args)
+            torch.cuda.synchronize()
+            rm, rr = top2_scan_reference(*args)
+            if not (torch.equal(bm, rm) and torch.equal(br, rr)):
+                err = (bm - rm).abs().max().item()
+                fail(f"top2_scan int8 tile edge Rs={rs} d={d} Q={nq} {metric}: "
+                     f"not bit-identical (max err {err})")
+            n += 1
+            del args, bm, br, rm, rr
     log(f"[kernel] top2_scan matches its plain version in {n} cases "
         f"(max |score err| {worst:.3g})")
     return worst
+
+
+# int8 cases at the tile edges of the wgmma kernel (256-row tiles, query
+# tiles of 64 in pairs): (Rs, d, Q); 70001 x 1000 and 40000 x 3072 hold more
+# work items than the card has CTAs
+TILE_EDGE_CASES = [
+    (255, 384, 65), (256, 384, 1000), (257, 3072, 65),
+    (1023, 3072, 1000), (1024, 384, 65), (1025, 3072, 1000),
+    (70001, 384, 1000), (40000, 3072, 512),
+]
+
+
+def tile_edge_inputs(rs, d, nq, metric, gen):
+    """int8 operands with exact duplicates on both sides of the 128-row
+    block boundary inside the first tile (rows 124-131, all live: ties
+    across the tile's two blocks), a tie inside block 0, and all-dead
+    blocks opening the second tile and closing the third."""
+    from semcode_tpu_torch.ops.scan_top2 import NEG
+
+    vecs, mult, add, qq, qsc = kernel_inputs("int8", rs, d, nq, metric, gen)
+    for dst, src in ((slice(128, 132), slice(124, 128)), (5, 77)):
+        vecs[dst] = vecs[src]
+        mult[dst] = mult[src]
+        add[dst] = add[src]
+    add[124:132] = add[124:132].clamp(min=-1e30)  # keep the duplicates live
+    for lo in (256, 640):
+        if rs > lo + 128:
+            add[lo:lo + 128] = NEG
+    return vecs, mult, add, qq, qsc
 
 
 # -- phase 2b: the IVF kernel against its plain version ------------------------
@@ -612,9 +660,8 @@ def scale_phase():
 
     from semcode_tpu_torch.index.flat import FlatIndex
     from semcode_tpu_torch.index.scan import quantize_queries_device
-    from semcode_tpu_torch.ops.scan_top2 import NEG, top2_scan, top2_scan_reference
+    from semcode_tpu_torch.ops.scan_top2 import NEG, top2_scan
     from semcode_tpu_torch.tools._corpus import mixture, oracle_topk, queries_near
-    from semcode_tpu_torch.tools._timing import cuda_ms
 
     gen = torch.Generator(device="cuda").manual_seed(42)
     t0 = time.perf_counter()
@@ -659,52 +706,84 @@ def scale_phase():
     if out["pallas"]["recall"] < 0.99:
         fail(f"pallas-route recall@10 {out['pallas']['recall']:.4f} < 0.99")
 
-    # the kernel at the main path's shape, with the operands the scan builds
-    vecs, norms, valid, scales, _, _ = index._ensure_device()
-    qq, qsc = quantize_queries_device(q)
+    # the kernel at the main path's shape, with the operands the scan builds,
+    # at the bulk batch and at the interactive one
+    vecs, _, valid, scales, _, _ = index._ensure_device()
     add = torch.where(valid, 0.0, NEG).float()
-    args = (vecs, scales, add, qq, qsc)
+    qq_all, qsc_all = quantize_queries_device(q)
     calls = top2_scan.launches
+    timed = {nq: time_top2(vecs, scales, add, qq_all[:nq], qsc_all[:nq])
+             for nq in (BATCH, SERVE_BATCH)}
+    log(f"[scale] {top2_scan.launches - calls} top2_scan timing launches")
+    out["kernel"] = timed[BATCH]
+    out["kernel_q8"] = timed[SERVE_BATCH]
+    out["dot_max"] = dot_max_phase(vecs, qq_all, timed)
+    return out
+
+
+def time_top2(vecs, scales, add, qq, qsc):
+    """top2_scan on the flat index's own operands: ms per call (CUDA events)
+    beside its plain version, one PyTorch-library computation of the same
+    selection and its bound; and its two measurement builds (products and
+    pipeline alone, selection and pipeline alone)."""
+    import torch
+
+    from semcode_tpu_torch.ops.scan_top2 import (
+        scan_geometry, top2_scan, top2_scan_probe, top2_scan_reference,
+    )
+    from semcode_tpu_torch.tools._timing import cuda_ms
+
+    args = (vecs, scales, add, qq, qsc)
+    rows, nq = vecs.shape[0], qq.shape[0]
+    nb = -(-rows // 128)
     kernel_ms = cuda_ms(lambda: top2_scan(*args), iters=20)
     bm, br = top2_scan(*args)
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: top2_scan_reference(*args), iters=3, warmup=1)
     rm, rr = top2_scan_reference(*args)
     if not (torch.equal(bm, rm) and torch.equal(br, rr)):
-        fail("top2_scan differs from its plain version at the main-path shape")
+        fail(f"top2_scan differs from its plain version at the main-path shape "
+             f"(Q={nq})")
     err = (bm - rm).abs().max().item()
     del rm, rr
-    rows = vecs.shape[0]
-    nb = -(-rows // 128)
+    probe_ms = {kind: cuda_ms(lambda: top2_scan_probe(kind, *args), iters=20)
+                for kind in ("products", "selection")}
+
+    # cuBLASLt's int8 GEMM takes more than 16 query rows: zero rows pad it
+    qpad = torch.cat([qq, qq.new_zeros((max(0, 24 - nq), DIM))])
 
     def library():
         # one PyTorch computation of the same selection: cuBLASLt int8 GEMM,
         # the epilogue, and topk(2) over each 128-row block
-        raw = torch._int_mm(qq, vecs.T).float()
+        raw = torch._int_mm(qpad, vecs.T)[:nq].float()
         s = raw * qsc[:, None] * scales[None, :] + add[None, :]
-        return torch.topk(s.view(BATCH, nb, 128), 2, dim=2)
+        return torch.topk(s.view(nq, nb, 128), 2, dim=2)
 
     library_ms = cuda_ms(library, iters=5)
-    n_bytes = rows * DIM + 2 * rows * 4 + BATCH * DIM + BATCH * 4 + BATCH * 2 * nb * 8
-    n_ops = 2 * BATCH * rows * DIM
+    n_bytes = rows * DIM + 2 * rows * 4 + nq * DIM + nq * 4 + nq * 2 * nb * 8
+    n_ops = 2 * nq * rows * DIM
     bound_ms = max(n_bytes / PEAK_HBM_BYTES, n_ops / PEAK_INT8_OPS) * 1e3
     bound_by = "operations" if n_ops / PEAK_INT8_OPS >= n_bytes / PEAK_HBM_BYTES else "bytes"
-    log(f"[scale] top2_scan {rows} x {DIM} int8, Q={BATCH}: {kernel_ms:.3f} ms "
-        f"per call (plain {plain_ms:.1f} ms, _int_mm+topk {library_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms by {bound_by}); {top2_scan.launches - calls} "
-        "timing launches")
-    out["kernel"] = {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
-    out["dot_max"] = dot_max_phase(vecs, qq, kernel_ms)
-    return out
+    geom = scan_geometry(rows, DIM, nq, torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"[scale] top2_scan {rows} x {DIM} int8, Q={nq}: {kernel_ms:.3f} ms per "
+        f"call (plain {plain_ms:.1f} ms, _int_mm+topk {library_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms by {bound_by}); measurement builds: products alone "
+        f"{probe_ms['products']:.3f} ms, selection alone {probe_ms['selection']:.3f} "
+        f"ms; grid {geom.grid} CTAs over {geom.work_items} work items, "
+        f"{geom.stages} stages, {geom.smem_bytes} B shared memory")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "products_ms": probe_ms["products"],
+            "selection_ms": probe_ms["selection"]}
 
 
 # -- phase 4c: the dot-max kernel at the main shape ------------------------------
 
 
-def dot_max_phase(vecs, qq, top2_ms: float):
-    """dot_max on phase 4's own int8 rows and quantized queries; the
-    top2_scan decomposition; one run of the tools.dot_cuda entry point."""
+def dot_max_phase(vecs, qq, top2):
+    """dot_max on phase 4's own int8 rows and quantized queries; the new
+    top2_scan (``top2``: phase 4's timings by batch) against the old
+    tiling's GEMM; one run of the tools.dot_cuda entry point."""
     import contextlib
     import io
 
@@ -747,10 +826,29 @@ def dot_max_phase(vecs, qq, top2_ms: float):
     log(f"[dot-max] {rows} x {d} int8, Q={nq}: s32 rtile 128 {dot_ms:.3f} ms "
         f"(bound {bound_ms:.3f} ms by {bound_by}; plain {plain_ms:.1f} ms; "
         f"_int_mm+amax {library_ms:.3f} ms)")
-    log(f"[dot-max] decomposition: top2_scan {top2_ms:.3f} ms = GEMM and read "
-        f"(dot_max s32, the same 128 x 64 tile) {dot_ms:.3f} ms + selection "
-        f"epilogue {top2_ms - dot_ms:.3f} ms ({100 * (top2_ms - dot_ms) / top2_ms:.1f}% "
-        "selection)")
+    # the old design's GEMM at the interactive batch, on the same operands
+    for rtile in (128, 256):
+        q8 = qq[:SERVE_BATCH]
+        if not torch.equal(dot_max(vecs, q8, rtile=rtile), dot_max_reference(vecs, q8)):
+            fail(f"dot_max s32 rtile={rtile} differs from its plain version at Q=8")
+        ms[f"s32_{rtile}_q{SERVE_BATCH}"] = cuda_ms(
+            lambda: dot_max(vecs, q8, rtile=rtile), iters=20)
+    for batch, suffix in ((nq, ""), (SERVE_BATCH, f"_q{SERVE_BATCH}")):
+        t = top2[batch]
+        log(f"[dot-max] decomposition at Q={batch}: the new top2_scan (TMA ring, "
+            f"wgmma, in-register top-2) {t['ms']:.3f} ms against the old tiling's "
+            f"GEMM with no selection (dot_max s32, mma.sync, synchronous staging) "
+            f"{ms['s32_128' + suffix]:.3f} ms at 128-row tiles and "
+            f"{ms['s32_256' + suffix]:.3f} ms at 256; within the new kernel, "
+            f"products and pipeline alone {t['products_ms']:.3f} ms, selection "
+            f"and pipeline alone {t['selection_ms']:.3f} ms (bound "
+            f"{t['bound_ms']:.3f} ms by {t['bound_by']})")
+    if top2[nq]["ms"] >= ms["s32_256"]:
+        fail(f"the new top2_scan is not faster than the old tiling's GEMM alone "
+             f"(dot_max s32, 256-row tiles) at Q={nq}")
+    if top2[SERVE_BATCH]["ms"] > ms[f"s32_128_q{SERVE_BATCH}"]:
+        fail(f"the new top2_scan is slower than the old tiling's GEMM alone "
+             f"(dot_max s32, 128-row tiles) at Q={SERVE_BATCH}")
 
     # the kernel-measurement tool's path, at its default shape, short SECS
     buf = io.StringIO()
@@ -772,8 +870,7 @@ def dot_max_phase(vecs, qq, top2_ms: float):
         f"{launches}; phase 4c took {time.perf_counter() - t0:.1f} s")
     return {"ms": dot_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": float(err),
-            "launches": launches, "ms_by_config": ms,
-            "selection_share": (top2_ms - dot_ms) / top2_ms}
+            "launches": launches, "ms_by_config": ms}
 
 
 # -- phase 4b: IVF at scale ------------------------------------------------------
@@ -971,12 +1068,16 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} CUDA {torch.version.cuda}; {card}")
 
     t_start = t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        top2_lib = pool.submit(scan_top2.build_library)
+    with ThreadPoolExecutor(max_workers=6) as pool:
+        top2_lib = pool.submit(scan_top2.build_library, True)  # ptxas -v
+        probes = {kind: pool.submit(lib.build)
+                  for kind, lib in scan_top2.PROBE_LIBRARIES.items()}
         ivf_lib = pool.submit(ivf_scan.build_library)
         dot_lib = pool.submit(dot_max.build_library)
         native = pool.submit(get_native)
         scan_top2._library.get(top2_lib.result())
+        for kind, lib in probes.items():
+            scan_top2.PROBE_LIBRARIES[kind].get(lib.result())
         ivf_scan._library.get(ivf_lib.result())
         dot_max._library.get(dot_lib.result())
         if native.result() is None:
@@ -1006,6 +1107,11 @@ def main() -> int:
         "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"],
         "matched": True,
+        # the interactive batch, and the kernel's two measurement builds
+        "ms_q8": scale["kernel_q8"]["ms"],
+        "bound_ms_q8": scale["kernel_q8"]["bound_ms"],
+        "products_ms": kern["products_ms"],
+        "selection_ms": kern["selection_ms"],
     }
     ik = ivf_scale["kernel"]
     ivf_record = {

@@ -12,7 +12,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -23,6 +23,7 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-ldl",  # top2_scan.cu looks up libcuda's cuTensorMapEncodeTiled
 )
 
 
@@ -32,16 +33,19 @@ def nvcc() -> str:
     return str(path) if path.exists() else "nvcc"
 
 
-def build_library(source: str, verbose: bool = False) -> Path:
-    """Compile ``csrc/<source>.cu`` into ``build/kernels/libsemcode_<source>.so``.
+def build_library(source: str, verbose: bool = False,
+                  defines: Sequence[str] = (), tag: str = "") -> Path:
+    """Compile ``csrc/<source>.cu`` into ``build/kernels/libsemcode_<source>.so``
+    (``libsemcode_<source>_<tag>.so`` for a build with extra ``-D`` flags).
 
     Each build writes its own file and renames it into place, so concurrent
-    processes never load a partial library. Raises on a compiler error."""
+    processes never load a partial library. Raises on a compiler error;
+    ``verbose`` prints ptxas's registers, shared memory and spills."""
     src = CSRC / f"{source}.cu"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libsemcode_{source}.so"
+    lib = BUILD_DIR / f"libsemcode_{source}{'_' + tag if tag else ''}.so"
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(src)]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -61,14 +65,18 @@ class KernelLibrary:
     ``bind`` declares the C functions' argument and return types on the
     loaded ``ctypes.CDLL``."""
 
-    def __init__(self, source: str, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, source: str, bind: Callable[[ctypes.CDLL], None],
+                 defines: Sequence[str] = (), tag: str = ""):
         self.source = source
+        self.defines = tuple(defines)
+        self.tag = tag
         self._bind = bind
         self._lock = threading.Lock()
         self._lib: Optional[ctypes.CDLL] = None
 
     def build(self, verbose: bool = False) -> Path:
-        return build_library(self.source, verbose=verbose)
+        return build_library(self.source, verbose=verbose,
+                             defines=self.defines, tag=self.tag)
 
     def get(self, lib_path: Optional[Path] = None) -> ctypes.CDLL:
         """The loaded library; ``lib_path`` installs one built elsewhere

@@ -12,8 +12,10 @@
 //                    below 2^24, i.e. d * 127^2 < 2^24 (d <= 1040) for values
 //                    in [-127, 127]; the caller refuses a larger d.
 //
-// Design: the tiling of top2_scan.cu, so that the two kernels differ only in
-// their epilogue. One block of 256 threads (8 warps) owns ROWS rows x 64
+// Design: the tiling of top2_scan.cu's first design (its bf16/f32 path), so
+// that on int8 operands this kernel times that tiling's GEMM with no
+// selection, the yardstick for top2_scan's int8 kernel (TMA, wgmma, selection
+// in registers). One block of 256 threads (8 warps) owns ROWS rows x 64
 // queries (ROWS in {64, 128, 256}: the TPU tool's row-tile sweep); the depth
 // is walked in 128-byte chunks (128 int8 values, or 64 values widened to
 // bf16) staged synchronously through shared memory with rows padded to 144

@@ -24,7 +24,8 @@
 // four queries), inserting only the candidates that beat its k-th entry.
 //   int8: depth is staged 128 bytes at a time through shared memory and
 //   multiplied on the tensor cores with mma.sync m16n8k32 (the tile code of
-//   top2_scan.cu); the epilogue is the reference's unfused f32 multiplies.
+//   top2_scan.cu's first design); the epilogue is the reference's unfused f32
+//   multiplies.
 //   bf16 / f32: the query stays f32 (the reference scores float storage
 //   against the f32 query), so the dot runs on the CUDA cores in f32, 32
 //   depth values per staged step.

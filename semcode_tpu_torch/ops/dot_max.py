@@ -21,15 +21,16 @@ Modes:
   limit, unstated); with ``d % 128 == 0`` the largest is 1024. A -128 in
   both operands lowers the limit to d = 1024.
 
-The CUDA kernel (``csrc/dot_max.cu``) takes the tiling of ``top2_scan``:
-``rtile`` rows (64, 128 or 256; the TPU tool's row-tile sweep) x 64 queries
-per block of 256 threads, synchronous staging of 128-byte depth chunks, so
+The CUDA kernel (``csrc/dot_max.cu``) keeps the first ``top2_scan``
+design's tiling (still ``top2_scan``'s bf16/f32 path): ``rtile`` rows (64,
+128 or 256; the TPU tool's row-tile sweep) x 64 queries per block of 256
+threads, synchronous staging of 128-byte depth chunks and ``mma.sync``, so
 ``d % 128 == 0`` is required. Each block reduces its tile to 64 per-query
 maxima and folds them into the output with ``atomicMax``; an integer
-maximum does not depend on the order, so the result is deterministic. At
-``rtile=128`` the kernel and ``top2_scan`` differ only in their epilogue,
-so their times at one shape split ``top2_scan`` into its GEMM and its
-selection.
+maximum does not depend on the order, so the result is deterministic. On
+int8 operands its time is that old tiling's GEMM with no selection: the
+yardstick that ``top2_scan``'s int8 kernel (TMA, ``wgmma``, selection in
+registers) is held against at one shape.
 
 What bounds it on an H100 at 1M x 384 int8, Q=512: 3.9e11 int8 operations
 (0.2 ms at the 1,979 TOP/s int8 peak; 0.4 ms at the bf16 rate in bf16 mode)

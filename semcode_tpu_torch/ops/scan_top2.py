@@ -10,19 +10,25 @@ TPU kernel, ``pallas_call`` at line 220). Same function, not the same tiling:
     (score, shard-local row), ties to the lowest row; output (Q, 2*nb) with
     nb = ceil(Rs/128): all block-firsts, then all runner-ups.
 
-The CUDA kernel (``csrc/top2_scan.cu``) runs the dot on the tensor cores
-(``mma.sync`` s8 m16n8k32 for int8 storage, bf16 m16n8k16 for bf16/f32
-storage — f32 rows are rounded to bf16 on load, as the TPU kernel casts them
-at scan_kernel2.py:130), evaluates the epilogue with unfused f32 multiplies
-and adds, and reduces each block's 128 x 64 score tile to its top-2 in
-shared memory. The (Q, R) score matrix never reaches device memory.
+The CUDA kernel (``csrc/top2_scan.cu``) has two designs. int8 storage, the
+default and the main path's, runs a persistent warp-specialised kernel: TMA
+streams 128-byte depth chunks of a 256-row tile and two 64-query tiles into
+an mbarrier ring, two consumer warpgroups run ``wgmma`` s8 m64n256k32 with
+the queries as M and the rows as N, and each takes a block's top-2 from its
+accumulator registers (an in-thread scan over 32 rows, then two shuffle
+rounds) while the other's products run. bf16/f32 storage keeps the first
+design: ``mma.sync`` bf16 m16n8k16 over 128 rows x 64 queries per block with
+synchronous staging (f32 rows are rounded to bf16 on load, as the TPU kernel
+casts them at scan_kernel2.py:130, which TMA cannot do) and the score tile
+reduced in shared memory. Both evaluate the epilogue with unfused f32
+multiplies and adds; the (Q, R) score matrix never reaches device memory.
 
 What bounds it on an H100: at the main path's shape (1M x 384 int8, Q=512)
-the dot is 4e11 int8 ops (0.2 ms at the 1,979 TOP/s int8 peak) against
-384 MB of rows (0.11 ms at 3.35 TB/s), so operations bound it. This first
-version tiles 128 rows x 64 queries per block with synchronous shared-memory
-staging and ``mma.sync``; wgmma, TMA and a pipelined selection are later
-work (PERF.md holds its measured time beside the bound).
+the dot is 3.9e11 int8 ops (0.2 ms at the 1,979 TOP/s int8 peak) against
+~0.46 GB of rows, row scalars and output (0.14 ms at 3.35 TB/s), so
+operations bound it; at Q=8 the bytes do. The int8 launch geometry (tiles,
+work items, persistent grid, ring stages, shared memory) is computed here by
+``scan_geometry`` and checked again by the kernel's entry point.
 
 On a CPU tensor the wrapper runs ``top2_scan_reference``, the plain torch
 version; on a CUDA tensor it launches the kernel or raises.
@@ -31,7 +37,9 @@ version; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from dataclasses import dataclass
+from typing import List, Tuple
 
 import torch
 
@@ -42,16 +50,90 @@ BLOCK = 128  # rows per top-2 block
 
 _STORAGE_CODES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
+# int8 kernel geometry; csrc/top2_scan.cu holds the same constants
+ROW_TILE = 256  # rows per work item (wgmma N): two top-2 blocks
+QUERY_TILE = 64  # queries per consumer warpgroup (wgmma M)
+DEPTH_CHUNK = 128  # bytes of depth per ring stage
+STAGE_BYTES = ROW_TILE * DEPTH_CHUNK + 2 * QUERY_TILE * DEPTH_CHUNK
+EPILOGUE_BYTES = 4 * ROW_TILE * 8  # mult/add of four row tiles in flight
+BARRIER_BYTES = 256
+SMEM_ALIGN = 1024  # slack to align the ring to the 128-byte swizzle atom
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper
+
+
+@dataclass(frozen=True)
+class ScanGeometry:
+    """Launch geometry of the int8 kernel for one (Rs, d, Q).
+
+    A work item is one row tile x one pair of query tiles (the two consumer
+    warpgroups' shares); item ``u`` is row tile ``u // n_query_pairs``,
+    pair ``u % n_query_pairs``, and CTA ``b`` of ``grid`` takes items
+    ``b, b + grid, ...``. ``shared_rows``: one load of a row chunk serves
+    both consumers (the item's depth fits in the ring)."""
+
+    n_row_tiles: int
+    n_query_tiles: int
+    n_query_pairs: int
+    work_items: int
+    grid: int
+    stages: int
+    smem_bytes: int
+    shared_rows: bool
+
+
+def scan_geometry(rs: int, d: int, nq: int, sm_count: int) -> ScanGeometry:
+    """The int8 kernel's tiles, work items, persistent grid (one CTA per SM,
+    at most one per item), ring stages and dynamic shared-memory bytes."""
+    if rs <= 0 or nq <= 0 or d <= 0 or d % DEPTH_CHUNK or sm_count <= 0:
+        raise ValueError(f"no top2_scan geometry for Rs={rs} d={d} Q={nq} "
+                         f"on {sm_count} SMs")
+    n_row_tiles = -(-rs // ROW_TILE)
+    n_query_tiles = -(-nq // QUERY_TILE)
+    n_query_pairs = -(-n_query_tiles // 2)
+    work_items = n_row_tiles * n_query_pairs
+    fixed = SMEM_ALIGN + EPILOGUE_BYTES + BARRIER_BYTES
+    stages = (SMEM_LIMIT - fixed) // STAGE_BYTES
+    return ScanGeometry(
+        n_row_tiles=n_row_tiles,
+        n_query_tiles=n_query_tiles,
+        n_query_pairs=n_query_pairs,
+        work_items=work_items,
+        grid=min(sm_count, work_items),
+        stages=stages,
+        smem_bytes=fixed + stages * STAGE_BYTES,
+        shared_rows=d // DEPTH_CHUNK <= stages,
+    )
+
+
+def cta_tiles(geom: ScanGeometry, cta: int) -> List[Tuple[int, int]]:
+    """(row tile, query tile) pairs that CTA ``cta`` scores, in its order
+    (query tiles past Q are skipped, as the kernel skips them)."""
+    out = []
+    for u in range(cta, geom.work_items, geom.grid):
+        rt, pair = divmod(u, geom.n_query_pairs)
+        out.extend((rt, qt) for qt in (2 * pair, 2 * pair + 1)
+                   if qt < geom.n_query_tiles)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def _bind(lib: ctypes.CDLL) -> None:
-    # seven pointers, Rs, d, Q, storage code, stream
+    # seven pointers, Rs, d, Q, storage code, grid, stages, smem bytes, stream
     lib.semcode_top2_scan.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     lib.semcode_top2_scan.restype = ctypes.c_int
 
 
 _library = KernelLibrary("top2_scan", _bind)
+PROBE_LIBRARIES = {
+    "products": KernelLibrary("top2_scan", _bind, ("-DTOP2_PROBE=1",), "products"),
+    "selection": KernelLibrary("top2_scan", _bind, ("-DTOP2_PROBE=2",), "selection"),
+}
 
 
 def build_library(verbose: bool = False):
@@ -153,6 +235,26 @@ def top2_scan(
         return top2_scan_reference(vecs, mult, add, qq, q_scales)
     if vecs.device.type != "cuda":
         raise ValueError(f"top2_scan: unsupported device {vecs.device}")
+    out = _launch(_library.get(), vecs, mult, add, qq, q_scales)
+    top2_scan.launches += 1
+    return out
+
+
+top2_scan.launches = 0  # kernel launches (not plain-version calls)
+
+
+def top2_scan_probe(kind: str, vecs, mult, add, qq, q_scales):
+    """Launch a measurement build of the int8 kernel on the card: "products"
+    skips the selection, "selection" skips the products (``TOP2_PROBE`` in
+    csrc/top2_scan.cu). The outputs are meaningless, and no launch of
+    ``top2_scan`` is counted: the two times split the kernel's."""
+    _check_args(vecs, mult, add, qq, q_scales)
+    if vecs.dtype != torch.int8 or vecs.device.type != "cuda":
+        raise ValueError("top2_scan_probe runs the int8 kernel on a CUDA card")
+    return _launch(PROBE_LIBRARIES[kind].get(), vecs, mult, add, qq, q_scales)
+
+
+def _launch(lib, vecs, mult, add, qq, q_scales):
     rs, d = vecs.shape
     n_q = qq.shape[0]
     nb = -(-rs // BLOCK)
@@ -166,18 +268,17 @@ def top2_scan(
             raise ValueError("top2_scan needs 16-byte aligned rows")
     bmax = torch.empty((n_q, 2 * nb), dtype=torch.float32, device=vecs.device)
     brow = torch.empty((n_q, 2 * nb), dtype=torch.int32, device=vecs.device)
-    lib = _library.get()
     with torch.cuda.device(vecs.device):
+        grid = stages = smem = 0  # bf16/f32 storage: the grid follows the shape
+        if vecs.dtype == torch.int8:
+            geom = scan_geometry(rs, d, n_q, _sm_count(torch.cuda.current_device()))
+            grid, stages, smem = geom.grid, geom.stages, geom.smem_bytes
         stream = torch.cuda.current_stream(vecs.device).cuda_stream
         err = lib.semcode_top2_scan(
             vecs.data_ptr(), mult.data_ptr(), add.data_ptr(), qq.data_ptr(),
             q_scales.data_ptr(), bmax.data_ptr(), brow.data_ptr(),
-            rs, d, n_q, _STORAGE_CODES[vecs.dtype], stream,
+            rs, d, n_q, _STORAGE_CODES[vecs.dtype], grid, stages, smem, stream,
         )
     if err != 0:
         raise RuntimeError(f"top2_scan kernel launch failed: CUDA error {err}")
-    top2_scan.launches += 1
     return bmax, brow
-
-
-top2_scan.launches = 0  # kernel launches (not plain-version calls)

@@ -64,6 +64,42 @@ def test_top2_scan_matches_plain_version(cuda, storage, rs, d, nq):
         torch.testing.assert_close(bm, rm, rtol=1e-5, atol=1e-6)
 
 
+def _tile_edge_operands(rs, d, nq, gen, device):
+    """int8 operands with exact duplicates on both sides of the 128-row
+    block boundary inside the first 256-row tile, a tie inside block 0, and
+    all-dead blocks in the first and second half of later tiles."""
+    vecs, sc, add, qq, qs = _operands("int8", rs, d, nq, gen, device)
+    vecs[128:132] = vecs[124:128]
+    sc[128:132] = sc[124:128]
+    vecs[5] = vecs[77]
+    sc[5] = sc[77]
+    for lo in (256, 640):  # block 2 (first of tile 1), block 5 (second of tile 2)
+        if rs > lo + 128:
+            add[lo:lo + 128] = NEG
+    return vecs, sc, add, qq, qs
+
+
+@pytest.mark.parametrize("rs,d,nq", [
+    (255, 384, 65),
+    (256, 384, 1000),
+    (257, 384, 65),
+    (1023, 3072, 1000),
+    (1024, 1024, 65),
+    (1025, 3072, 8),
+    (70001, 384, 1000),   # more work items than CTAs, rows shared by both consumers
+    (40000, 3072, 512),   # more work items than CTAs, one row load per consumer
+])
+def test_top2_scan_int8_tile_edges(cuda, rs, d, nq):
+    gen = torch.Generator(device=cuda).manual_seed(rs * 7 + d + nq)
+    ops = _tile_edge_operands(rs, d, nq, gen, cuda)
+    before = scan_top2.top2_scan.launches
+    bm, br = top2_scan(*ops)
+    torch.cuda.synchronize()
+    assert scan_top2.top2_scan.launches == before + 1
+    rm, rr = top2_scan_reference(*ops)
+    assert torch.equal(bm, rm) and torch.equal(br, rr)
+
+
 def _ivf_operands(storage, nlist, cmax, d, nq, nprobe, gen, device):
     """Cluster blocks with ~10% empty slots and duplicated rows (ties)."""
     x = torch.randn(nlist, cmax, d, generator=gen, device=device)

@@ -7,7 +7,8 @@ identical rows and scores within 1e-6 (both dots are exact integers);
 bf16/f32: scores within rtol 1e-5 (f32 accumulation order differs), rows
 identical where a block's top-2 are separated by more than 1e-4. The CUDA
 kernel itself is compared with the plain version on the card only
-(tests/test_torch_cuda.py).
+(tests/test_torch_cuda.py); its launch geometry (``scan_geometry``) is
+checked here.
 """
 
 import jax.numpy as jnp
@@ -16,7 +17,19 @@ import pytest
 import torch
 
 from semcode_tpu.ops.scan_kernel2 import top2_scan_shard
-from semcode_tpu_torch.ops.scan_top2 import NEG, top2_scan, top2_scan_reference
+from semcode_tpu_torch.ops.scan_top2 import (
+    BARRIER_BYTES,
+    EPILOGUE_BYTES,
+    NEG,
+    QUERY_TILE,
+    ROW_TILE,
+    SMEM_ALIGN,
+    STAGE_BYTES,
+    cta_tiles,
+    scan_geometry,
+    top2_scan,
+    top2_scan_reference,
+)
 
 
 def _inputs(storage, rs, d, nq, metric, seed):
@@ -127,3 +140,57 @@ def test_wrapper_rejects_bad_operands():
         top2_scan(vecs, mult, add, qq.to(torch.bfloat16), qsc)
     with pytest.raises(TypeError, match="mult must hold"):
         top2_scan(vecs, mult[:10], add, qq, qsc)
+
+
+@pytest.mark.parametrize("storage", ["int8", "bfloat16"])
+def test_reference_matches_pallas_interpret_at_tile_edges(storage):
+    """The int8 kernel scores 256-row tiles of two 128-row blocks: exact
+    duplicates straddling the block boundary inside a tile (rows 124-131),
+    a tie inside block 0, an all-dead block opening the second tile and
+    another closing the third. Plain version and Pallas agree exactly."""
+    rs, d, nq = 700, 128, 6
+    vecs, mult, add, qq, qsc = _inputs(storage, rs, d, nq, "ip", seed=11)
+    vecs[128:132] = vecs[124:128]
+    mult[128:132] = mult[124:128]
+    vecs[5] = vecs[77]
+    mult[5] = mult[77]
+    add[124:132] = 0.0
+    add[256:384] = NEG  # block 2: first block of tile 1
+    add[640:700] = NEG  # block 5: second block of tile 2, ragged
+    jm, jr = _jax(storage, vecs, mult, add, qq, qsc)
+    tm, tr = top2_scan_reference(*_torch(storage, vecs, mult, add, qq, qsc))
+    np.testing.assert_array_equal(tr.numpy(), jr)
+    if storage == "int8":
+        np.testing.assert_array_equal(tm.numpy(), jm)
+    else:
+        np.testing.assert_allclose(tm.numpy(), jm, rtol=1e-5, atol=1e-6)
+    nb = 6
+    for blk in (2, 5):  # dead blocks: lane 0 in both slots
+        assert (tr.numpy()[:, blk] == 128 * blk).all()
+        assert (tr.numpy()[:, nb + blk] == 128 * blk).all()
+
+
+@pytest.mark.parametrize("d", [128, 384, 1024, 3072])
+@pytest.mark.parametrize("nq", [1, 8, 65, 512, 1000])
+def test_launch_geometry_fits_and_covers_every_tile_once(d, nq):
+    for rs, sms in ((181, 132), (70001, 132), (5000, 4)):
+        geom = scan_geometry(rs, d, nq, sms)
+        assert 2 <= geom.stages
+        assert geom.smem_bytes == (SMEM_ALIGN + geom.stages * STAGE_BYTES
+                                   + EPILOGUE_BYTES + BARRIER_BYTES)
+        assert geom.smem_bytes <= 232_448
+        assert geom.n_row_tiles == -(-rs // ROW_TILE)
+        assert geom.n_query_tiles == -(-nq // QUERY_TILE)
+        assert 1 <= geom.grid == min(sms, geom.work_items)
+        assert geom.shared_rows == (d // 128 <= geom.stages)
+        seen = [tile for cta in range(geom.grid) for tile in cta_tiles(geom, cta)]
+        want = [(rt, qt) for rt in range(geom.n_row_tiles)
+                for qt in range(geom.n_query_tiles)]
+        assert sorted(seen) == want  # every tile exactly once
+
+
+def test_launch_geometry_rejects_what_the_kernel_cannot_run():
+    for args in ((0, 128, 8, 132), (100, 96, 8, 132), (100, 128, 0, 132),
+                 (100, 128, 8, 0)):
+        with pytest.raises(ValueError, match="no top2_scan geometry"):
+            scan_geometry(*args)
