@@ -8,9 +8,9 @@ NVIDIA Hopper card and the CUDA toolkit:
 Phases (any failed check exits non-zero before the final line):
 
 1. report the card and build the kernels from the sources in the checkout
-   (the three CUDA kernels with nvcc, top2_scan with ptxas's registers,
-   shared memory and spills printed, its two measurement builds, and the
-   native featurizer with g++, all started together);
+   (the three CUDA sources with nvcc, top2_scan and ivf_scan with ptxas's
+   registers, shared memory and spills printed, the two measurement builds
+   of each, and the native featurizer with g++, all started together);
 2. hold the top2_scan kernel against its plain torch version on the card:
    int8 / bf16 / f32 storage, Rs in {100, 128, 1000, 70001}, d in {128,
    384, 3072}, Q in {1, 8, 512}, ip and l2, ~5% dead rows; then int8 at the
@@ -22,12 +22,16 @@ Phases (any failed check exits non-zero before the final line):
    first rows identical wherever a block's top-2 gap exceeds 1e-4, and
    every picked row scoring as the plain version's pick (runner-ups may
    swap with a near-tied third: f32 sums run in another order);
-2b. hold the ivf_scan kernel against its plain version on the card: int8 /
-   bf16 / f32 cluster blocks with ~10% empty slots and duplicated rows, d in
-   {128, 384, 3072}, cmax in {128, 2176}, Q in {1, 8, 512}, nprobe in {1,
-   16, 32, 128}, k in {10, 64}. int8: bit-identical scores and identical
-   ids wherever a score stands apart from its neighbours; bf16/f32: scores
-   within rtol 1e-5 (atol 1e-6), ids the same way at a 1e-5 gap;
+2b. hold the ivf_scan kernels against their plain versions on the card:
+   int8 / bf16 / f32 cluster blocks with ~10% empty slots and duplicated
+   rows, d in {128, 384, 3072}, cmax in {128, 2176}, Q in {1, 8, 512},
+   nprobe in {1, 16, 32, 128}, k in {10, 64}; then int8 at cmax 2176 with
+   clusters probed by 64, by 65 and by every query (tiles that end at,
+   past and far past one 64-query box), nprobe up to 128 and k 10; and the
+   prep and merge kernels alone. int8: bit-identical scores and identical
+   ids, ties included (the order (score, cluster, slot) is total);
+   bf16/f32: scores within rtol 1e-5 (atol 1e-6), ids equal wherever a
+   score stands apart from its neighbours by 1e-5;
 2c. hold the dot_max kernel against its plain version on the card: modes
    s32 and bf16, every row tile (64, 128, 256), N in {1, 100, 128, 70001},
    d in {128, 384, 3072 (s32 only)}, Q in {1, 8, 64, 512}; rows and queries
@@ -63,10 +67,14 @@ Phases (any failed check exits non-zero before the final line):
    recall@10 against the f32 oracle (>= 0.95 required at nprobe 32), ids
    equal to the gather-scan route's on the same layout, QPS at batch 512
    and p50 at batch 8; the cost model's choice at batch 8 / nprobe 8 under
-   mode "auto" (must be "ivf" and launch the kernel); the kernel's time per
-   Q=512, nprobe-32 call beside its plain version, one PyTorch-library
-   computation of the same selection and its bound; and a torch.profiler
-   breakdown of one batch-512 probe search.
+   mode "auto" (must be "ivf" and launch the kernel); at Q=512, nprobe 32,
+   k 64: the whole ivf_scan call (CUDA events) and each of its kernels
+   (prep, scatter, scan, merge; torch.profiler device time), the scan's two
+   measurement builds (products alone, selection alone on synthetic
+   scores), beside the bound, the plain version and one PyTorch-library
+   computation of the same selection; the pairs, tiles, probed clusters
+   and most probers of one cluster; and a torch.profiler breakdown of one
+   batch-512 probe search with its kernel launches.
 4c. the dot_max kernel at phase 4's shape, on phase 4's own int8 rows and
    quantized queries (the bytes top2_scan reads): ms per call in both modes
    at every row tile beside TOP/s, the bound, its plain version and one
@@ -322,6 +330,40 @@ IVF_CASES = [
 ]
 
 
+# int8 at cmax 2176 with crowded clusters: (nlist, d, Q, nprobe, k)
+IVF_CROWDED_CASES = [
+    (64, 384, 200, 16, 64),
+    (256, 128, 100, 128, 10),
+    (16, 384, 700, 8, 64),
+]
+
+
+def crowded_probes(nq, nlist, nprobe, gen):
+    """Probes over clusters 3.. with cluster 0 probed by queries 0-63, 1 by
+    queries 0-64 and 2 by every query."""
+    import torch
+
+    probes = torch.argsort(torch.rand(nq, nlist - 3, generator=gen, device="cuda"),
+                           dim=1)[:, :nprobe] + 3
+    probes[:64, 0] = 0
+    probes[:65, 1] = 1
+    probes[:, 2] = 2
+    return probes
+
+
+def empty_tails(ids, gen):
+    """Empty tails, as a layout leaves them after each cluster's rows:
+    cluster 0 keeps 129 slots, 1 keeps 128, 2 all, 3 none, 4 one, the rest
+    a random count (the holes already in ids stay)."""
+    import torch
+
+    nlist, cmax = ids.shape
+    keep = torch.randint(0, cmax + 1, (nlist,), generator=gen, device="cuda")
+    keep[:5] = torch.tensor([129, 128, cmax, 0, 1], device="cuda")
+    slot = torch.arange(cmax, device="cuda")
+    return torch.where(slot[None, :] < keep[:, None], ids, -1)
+
+
 def check_ivf_kernel() -> float:
     import torch
 
@@ -329,29 +371,94 @@ def check_ivf_kernel() -> float:
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
     worst = 0.0
-    for storage, nlist, cmax, d, nq, nprobe, k in IVF_CASES:
+    cases = [(c, None) for c in IVF_CASES] + [
+        (("int8", nlist, 2176, d, nq, nprobe, k), "crowded")
+        for nlist, d, nq, nprobe, k in IVF_CROWDED_CASES
+    ]
+    for (storage, nlist, cmax, d, nq, nprobe, k), kind in cases:
         data, ids, q, probes, scales = ivf_inputs(storage, nlist, cmax, d, nq,
                                                   nprobe, gen)
+        if kind == "crowded":
+            probes = crowded_probes(nq, nlist, nprobe, gen)
+            ids = empty_tails(ids, gen)
         s, i = ivf_scan(data, ids, q, probes, k, scales)
         torch.cuda.synchronize()
         rs, ri = ivf_scan_reference(data, ids, q, probes, k, scales)
         err = (s - rs).abs().max().item()
         worst = max(worst, err)
-        tag = f"{storage} nlist={nlist} cmax={cmax} d={d} Q={nq} nprobe={nprobe} k={k}"
+        tag = (f"{storage} nlist={nlist} cmax={cmax} d={d} Q={nq} nprobe={nprobe} "
+               f"k={k}{' crowded' if kind else ''}")
         if storage == "int8":
             if not torch.equal(s, rs):
                 fail(f"ivf_scan {tag}: scores not bit-identical (max err {err})")
-            tol = 0.0
+            if not torch.equal(i, ri):
+                fail(f"ivf_scan {tag}: ids differ (ties included)")
         else:
             if not torch.allclose(s, rs, rtol=1e-5, atol=1e-6):
                 fail(f"ivf_scan {tag}: scores off by {err}")
-            tol = 1e-5
-        if not untied_ids_equal(rs, ri, i, tol):
-            fail(f"ivf_scan {tag}: ids differ at untied positions")
+            if not untied_ids_equal(rs, ri, i, 1e-5):
+                fail(f"ivf_scan {tag}: ids differ at untied positions")
         del data, ids, q, probes, scales, s, i, rs, ri
-    log(f"[kernel] ivf_scan matches its plain version in {len(IVF_CASES)} "
-        f"cases (max |score err| {worst:.3g})")
+    n_aux = check_ivf_prep_merge(gen)
+    log(f"[kernel] ivf_scan matches its plain version in {len(cases)} cases "
+        f"({len(IVF_CROWDED_CASES)} with crowded clusters and empty tails; int8 "
+        f"ids identical, ties included), prep and merge in {n_aux} more (max "
+        f"|score err| {worst:.3g})")
     return worst
+
+
+def check_ivf_prep_merge(gen) -> int:
+    """The prep kernel (probe table, tiles, buckets: the order inside a
+    bucket is free; each probed cluster's chunk count) and the merge kernel
+    (tied scores across lists, empty tails, skipped probes) against their
+    plain versions."""
+    import torch
+
+    from semcode_tpu_torch.ops import ivf_scan as ivf_ops
+
+    n = 0
+    for nq, nlist, nprobe, tile in ((512, 1024, 32, 64), (700, 16, 8, 64),
+                                    (100, 256, 128, 32), (50, 70000, 32, 64)):
+        probes = torch.randint(-2, nlist + 2, (nq, nprobe), generator=gen, device="cuda")
+        cmax = 2176 if nlist <= 1024 else 128
+        ids = torch.arange(nlist * cmax, device="cuda", dtype=torch.int32).view(nlist, cmax)
+        ids = empty_tails(torch.where(torch.rand(nlist, cmax, generator=gen, device="cuda")
+                                      < 0.1, -1, ids), gen)
+        table, pair_at, tiles, nchunk = ivf_ops.ivf_prep(probes, nlist, tile, ids)
+        rt, rp, rtl, rn = ivf_ops.prep_reference(probes.cpu(), nlist, tile, ids.cpu())
+        if not (torch.equal(table.cpu(), rt) and torch.equal(tiles.cpu(), rtl)):
+            fail(f"ivf prep Q={nq} nlist={nlist} nprobe={nprobe}: table or tiles differ")
+        if not torch.equal(nchunk.cpu(), rn):
+            fail(f"ivf prep Q={nq} nlist={nlist} nprobe={nprobe}: chunk counts differ")
+        got = pair_at.cpu().clone()
+        bounds = {}
+        for c, p0, m in rtl.tolist():
+            bounds[c] = (bounds.get(c, (p0, 0))[0], p0 + m)
+        for lo, hi in bounds.values():
+            got[lo:hi] = torch.sort(got[lo:hi]).values
+        if not torch.equal(got, rp):
+            fail(f"ivf prep Q={nq} nlist={nlist} nprobe={nprobe}: buckets differ")
+        n += 1
+    for nq, nprobe, k in ((512, 32, 64), (33, 128, 10), (9, 128, 64)):
+        m = nq * nprobe
+        s = torch.randint(0, 5, (m, k), generator=gen, device="cuda").float() / 4
+        s = torch.sort(s, dim=1, descending=True).values
+        tail = torch.randint(0, k + 1, (m, 1), generator=gen, device="cuda")
+        empty = torch.arange(k, device="cuda")[None, :] >= tail
+        s = torch.where(empty, ivf_ops.NEG, s)
+        i = torch.randint(0, 1 << 30, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        i = torch.where(empty, -1, i)
+        table = torch.argsort(torch.rand(nq, 4 * nprobe, generator=gen, device="cuda"),
+                              dim=1)[:, :nprobe].to(torch.int32)
+        table = torch.where(torch.rand(nq, nprobe, generator=gen, device="cuda") < 0.2,
+                            -1, table)
+        got_s, got_i = ivf_ops.ivf_merge(s, i, table, k)
+        want_s, want_i = ivf_ops.merge_reference(s, i, table, k)
+        if not (torch.equal(got_s, want_s) and torch.equal(got_i, want_i)):
+            fail(f"ivf merge Q={nq} nprobe={nprobe} k={k}: differs from its plain version")
+        n += 1
+    return n
 
 
 # -- phase 2c: the dot-max kernel against its plain version --------------------
@@ -639,20 +746,49 @@ def device_breakdown(fn, label: str, iters: int = 5):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     rows = []
+    launches = 0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         if ev.device_type == DeviceType.CUDA and dev_us > 0:
             rows.append((ev.key, dev_us / 1e3 / iters))
+            launches += ev.count
     rows.sort(key=lambda r: -r[1])
     busy = sum(ms for _, ms in rows)
     log(f"[profile] {label}: wall {wall_ms:.3f} ms, "
-        f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
+        f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
+        f"{launches / iters:.0f} device launches per call")
     for name, ms in rows[:8]:
         log(f"[profile]   {ms:8.3f} ms  {name[:90]}")
-    return {"wall_ms": wall_ms, "device_ms": busy,
+    return {"wall_ms": wall_ms, "device_ms": busy, "launches": launches / iters,
             "top": [[name[:60], ms] for name, ms in rows[:5]]}
+
+
+def kernel_device_ms(fn, names, iters: int = 10):
+    """Device ms per call of ``fn`` spent in the kernels whose names contain
+    each of ``names`` (torch.profiler, CUDA activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in ev.key:
+                out[name] += dev_us / 1e3 / iters
+    return out
 
 
 def scale_phase():
@@ -931,7 +1067,9 @@ def ivf_scale_phase():
     from semcode_tpu_torch.device import f32_matmul
     from semcode_tpu_torch.index.ivf import IVFIndex
     from semcode_tpu_torch.index.scan import quantize_queries_device, stable_topk
-    from semcode_tpu_torch.ops.ivf_scan import ivf_scan, ivf_scan_reference
+    from semcode_tpu_torch.ops.ivf_scan import (
+        ivf_prep, ivf_scan, ivf_scan_probe, ivf_scan_reference,
+    )
     from semcode_tpu_torch.tools._corpus import mixture, oracle_topk, queries_near
     from semcode_tpu_torch.tools._timing import cuda_ms
 
@@ -1018,14 +1156,28 @@ def ivf_scale_phase():
     _, probes = stable_topk(f32_matmul(q, dev.centroids.T), 32)
     args = (dev.data, dev.ids, q, probes, 64, dev.scales)
     calls = ivf_scan.launches
-    kernel_ms = cuda_ms(lambda: ivf_scan(*args), iters=20)
+    call_ms = cuda_ms(lambda: ivf_scan(*args), iters=20)
+    parts = kernel_device_ms(lambda: ivf_scan(*args),
+                             ("ivf_prep", "ivf_scatter", "ivf_scan_s8", "ivf_merge"))
+    probe_ms = {kind: kernel_device_ms(lambda: ivf_scan_probe(kind, *args),
+                                       ("ivf_scan_s8",))["ivf_scan_s8"]
+                for kind in ("products", "selection")}
     s, i = ivf_scan(*args)
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: ivf_scan_reference(*args), iters=2, warmup=1)
     rs, ri = ivf_scan_reference(*args)
-    if not torch.equal(s, rs) or not untied_ids_equal(rs, ri, i, 0.0):
+    if not torch.equal(s, rs) or not torch.equal(i, ri):
         fail("ivf_scan differs from its plain version at the main-path shape")
     err = (s - rs).abs().max().item()
+    # the work this call's probes give: pairs, tiles, probed clusters and
+    # the chunks the scan streams of each
+    _, pair_at, tiles, nchunk = ivf_prep(probes, NLIST, ids=dev.ids)
+    per_cluster = torch.zeros(NLIST, dtype=torch.int64, device="cuda")
+    per_cluster.index_add_(0, tiles[:, 0].long(), tiles[:, 2].long())
+    n_pairs, n_tiles = pair_at.numel(), tiles.shape[0]
+    probed = per_cluster > 0
+    n_union = int(probed.sum())
+    most = int(per_cluster.max())
     qq, qsc = quantize_queries_device(q)
     probing = torch.zeros((BATCH, NLIST), dtype=torch.bool, device="cuda")
     probing.scatter_(1, probes, True)
@@ -1033,21 +1185,44 @@ def ivf_scale_phase():
         lambda: ivf_library(dev.data, dev.ids, dev.scales, qq, qsc, probing, 64),
         iters=3, warmup=1,
     )
-    n_union = int(probing.any(dim=0).sum())
     cmax = index.cmax
-    n_bytes = n_union * cmax * (DIM + 8)
-    n_ops = 2 * BATCH * 32 * cmax * DIM
+    # the bytes the function must move: the id of every slot of the probed
+    # clusters, the row and scale of every valid one, the queries, probes
+    # and output; its useful products: each pair against its cluster's
+    # valid rows
+    valid = (dev.ids >= 0).sum(dim=1)
+    n_valid = int(valid[probed].sum())
+    n_bytes = (n_union * cmax * 4 + n_valid * (DIM + 4) + q.numel() * 4
+               + probes.numel() * probes.element_size() + BATCH * 64 * 8)
+    n_ops = 2 * DIM * int((per_cluster * valid).sum())
     bound_ms = max(n_bytes / PEAK_HBM_BYTES, n_ops / PEAK_INT8_OPS) * 1e3
     bound_by = "operations" if n_ops / PEAK_INT8_OPS >= n_bytes / PEAK_HBM_BYTES else "bytes"
-    log(f"[ivf-scale] ivf_scan Q={BATCH} nprobe 32 k 64 over {n_union} probed "
-        f"clusters (cmax {cmax}): {kernel_ms:.3f} ms per call (plain "
-        f"{plain_ms:.1f} ms, _int_mm+mask+topk {library_ms:.3f} ms, bound "
-        f"{bound_ms:.3f} ms by {bound_by}); {ivf_scan.launches - calls} "
+    # what the scan streams: each tile's cluster up to its last valid chunk
+    streamed = int(nchunk[tiles[:, 0].long()].sum()) * 128 * (DIM + 8)
+    kernel_ms = parts["ivf_scan_s8"]
+    log(f"[ivf-scale] ivf_scan Q={BATCH} nprobe 32 k 64: {n_pairs} pairs in "
+        f"{n_tiles} tiles over {n_union} probed clusters (cmax {cmax}, "
+        f"{n_valid} valid slots, fill {n_valid / (n_union * cmax):.4f}; the most "
+        f"probers of one cluster {most}); bound {bound_ms:.3f} ms by {bound_by} "
+        f"({n_bytes / 1e9:.3f} GB, {n_ops:.3g} ops); the scan streams "
+        f"{streamed / 1e9:.3f} GB (each cluster to its last valid chunk)")
+    log(f"[ivf-scale] whole call {call_ms:.3f} ms (CUDA events); kernels "
+        f"(profiler): scan {kernel_ms:.3f} ms, prep {parts['ivf_prep']:.4f}, "
+        f"scatter {parts['ivf_scatter']:.4f}, merge {parts['ivf_merge']:.4f} ms; "
+        f"scan measurement builds: products alone {probe_ms['products']:.3f} ms, "
+        f"selection alone {probe_ms['selection']:.3f} ms; plain {plain_ms:.1f} ms, "
+        f"_int_mm+mask+topk {library_ms:.3f} ms; {ivf_scan.launches - calls} "
         "timing launches")
-    out["kernel"] = {"ms": kernel_ms, "plain_ms": plain_ms,
+    out["kernel"] = {"ms": call_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "max_abs_err": err,
-                     "launches": launches, "union": n_union}
+                     "launches": launches, "union": n_union, "pairs": n_pairs,
+                     "tiles": n_tiles, "most_probers": most,
+                     "bound_gb": n_bytes / 1e9, "streamed_gb": streamed / 1e9,
+                     "prep_ms": parts["ivf_prep"], "scatter_ms": parts["ivf_scatter"],
+                     "merge_ms": parts["ivf_merge"],
+                     "products_ms": probe_ms["products"],
+                     "selection_ms": probe_ms["selection"]}
     return out
 
 
@@ -1068,17 +1243,21 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} CUDA {torch.version.cuda}; {card}")
 
     t_start = t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=6) as pool:
+    with ThreadPoolExecutor(max_workers=8) as pool:
         top2_lib = pool.submit(scan_top2.build_library, True)  # ptxas -v
         probes = {kind: pool.submit(lib.build)
                   for kind, lib in scan_top2.PROBE_LIBRARIES.items()}
-        ivf_lib = pool.submit(ivf_scan.build_library)
+        ivf_lib = pool.submit(ivf_scan.build_library, True)  # ptxas -v
+        ivf_probes = {kind: pool.submit(lib.build, True)
+                      for kind, lib in ivf_scan.PROBE_LIBRARIES.items()}
         dot_lib = pool.submit(dot_max.build_library)
         native = pool.submit(get_native)
         scan_top2._library.get(top2_lib.result())
         for kind, lib in probes.items():
             scan_top2.PROBE_LIBRARIES[kind].get(lib.result())
         ivf_scan._library.get(ivf_lib.result())
+        for kind, lib in ivf_probes.items():
+            ivf_scan.PROBE_LIBRARIES[kind].get(lib.result())
         dot_max._library.get(dot_lib.result())
         if native.result() is None:
             fail("the native featurizer did not build")
@@ -1127,6 +1306,14 @@ def main() -> int:
         "bound_by": ik["bound_by"],
         "library_ms": ik["library_ms"],
         "matched": True,
+        # the scan kernel alone, the bookkeeping kernels and the scan's two
+        # measurement builds
+        "kernel_ms": ik["kernel_ms"],
+        "prep_ms": ik["prep_ms"],
+        "scatter_ms": ik["scatter_ms"],
+        "merge_ms": ik["merge_ms"],
+        "products_ms": ik["products_ms"],
+        "selection_ms": ik["selection_ms"],
     }
     dk = scale["dot_max"]
     dot_record = {

@@ -12,6 +12,7 @@ not carried over.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Union
 
@@ -71,6 +72,13 @@ def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return a @ b
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Multiprocessors of CUDA device ``index``: the kernels' persistent
+    grids."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def round_up(value: int, multiple: int) -> int:

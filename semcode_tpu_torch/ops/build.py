@@ -23,7 +23,7 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
-    "-ldl",  # top2_scan.cu looks up libcuda's cuTensorMapEncodeTiled
+    "-ldl",  # csrc/hopper.cuh looks up libcuda's cuTensorMapEncodeTiled
 )
 
 

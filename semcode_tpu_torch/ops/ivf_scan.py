@@ -16,25 +16,52 @@ any query whose probed clusters hold at most 128 candidates that reach its
 running top-k; beyond that the TPU kernel's slot reuse leaves its tie order
 unspecified, and only tied scores can differ.
 
-The CUDA kernel (``csrc/ivf_scan.cu``) runs cluster-major: the probe table
-is sorted by cluster on the device, one block scans one cluster for a tile
-of up to 32 of its probing queries and writes each (query, probe) pair's
-top-k; a stable top-k over a query's ``nprobe * k`` partials orders the
-result. What bounds it on an H100 at the main path's shape (1M x 384 int8,
-nlist 1024, Q=512, nprobe 32): reading each probed cluster once, ~0.87 GB
-(0.26 ms at 3.35 TB/s), against 2.7e10 int8 ops (0.014 ms).
+What bounds it on an H100 at the main path's shape (1M x 384 int8, nlist
+1024, cmax 2176, Q=512, nprobe 32, clusters ~45% full): reading the ids of
+every slot of the probed clusters and the row and scale of every valid
+one, ~0.40 GB (0.12 ms at 3.35 TB/s), against 2.7e10 int8 ops (0.014 ms).
+The CUDA source (``csrc/ivf_scan.cu``) streams each probed cluster up to
+its last valid 128-slot chunk (a layout packs a cluster's rows at the
+front of its block) and hides the selection under the stream, in four
+launches and no host sync:
 
-On a CPU tensor the wrapper runs ``ivf_scan_reference``, the plain torch
-version; on a CUDA tensor it launches the kernel or raises.
+- ``prep`` (one block) builds the probe table (repeats and out-of-range
+  probes skipped), ranks the (query, probe) pairs in per-cluster buckets
+  and writes the tile list; ``scatter`` puts each pair in its bucket, finds
+  each probed cluster's last chunk holding a valid id and, for int8, copies
+  the pair's quantized query row into pair order, so that a tile's queries
+  are contiguous rows for TMA;
+- the scan: for int8, persistent warp-specialised CTAs stream each tile's
+  cluster and query rows by TMA into an mbarrier ring; two consumer
+  warpgroups run ``wgmma`` s8 m64n64k32 on half a 128-row chunk each
+  (queries as M, rows as N); each query keeps its k-th score as a
+  threshold and appends the scores that beat it to a candidate buffer in
+  shared memory; before a chunk could overflow a buffer, and at the
+  cluster's end, a warp selects the buffer's k best (an exact histogram
+  select), raises the threshold and publishes the k-th score as a bound on
+  the query's final k-th, against which its later pairs filter too (ties
+  pass, so the result stays exact). bf16/f32 storage keeps the first design
+  (f32 dot on the CUDA cores, 32-query tiles, a top-k list in registers);
+- ``merge`` (a warp per query) merges the query's sorted per-pair lists by
+  (score desc, cluster asc, list position asc), which is the order a stable
+  top-k over the probe-sorted partials gives.
+
+``ivf_geometry`` computes every launch's geometry; the C entry points check
+it again. On a CPU tensor the wrapper runs ``ivf_scan_reference``, the
+plain torch version; on a CUDA tensor it launches the kernels or raises.
+``prep_reference`` and ``merge_reference`` are the plain versions of the
+bookkeeping kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
+from ..device import sm_count
 from ..index.scan import quantize_queries_device, stable_topk
 from .build import KernelLibrary
 
@@ -46,19 +73,102 @@ _STORAGE_CODES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 # bytes of the (Q, nprobe, cmax, d) f64 gather the plain version holds at once
 _PLAIN_CHUNK_BYTES = 1 << 30
 
+# launch geometry; csrc/ivf_scan.cu holds the same constants
+QUERY_TILE = 64  # int8 tile queries (wgmma M)
+FLOAT_QUERY_TILE = 32  # bf16/f32 tile queries
+ROW_CHUNK = 128  # cluster rows per streamed chunk (wgmma N)
+DEPTH_CHUNK = 128  # bytes of depth per ring stage
+STAGE_BYTES = ROW_CHUNK * DEPTH_CHUNK + QUERY_TILE * DEPTH_CHUNK
+QUERY_BOX = 16  # query rows per TMA box: one consumer warp's rows of M
+# candidate (score, slot) entries of a tile's queries, shared out per tile:
+# min(CANDIDATES_MAX, pool / nq) each, never less than MAX_K + ROW_CHUNK
+CANDIDATE_POOL = QUERY_TILE * 192
+CANDIDATES_MAX = 384
+BUFFER_BYTES = CANDIDATE_POOL * 8
+EPILOGUE_BYTES = 4 * ROW_CHUNK * 8  # ids and scales of four row chunks
+MISC_BYTES = 6144  # per-query state, the select histograms, the barriers
+SMEM_ALIGN = 1024  # slack to align the ring to the 128-byte swizzle atom
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper
+GATHER_ROWS = 8  # pairs per scatter block (a warp each)
+MERGE_SMEM_MAX = 49_152
+MAX_MERGE_WARPS = 4
+
+
+@dataclass(frozen=True)
+class IvfGeometry:
+    """Launch geometry of one ``ivf_scan`` call's scan.
+
+    ``tile_bound`` bounds the tiles without reading the bucket sizes back.
+    The int8 scan runs ``grid`` persistent CTAs with ``stages`` ring
+    stages; the float scan runs ``grid`` = ``tile_bound`` blocks (``stages``
+    0)."""
+
+    query_tile: int
+    n_pairs: int
+    tile_bound: int
+    grid: int
+    stages: int
+    smem_bytes: int
+
+
+def tile_bound(n_pairs: int, nlist: int, query_tile: int) -> int:
+    """Each cluster's ``n`` pairs make ``ceil(n / query_tile)`` tiles: at
+    most ``n / query_tile`` plus one for every non-empty cluster."""
+    return -(-n_pairs // query_tile) + min(nlist, n_pairs)
+
+
+def merge_geometry(nprobe: int, k: int) -> Tuple[int, int]:
+    """(queries per merge block, its shared-memory bytes): a warp a query,
+    each with its ``nprobe * k`` list scores staged."""
+    per_query = nprobe * k * 4
+    warps = max(1, min(MAX_MERGE_WARPS, MERGE_SMEM_MAX // per_query))
+    return warps, warps * per_query
+
+
+def ivf_geometry(int8: bool, nlist: int, cmax: int, d: int, nq: int,
+                 nprobe: int, k: int, sms: int) -> IvfGeometry:
+    """Tiles, ring stages, shared memory and grid of the scan on ``sms``
+    multiprocessors."""
+    if (nlist <= 0 or cmax <= 0 or cmax % ROW_CHUNK or d <= 0 or d % DEPTH_CHUNK
+            or nq <= 0 or not 0 < nprobe <= MAX_PROBE or not 0 < k <= MAX_K
+            or sms <= 0):
+        raise ValueError(f"no ivf_scan geometry for nlist={nlist} cmax={cmax} "
+                         f"d={d} Q={nq} nprobe={nprobe} k={k}")
+    tile = QUERY_TILE if int8 else FLOAT_QUERY_TILE
+    n_pairs = nq * nprobe
+    bound = tile_bound(n_pairs, nlist, tile)
+    stages = smem = 0
+    grid = bound
+    if int8:
+        fixed = SMEM_ALIGN + BUFFER_BYTES + EPILOGUE_BYTES + MISC_BYTES
+        stages = (SMEM_LIMIT - fixed) // STAGE_BYTES
+        smem = fixed + stages * STAGE_BYTES
+        grid = min(sms, bound)
+    return IvfGeometry(query_tile=tile, n_pairs=n_pairs, tile_bound=bound,
+                       grid=grid, stages=stages, smem_bytes=smem)
+
 
 def _bind(lib: ctypes.CDLL) -> None:
-    # eight input pointers, two output pointers, n_blocks, nlist, cmax,
-    # d, nprobe, k, storage code, stream
-    lib.semcode_ivf_scan.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # probes, int64?, Q, nprobe, nlist, tile; seven buffers; qq, d, qbuf;
+    # ids, cmax, nchunk; gather blocks, stream
+    lib.semcode_ivf_prep.argtypes = (
+        [p, i, i, i, i, i] + [p] * 7 + [p, i, p] + [p, i, p] + [i, p]
     )
-    lib.semcode_ivf_scan.restype = ctypes.c_int
-    lib.semcode_ivf_scan_tile_queries.argtypes = []
-    lib.semcode_ivf_scan_tile_queries.restype = ctypes.c_int
+    lib.semcode_ivf_prep.restype = i
+    # twelve pointers; nlist, cmax, d, n_pairs, nprobe, k, storage, grid,
+    # stages, smem bytes; stream
+    lib.semcode_ivf_scan.argtypes = [p] * 12 + [i] * 10 + [p]
+    lib.semcode_ivf_scan.restype = i
+    lib.semcode_ivf_merge.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.semcode_ivf_merge.restype = i
 
 
 _library = KernelLibrary("ivf_scan", _bind)
+PROBE_LIBRARIES = {
+    "products": KernelLibrary("ivf_scan", _bind, ("-DIVF_PROBE=1",), "products"),
+    "selection": KernelLibrary("ivf_scan", _bind, ("-DIVF_PROBE=2",), "selection"),
+}
 
 
 def build_library(verbose: bool = False):
@@ -128,6 +238,79 @@ def ivf_scan_reference(
     return torch.cat(out_s), torch.cat(out_i)
 
 
+def prep_reference(probes: torch.Tensor, nlist: int, query_tile: int,
+                   ids: Optional[torch.Tensor] = None):
+    """Plain version of the ``prep`` and ``scatter`` kernels, on the host.
+
+    -> (table (Q, nprobe) int32: each probe, or -1 where it is out of range
+    or repeats an earlier probe of its query; pair_at (valid pairs,) int32:
+    the pairs ``q * nprobe + j``, bucketed by cluster in ascending order,
+    ascending inside a bucket; tiles (n, 3) int32: (cluster, first bucket
+    position, pair count), each bucket cut into tiles of ``query_tile``),
+    and with ``ids`` (nlist, cmax) a fourth, nchunk (nlist,) int32: each
+    probed cluster's 128-slot chunks up to its last valid slot, 0 for the
+    others. The kernel fills a bucket in no fixed order; everything else is
+    equal."""
+    rows = probes.tolist()
+    n_probe = probes.shape[1]
+    buckets = [[] for _ in range(nlist)]
+    table = []
+    for qi, row in enumerate(rows):
+        seen = set()
+        out = []
+        for j, c in enumerate(row):
+            if 0 <= c < nlist and c not in seen:
+                seen.add(c)
+                buckets[c].append(qi * n_probe + j)
+                out.append(c)
+            else:
+                out.append(-1)
+        table.append(out)
+    tiles = []
+    pos = 0
+    for c, bucket in enumerate(buckets):
+        for t0 in range(0, len(bucket), query_tile):
+            tiles.append((c, pos + t0, min(query_tile, len(bucket) - t0)))
+        pos += len(bucket)
+    pair_at = [f for bucket in buckets for f in bucket]
+    out = (torch.tensor(table, dtype=torch.int32).reshape(len(rows), n_probe),
+           torch.tensor(pair_at, dtype=torch.int32),
+           torch.tensor(tiles, dtype=torch.int32).reshape(-1, 3))
+    if ids is None:
+        return out
+    valid = (ids.cpu() >= 0).reshape(nlist, -1, ROW_CHUNK).any(dim=2)
+    last = (valid * torch.arange(1, valid.shape[1] + 1)).amax(dim=1)
+    probed = torch.tensor([len(b) > 0 for b in buckets])
+    return out + (torch.where(probed, last, 0).to(torch.int32),)
+
+
+def merge_reference(part_s: torch.Tensor, part_i: torch.Tensor,
+                    table: torch.Tensor, k: int):
+    """Plain version of the ``merge`` kernel.
+
+    ``part_s``/``part_i`` (Q * nprobe, k): each (query, probe) pair's list,
+    sorted; ``table`` (Q, nprobe): each pair's cluster, -1 for a skipped
+    probe (its list is not read). -> each query's top k over its lists by
+    (score desc, cluster asc, list position asc), ids -1 where the score is
+    not above -3e38."""
+    n_q, n_probe = table.shape
+    valid = (table >= 0)[:, :, None]
+    s = part_s.reshape(n_q, n_probe, k).to(torch.float32)
+    s = torch.where(valid, s, float("-inf")).reshape(n_q, -1)
+    ids = part_i.reshape(n_q, n_probe * k)
+    # secondary key (cluster, position), then a stable sort by score
+    pos = torch.arange(k, device=table.device, dtype=torch.int64)
+    second = (table.to(torch.int64).clamp(min=0)[:, :, None] * k + pos).reshape(n_q, -1)
+    by_second = torch.argsort(second, dim=1, stable=True)
+    ranked = torch.sort(torch.gather(s, 1, by_second), dim=1, descending=True,
+                        stable=True).indices[:, :k]
+    col = torch.gather(by_second, 1, ranked)
+    top = torch.gather(s, 1, col)
+    ok = top > NEG
+    return (torch.where(ok, top, NEG),
+            torch.where(ok, torch.gather(ids, 1, col), -1).to(torch.int32))
+
+
 def _check_args(data, ids, q, probes, k, scales) -> None:
     if data.dim() != 3 or ids.dim() != 2 or q.dim() != 2 or probes.dim() != 2:
         raise ValueError("ivf_scan needs data (nlist, cmax, d), ids (nlist, "
@@ -171,14 +354,103 @@ def ivf_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (scores (Q, k) f32 descending, ids (Q, k) int32).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernels."""
     _check_args(data, ids, q, probes, k, scales)
     if data.device.type == "cpu":
         return ivf_scan_reference(data, ids, q, probes, k, scales)
     if data.device.type != "cuda":
         raise ValueError(f"ivf_scan: unsupported device {data.device}")
+    out = _launch(_library.get(), data, ids, q, probes, k, scales)
+    ivf_scan.launches += 1
+    return out
+
+
+ivf_scan.launches = 0  # scan-kernel launches (not plain-version calls)
+
+
+def ivf_scan_probe(kind: str, data, ids, q, probes, k, scales):
+    """The whole call with a measurement build of the int8 scan on the card:
+    "products" skips the selection, "selection" runs it on synthetic scores
+    with no products (``IVF_PROBE`` in csrc/ivf_scan.cu). The outputs are
+    meaningless, and no launch of ``ivf_scan`` is counted."""
+    _check_args(data, ids, q, probes, k, scales)
+    if data.dtype != torch.int8 or data.device.type != "cuda":
+        raise ValueError("ivf_scan_probe runs the int8 kernel on a CUDA card")
+    return _launch(PROBE_LIBRARIES[kind].get(), data, ids, q, probes, k, scales)
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"ivf_scan {what} launch failed: CUDA error {err}")
+
+
+def _probes_operand(probes: torch.Tensor) -> torch.Tensor:
+    if probes.dtype not in (torch.int32, torch.int64):
+        probes = probes.to(torch.int64)
+    return probes.contiguous()
+
+
+class _Plan:
+    """The device buffers of one call: a single int32 scratch tensor cut
+    into ptab, prank, pair_at, cluster counts, each probed cluster's chunk
+    count (nchunk), tiles (tiles, 4), hdr (tiles, valid pairs), qthr (each
+    query's bound for the int8 scan) and the per-pair lists (scores and
+    ids, n_pairs x k each), passed to the kernels as pointers; and qbuf,
+    the gathered int8 query rows."""
+
+    def __init__(self, n_q, n_pairs, nlist, tiles, k, qq, device):
+        n = n_pairs
+        sizes = {"ptab": n, "prank": n, "pair_at": n, "count": nlist,
+                 "nchunk": nlist, "tiles": 4 * tiles, "hdr": 2, "qthr": n_q,
+                 "part_s": n * k, "part_i": n * k}
+        self.scratch = torch.empty((sum(sizes.values()),), dtype=torch.int32,
+                                   device=device)
+        self.offsets = {}
+        at = 0
+        for name, size in sizes.items():
+            self.offsets[name] = (at, size)
+            at += size
+        base = self.scratch.data_ptr()
+        self.ptr = {name: base + 4 * lo for name, (lo, _) in self.offsets.items()}
+        self.qbuf = None
+        if qq is not None:
+            self.qbuf = torch.empty((n, qq.shape[1]), dtype=torch.int8, device=device)
+
+    def view(self, name):
+        lo, size = self.offsets[name]
+        return self.scratch[lo:lo + size]
+
+
+def _run_prep(lib, probes, nlist, query_tile, plan: _Plan, qq, ids, stream):
+    """Launch ``prep`` and ``scatter`` into ``plan``'s buffers; ``scatter``
+    also gathers the query rows when ``qq`` is given and counts each probed
+    cluster's chunks when ``ids`` is."""
+    n_q, n_probe = probes.shape
+    p = plan.ptr
+    _check(lib.semcode_ivf_prep(
+        probes.data_ptr(), int(probes.dtype == torch.int64), n_q, n_probe,
+        nlist, query_tile, p["ptab"], p["prank"], p["pair_at"], p["count"],
+        p["tiles"], p["hdr"], p["qthr"],
+        None if qq is None else qq.data_ptr(), 0 if qq is None else qq.shape[1],
+        None if plan.qbuf is None else plan.qbuf.data_ptr(),
+        None if ids is None else ids.data_ptr(), 0 if ids is None else ids.shape[1],
+        p["nchunk"], -(-(n_q * n_probe) // GATHER_ROWS), stream), "prep")
+
+
+def _run_merge(lib, part_s_ptr, part_i_ptr, ptab_ptr, n_q, n_probe, k,
+               device, stream):
+    out_s = torch.empty((n_q, k), dtype=torch.float32, device=device)
+    out_i = torch.empty((n_q, k), dtype=torch.int32, device=device)
+    warps, smem = merge_geometry(n_probe, k)
+    _check(lib.semcode_ivf_merge(
+        part_s_ptr, part_i_ptr, ptab_ptr, out_s.data_ptr(), out_i.data_ptr(),
+        n_q, n_probe, k, warps, smem, stream), "merge")
+    return out_s, out_i
+
+
+def _launch(lib, data, ids, q, probes, k, scales):
     nlist, cmax, d = data.shape
-    dev = data.device
+    int8 = data.dtype == torch.int8
     qv, qsc = _prepare(data, q, scales)
     qv = qv.contiguous()
     qsc = qsc.contiguous()
@@ -189,42 +461,70 @@ def ivf_scan(
     for t in (data, qv):
         if t.data_ptr() % 16:
             raise ValueError("ivf_scan needs 16-byte aligned rows")
-    lib = _library.get()
-    tile = lib.semcode_ivf_scan_tile_queries()
-    table = probe_table(probes, nlist)
-    n_q, n_probe = table.shape
-    n_pairs = n_q * n_probe
-    # (cluster, query, probe) pairs in cluster order; skipped probes sort
-    # into an extra bin past the last cluster
-    cl = torch.where(table < 0, nlist, table).reshape(-1)
-    cl_sorted, order = torch.sort(cl, stable=True)
-    counts = torch.bincount(cl_sorted, minlength=nlist + 1)[:nlist]
-    zero = torch.zeros((1,), dtype=torch.int64, device=dev)
-    pair_start = torch.cat([zero, torch.cumsum(counts, 0)]).to(torch.int32)
-    tiles = (counts + tile - 1) // tile
-    tile_start = torch.cat([zero, torch.cumsum(tiles, 0)]).to(torch.int32)
-    pairs = order.to(torch.int32)
-    # an upper bound on the tiles, known without reading counts back
-    n_blocks = -(-n_pairs // tile) + min(nlist, n_pairs)
-    part_s = torch.full((n_pairs, k), NEG, dtype=torch.float32, device=dev)
-    part_i = torch.full((n_pairs, k), -1, dtype=torch.int32, device=dev)
-    dummy = qsc  # placeholder pointer for float storage's unused scales
+    probes = _probes_operand(probes)
+    n_q, n_probe = probes.shape
+    dev = data.device
+    geom = ivf_geometry(int8, nlist, cmax, d, n_q, n_probe, k,
+                        sm_count(dev.index or 0))
+    plan = _Plan(n_q, geom.n_pairs, nlist, geom.tile_bound, k,
+                 qv if int8 else None, dev)
+    p = plan.ptr
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.semcode_ivf_scan(
+        _run_prep(lib, probes, nlist, geom.query_tile, plan,
+                  qv if int8 else None, ids, stream)
+        queries = plan.qbuf if int8 else qv
+        _check(lib.semcode_ivf_scan(
             data.data_ptr(), ids.data_ptr(),
-            (scales if scales is not None else dummy).data_ptr(),
-            qv.data_ptr(), qsc.data_ptr(), pairs.data_ptr(),
-            pair_start.data_ptr(), tile_start.data_ptr(),
-            part_s.data_ptr(), part_i.data_ptr(),
-            n_blocks, nlist, cmax, d, n_probe, k,
-            _STORAGE_CODES[data.dtype], stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"ivf_scan kernel launch failed: CUDA error {err}")
-    ivf_scan.launches += 1
-    top, pos = stable_topk(part_s.view(n_q, n_probe * k), k)
-    return top, torch.gather(part_i.view(n_q, n_probe * k), 1, pos)
+            (scales if scales is not None else qsc).data_ptr(),
+            queries.data_ptr(), qsc.data_ptr(), p["pair_at"], p["tiles"],
+            p["hdr"], p["nchunk"], p["part_s"], p["part_i"], p["qthr"],
+            nlist, cmax, d, geom.n_pairs, n_probe, k,
+            _STORAGE_CODES[data.dtype], geom.grid, geom.stages,
+            geom.smem_bytes, stream), "scan")
+        return _run_merge(lib, p["part_s"], p["part_i"], p["ptab"], n_q, n_probe,
+                          k, dev, stream)
 
 
-ivf_scan.launches = 0  # kernel launches (not plain-version calls)
+def ivf_prep(probes: torch.Tensor, nlist: int, query_tile: int = QUERY_TILE,
+             ids: Optional[torch.Tensor] = None):
+    """``prep_reference``'s outputs from the ``prep`` and ``scatter``
+    kernels on a CUDA tensor (the plain version on a CPU tensor). Reads the
+    tile and pair counts back to trim the buffers: a check, not the scan's
+    path."""
+    if probes.device.type == "cpu":
+        return prep_reference(probes, nlist, query_tile, ids)
+    if query_tile not in (QUERY_TILE, FLOAT_QUERY_TILE):
+        raise ValueError(f"query_tile must be {QUERY_TILE} or {FLOAT_QUERY_TILE}")
+    probes = _probes_operand(probes)
+    n_q, n_probe = probes.shape
+    n_pairs = n_q * n_probe
+    plan = _Plan(n_q, n_pairs, nlist, tile_bound(n_pairs, nlist, query_tile), 1,
+                 None, probes.device)
+    if ids is not None:
+        ids = ids.contiguous()
+        plan.view("nchunk").zero_()  # scatter writes the probed clusters'
+    with torch.cuda.device(probes.device):
+        stream = torch.cuda.current_stream(probes.device).cuda_stream
+        _run_prep(_library.get(), probes, nlist, query_tile, plan, None, ids,
+                  stream)
+    n_tiles, n_valid = plan.view("hdr").tolist()
+    out = (plan.view("ptab").view(n_q, n_probe), plan.view("pair_at")[:n_valid],
+           plan.view("tiles").view(-1, 4)[:n_tiles, :3].contiguous())
+    return out if ids is None else out + (plan.view("nchunk"),)
+
+
+def ivf_merge(part_s: torch.Tensor, part_i: torch.Tensor, table: torch.Tensor,
+              k: int):
+    """``merge_reference`` by the ``merge`` kernel on a CUDA tensor (the
+    plain version on a CPU tensor); ``table`` int32 (Q, nprobe)."""
+    if part_s.device.type == "cpu":
+        return merge_reference(part_s, part_i, table, k)
+    n_q, n_probe = table.shape
+    part_s, part_i = part_s.contiguous(), part_i.contiguous()
+    table = table.to(torch.int32).contiguous()
+    with torch.cuda.device(part_s.device):
+        stream = torch.cuda.current_stream(part_s.device).cuda_stream
+        return _run_merge(_library.get(), part_s.data_ptr(), part_i.data_ptr(),
+                          table.data_ptr(), n_q, n_probe, k, part_s.device,
+                          stream)

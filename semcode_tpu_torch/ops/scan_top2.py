@@ -37,12 +37,12 @@ version; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
 from typing import List, Tuple
 
 import torch
 
+from ..device import sm_count
 from .build import KernelLibrary
 
 NEG = -3.0e38  # dead-row / masked-slot sentinel (f32)
@@ -81,12 +81,12 @@ class ScanGeometry:
     shared_rows: bool
 
 
-def scan_geometry(rs: int, d: int, nq: int, sm_count: int) -> ScanGeometry:
+def scan_geometry(rs: int, d: int, nq: int, sms: int) -> ScanGeometry:
     """The int8 kernel's tiles, work items, persistent grid (one CTA per SM,
     at most one per item), ring stages and dynamic shared-memory bytes."""
-    if rs <= 0 or nq <= 0 or d <= 0 or d % DEPTH_CHUNK or sm_count <= 0:
+    if rs <= 0 or nq <= 0 or d <= 0 or d % DEPTH_CHUNK or sms <= 0:
         raise ValueError(f"no top2_scan geometry for Rs={rs} d={d} Q={nq} "
-                         f"on {sm_count} SMs")
+                         f"on {sms} SMs")
     n_row_tiles = -(-rs // ROW_TILE)
     n_query_tiles = -(-nq // QUERY_TILE)
     n_query_pairs = -(-n_query_tiles // 2)
@@ -98,7 +98,7 @@ def scan_geometry(rs: int, d: int, nq: int, sm_count: int) -> ScanGeometry:
         n_query_tiles=n_query_tiles,
         n_query_pairs=n_query_pairs,
         work_items=work_items,
-        grid=min(sm_count, work_items),
+        grid=min(sms, work_items),
         stages=stages,
         smem_bytes=fixed + stages * STAGE_BYTES,
         shared_rows=d // DEPTH_CHUNK <= stages,
@@ -114,11 +114,6 @@ def cta_tiles(geom: ScanGeometry, cta: int) -> List[Tuple[int, int]]:
         out.extend((rt, qt) for qt in (2 * pair, 2 * pair + 1)
                    if qt < geom.n_query_tiles)
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -271,7 +266,7 @@ def _launch(lib, vecs, mult, add, qq, q_scales):
     with torch.cuda.device(vecs.device):
         grid = stages = smem = 0  # bf16/f32 storage: the grid follows the shape
         if vecs.dtype == torch.int8:
-            geom = scan_geometry(rs, d, n_q, _sm_count(torch.cuda.current_device()))
+            geom = scan_geometry(rs, d, n_q, sm_count(torch.cuda.current_device()))
             grid, stages, smem = geom.grid, geom.stages, geom.smem_bytes
         stream = torch.cuda.current_stream(vecs.device).cuda_stream
         err = lib.semcode_top2_scan(

@@ -161,6 +161,109 @@ def test_ivf_scan_matches_plain_version(cuda, storage, nlist, cmax, d, nq,
         assert untied_ids_equal(rs, ri, i, 1e-5)
 
 
+def _crowded_probes(nq, nlist, nprobe, gen, device):
+    """Probes over clusters 3.. with cluster 0 probed by queries 0-63, 1 by
+    queries 0-64 and 2 by every query: a full 64-query tile, a tile and one
+    more, and the most tiles one cluster can take."""
+    probes = torch.argsort(torch.rand(nq, nlist - 3, generator=gen, device=device),
+                           dim=1)[:, :nprobe] + 3
+    probes[:64, 0] = 0
+    probes[:65, 1] = 1
+    probes[:, 2] = 2
+    return probes
+
+
+def _empty_tails(ids, gen):
+    """Empty tails, as a layout leaves them after each cluster's rows:
+    cluster 0 keeps 129 slots, 1 keeps 128, 2 all, 3 none, 4 one, the rest
+    a random count (the holes already in ids stay)."""
+    nlist, cmax = ids.shape
+    keep = torch.randint(0, cmax + 1, (nlist,), generator=gen, device=ids.device)
+    keep[:5] = torch.tensor([129, 128, cmax, 0, 1], device=ids.device)
+    slot = torch.arange(cmax, device=ids.device)
+    return torch.where(slot[None, :] < keep[:, None], ids, -1)
+
+
+@pytest.mark.parametrize("nlist,cmax,d,nq,nprobe,k", [
+    (64, 2176, 384, 200, 16, 64),
+    (256, 2176, 128, 100, 128, 10),
+    (16, 2176, 384, 700, 8, 64),
+])
+def test_ivf_scan_int8_crowded_clusters(cuda, nlist, cmax, d, nq, nprobe, k):
+    """int8 at cmax 2176 with clusters probed by 64, by 65 and by all Q
+    queries (tiles that end at, past and far past a 64-query box), empty
+    tails of every length (the scan stops at a cluster's last valid
+    chunk), nprobe up to 128 and k 10: bit-identical scores and identical
+    ids, ties included (the order (score, cluster, slot) is total)."""
+    from semcode_tpu_torch.ops import ivf_scan as ivf_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(nlist + nq + nprobe)
+    data, ids, q, _, scales = _ivf_operands("int8", nlist, cmax, d, nq, nprobe,
+                                            gen, cuda)
+    ids = _empty_tails(ids, gen)
+    probes = _crowded_probes(nq, nlist, nprobe, gen, cuda)
+    s, i = ivf_ops.ivf_scan(data, ids, q, probes, k, scales)
+    torch.cuda.synchronize()
+    rs, ri = ivf_ops.ivf_scan_reference(data, ids, q, probes, k, scales)
+    assert torch.equal(s, rs) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("nq,nlist,nprobe,tile", [
+    (1, 16, 1, 64), (200, 64, 16, 64), (700, 16, 8, 64), (100, 256, 128, 32),
+    (50, 70000, 32, 64),
+])
+def test_ivf_prep_matches_plain_version(cuda, nq, nlist, nprobe, tile):
+    """The prep kernel's probe table, tiles, buckets and chunk counts
+    against its plain version; repeats and out-of-range probes are skipped;
+    the order inside a bucket is free."""
+    from semcode_tpu_torch.ops import ivf_scan as ivf_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(nq + nlist + nprobe)
+    probes = torch.randint(-2, nlist + 2, (nq, nprobe), generator=gen, device=cuda)
+    cmax = 640 if nlist < 1000 else 128
+    ids = torch.arange(nlist * cmax, device=cuda, dtype=torch.int32).view(nlist, cmax)
+    ids = _empty_tails(torch.where(torch.rand(nlist, cmax, generator=gen, device=cuda)
+                                   < 0.1, -1, ids), gen)
+    table, pair_at, tiles, nchunk = ivf_ops.ivf_prep(probes, nlist, tile, ids)
+    torch.cuda.synchronize()
+    rt, rp, rtl, rn = ivf_ops.prep_reference(probes.cpu(), nlist, tile, ids.cpu())
+    assert torch.equal(table.cpu(), rt) and torch.equal(tiles.cpu(), rtl)
+    assert torch.equal(nchunk.cpu(), rn)
+    buckets = {}  # cluster -> (first position, end)
+    for c, p0, n in rtl.tolist():
+        lo, _ = buckets.get(c, (p0, p0))
+        buckets[c] = (lo, p0 + n)
+    got = pair_at.cpu().clone()
+    for lo, hi in buckets.values():
+        got[lo:hi] = torch.sort(got[lo:hi]).values
+    assert torch.equal(got, rp)
+
+
+@pytest.mark.parametrize("nq,nprobe,k", [(1, 1, 10), (64, 32, 64), (33, 128, 10), (9, 128, 64)])
+def test_ivf_merge_matches_plain_version(cuda, nq, nprobe, k):
+    """The merge kernel against its plain version on sorted lists with tied
+    scores across lists, empty (-3e38 / -1) tails and skipped probes."""
+    from semcode_tpu_torch.ops import ivf_scan as ivf_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(nq * nprobe + k)
+    n = nq * nprobe
+    s = torch.randint(0, 5, (n, k), generator=gen, device=cuda).float() / 4
+    s = torch.sort(s, dim=1, descending=True).values
+    tail = torch.randint(0, k + 1, (n, 1), generator=gen, device=cuda)
+    empty = torch.arange(k, device=cuda)[None, :] >= tail
+    s = torch.where(empty, ivf_ops.NEG, s)
+    i = torch.randint(0, 1 << 30, (n, k), generator=gen, device=cuda, dtype=torch.int32)
+    i = torch.where(empty, -1, i)
+    table = torch.argsort(torch.rand(nq, 4 * nprobe, generator=gen, device=cuda),
+                          dim=1)[:, :nprobe].to(torch.int32)
+    table = torch.where(torch.rand(nq, nprobe, generator=gen, device=cuda) < 0.2,
+                        -1, table)
+    got_s, got_i = ivf_ops.ivf_merge(s, i, table, k)
+    torch.cuda.synchronize()
+    want_s, want_i = ivf_ops.merge_reference(s, i, table, k)
+    assert torch.equal(got_s, want_s) and torch.equal(got_i, want_i)
+
+
 @pytest.mark.parametrize("mode", ["s32", "bf16"])
 @pytest.mark.parametrize("rtile", [64, 128, 256])
 @pytest.mark.parametrize("n,d,nq", [(1, 128, 1), (100, 384, 8), (70001, 1024, 512)])

@@ -18,6 +18,7 @@ import torch
 
 from semcode_tpu.ops.kernels import ivf_scan_shard
 from semcode_tpu_torch.ops import ivf_scan as ivf_ops
+from semcode_tpu_torch.index.scan import stable_topk
 from semcode_tpu_torch.ops.ivf_scan import NEG, ivf_scan, ivf_scan_reference, probe_table
 
 
@@ -140,3 +141,203 @@ def test_argument_checks():
     with pytest.raises(ValueError, match="multiples of 128"):
         ivf_scan(td[:, :100], t_ids[:, :100], t_q, t_p, 10,
                  torch.from_numpy(sc)[:, :100])
+
+
+# -- launch geometry and the bookkeeping kernels' plain versions --------------
+
+
+def _tiles_needed(counts, tile):
+    return sum(-(-c // tile) for c in counts)
+
+
+@pytest.mark.parametrize("cmax", [128, 2176])
+@pytest.mark.parametrize("d", [128, 384, 3072])
+@pytest.mark.parametrize("nq", [1, 8, 512])
+@pytest.mark.parametrize("nprobe", [1, 32, 128])
+def test_geometry_fits_and_bounds_the_tiles(cmax, d, nq, nprobe):
+    """Shared memory within Hopper's 232,448 B per block, and a tile bound
+    that covers every way the pairs can fall on the clusters: spread over
+    all of them, in clusters of one tile and one pair more, or every query
+    probing the same clusters."""
+    for int8 in (True, False):
+        for nlist in (16, 1024, 70000):
+            if nprobe > nlist:
+                continue
+            g = ivf_ops.ivf_geometry(int8, nlist, cmax, d, nq, nprobe, 64, 132)
+            n = nq * nprobe
+            assert g.n_pairs == n
+            assert g.smem_bytes <= ivf_ops.SMEM_LIMIT
+            assert g.tile_bound == ivf_ops.tile_bound(n, nlist, g.query_tile)
+            for k in (1, 10, 64):
+                warps, smem = ivf_ops.merge_geometry(nprobe, k)
+                assert 1 <= warps <= ivf_ops.MAX_MERGE_WARPS
+                assert smem == warps * nprobe * k * 4 <= ivf_ops.MERGE_SMEM_MAX
+            if int8:
+                assert g.query_tile == ivf_ops.QUERY_TILE and g.stages >= 3
+                assert g.smem_bytes == (ivf_ops.SMEM_ALIGN + ivf_ops.BUFFER_BYTES
+                                        + ivf_ops.EPILOGUE_BYTES + ivf_ops.MISC_BYTES
+                                        + g.stages * ivf_ops.STAGE_BYTES)
+                assert 1 <= g.grid <= 132
+            else:
+                assert g.query_tile == ivf_ops.FLOAT_QUERY_TILE
+                assert g.grid == g.tile_bound and g.smem_bytes == 0
+            tile = g.query_tile
+            per = min(nq, tile + 1)
+            layouts = [
+                [n // nlist + (c < n % nlist) for c in range(nlist)],
+                [nq] * nprobe,
+            ]
+            if n // per < nlist:
+                layouts.append([per] * (n // per) + [n % per])
+            for counts in layouts:
+                assert sum(counts) == n and max(counts) <= nq
+                assert _tiles_needed(counts, tile) <= g.tile_bound
+
+
+def test_geometry_rejects_what_the_kernel_cannot_run():
+    for bad in [(100, 384, 8, 8, 10), (128, 100, 8, 8, 10), (128, 384, 8, 129, 10),
+                (128, 384, 8, 8, 65), (128, 384, 0, 8, 10)]:
+        cmax, d, nq, nprobe, k = bad
+        with pytest.raises(ValueError):
+            ivf_ops.ivf_geometry(True, 64, cmax, d, nq, nprobe, k, 132)
+
+
+def test_geometry_constants_match_the_source():
+    """The constants ivf_geometry mirrors, read from csrc/ivf_scan.cu."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ivf_ops.__file__).parent / "csrc" / "ivf_scan.cu").read_text()
+    const = {m.group(1): int(m.group(2))
+             for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kQTile"] == ivf_ops.QUERY_TILE
+    assert const["kFQueries"] == ivf_ops.FLOAT_QUERY_TILE
+    assert const["kRowChunk"] == ivf_ops.ROW_CHUNK
+    assert const["kDepth"] == ivf_ops.DEPTH_CHUNK
+    assert const["kQBox"] == ivf_ops.QUERY_BOX
+    assert const["kCapMax"] == ivf_ops.CANDIDATES_MAX
+    assert ivf_ops.CANDIDATE_POOL // ivf_ops.QUERY_TILE >= ivf_ops.MAX_K + ivf_ops.ROW_CHUNK
+    assert f"kPool = kQTile * {ivf_ops.CANDIDATE_POOL // ivf_ops.QUERY_TILE};" in src
+    assert const["kMiscBytes"] == ivf_ops.MISC_BYTES
+    assert const["kSmemAlign"] == ivf_ops.SMEM_ALIGN
+    assert const["kSmemLimit"] == ivf_ops.SMEM_LIMIT
+    assert const["kMergeSmemMax"] == ivf_ops.MERGE_SMEM_MAX
+    assert const["kGatherRows"] == ivf_ops.GATHER_ROWS
+    assert const["kMaxK"] == ivf_ops.MAX_K and const["kMaxProbe"] == ivf_ops.MAX_PROBE
+
+
+def _random_probes(rng, nq, nprobe, nlist):
+    """Probes with repeats inside a query and out-of-range entries."""
+    p = rng.integers(0, nlist, (nq, nprobe))
+    p[rng.random((nq, nprobe)) < 0.15] = -1
+    p[rng.random((nq, nprobe)) < 0.05] = nlist + 3
+    return torch.from_numpy(p.astype(np.int64))
+
+
+@pytest.mark.parametrize("nq,nprobe,nlist,tile", [
+    (1, 1, 4, 64), (16, 8, 12, 64), (130, 4, 3, 64), (40, 32, 64, 32), (9, 128, 300, 64),
+])
+def test_prep_plain_version_buckets_as_sort_and_bincount(nq, nprobe, nlist, tile):
+    """prep_reference against the path it replaces (probe_table, a stable
+    sort of the pairs by cluster, bincount, cumsum): the same probes per
+    query, the same bucket of queries for every cluster, the same tiles."""
+    rng = np.random.default_rng(nq * 31 + nprobe + nlist)
+    probes = _random_probes(rng, nq, nprobe, nlist)
+    table, pair_at, tiles = ivf_ops.prep_reference(probes, nlist, tile)
+    # the old path
+    old = probe_table(probes, nlist)
+    cl = torch.where(old < 0, nlist, old).reshape(-1)
+    cl_sorted, order = torch.sort(cl, stable=True)
+    counts = torch.bincount(cl_sorted, minlength=nlist + 1)[:nlist]
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(counts, 0)])
+    for qi in range(nq):
+        new_row = sorted(c for c in table[qi].tolist() if c >= 0)
+        assert new_row == [c for c in old[qi].tolist() if c >= 0]
+    flat = table.reshape(-1)
+    got_counts = torch.zeros(nlist, dtype=torch.int64)
+    for c, p0, n in tiles.tolist():
+        got_counts[c] += n
+        assert (flat[pair_at[p0:p0 + n].long()] == c).all()
+    assert torch.equal(got_counts, counts)
+    for c in range(nlist):
+        lo, hi = int(starts[c]), int(starts[c + 1])
+        want = sorted((order[lo:hi] // nprobe).tolist())
+        got = sorted((pair_at[lo:hi] // nprobe).tolist())
+        assert got == want
+    want_tiles = [(c, int(starts[c]) + t0, min(tile, int(counts[c]) - t0))
+                  for c in range(nlist) for t0 in range(0, int(counts[c]), tile)]
+    assert [tuple(t) for t in tiles.tolist()] == want_tiles
+
+
+@pytest.mark.parametrize("nq,nprobe,nlist,k", [
+    (4, 1, 8, 10), (16, 8, 12, 64), (8, 128, 200, 10), (5, 32, 40, 64), (30, 3, 3, 16),
+])
+def test_merge_plain_version_matches_stable_topk(nq, nprobe, nlist, k):
+    """merge_reference against the path it replaces: a stable top-k over
+    each query's partial lists laid out in ascending cluster order (probe
+    skipped -> a -3e38 / -1 list), then a gather of the ids. Scores tie
+    within and across lists, lists end in empty tails; scores and ids must
+    be equal, ties included."""
+    rng = np.random.default_rng(nq * 7 + nprobe * 3 + k)
+    probes = _random_probes(rng, nq, nprobe, nlist)
+    table, _, _ = ivf_ops.prep_reference(probes, nlist, 64)
+    old = probe_table(probes, nlist)
+    lists = {}
+
+    def pair_list(qi, c):
+        if (qi, c) not in lists:
+            s = np.sort(rng.integers(0, 5, k).astype(np.float32) / 4)[::-1].copy()
+            ids = rng.integers(0, 1 << 30, k).astype(np.int32)
+            tail = rng.integers(0, k + 1)
+            s[tail:] = NEG
+            ids[tail:] = -1
+            lists[(qi, c)] = (s, ids)
+        return lists[(qi, c)]
+
+    new_s = rng.standard_normal((nq * nprobe, k)).astype(np.float32)  # unread
+    new_i = rng.integers(0, 9, (nq * nprobe, k)).astype(np.int32)
+    old_s = np.full((nq * nprobe, k), NEG, dtype=np.float32)
+    old_i = np.full((nq * nprobe, k), -1, dtype=np.int32)
+    for qi in range(nq):
+        for j in range(nprobe):
+            c = int(table[qi, j])
+            if c >= 0:
+                new_s[qi * nprobe + j], new_i[qi * nprobe + j] = pair_list(qi, c)
+            c = int(old[qi, j])
+            if c >= 0:
+                old_s[qi * nprobe + j], old_i[qi * nprobe + j] = pair_list(qi, c)
+    top, pos = stable_topk(torch.from_numpy(old_s).view(nq, nprobe * k), k)
+    want_i = torch.gather(torch.from_numpy(old_i).view(nq, nprobe * k), 1, pos)
+    got_s, got_i = ivf_ops.merge_reference(torch.from_numpy(new_s),
+                                           torch.from_numpy(new_i), table, k)
+    assert torch.equal(got_s, top) and torch.equal(got_i, want_i)
+    # the CPU wrappers of the two kernels run the plain versions
+    cs, ci = ivf_ops.ivf_merge(torch.from_numpy(new_s), torch.from_numpy(new_i), table, k)
+    assert torch.equal(cs, got_s) and torch.equal(ci, got_i)
+    assert all(torch.equal(a, b) for a, b in zip(ivf_ops.ivf_prep(probes, nlist),
+                                                  ivf_ops.prep_reference(probes, nlist, 64)))
+
+
+@pytest.mark.parametrize("nlist,cmax", [(6, 128), (9, 640)])
+def test_prep_plain_version_counts_chunks_to_the_last_valid_slot(nlist, cmax):
+    """With ids, prep_reference's nchunk: for each probed cluster the
+    128-slot chunks up to its last valid slot (holes before it count), 0
+    for an empty or unprobed cluster; the CPU wrapper returns the same."""
+    rng = np.random.default_rng(nlist + cmax)
+    ids = np.arange(nlist * cmax, dtype=np.int32).reshape(nlist, cmax)
+    lengths = [0, 1, 128, 129, cmax, rng.integers(0, cmax)] + [cmax] * (nlist - 6)
+    for c, n in enumerate(lengths):
+        ids[c, n:] = -1
+    ids[rng.random((nlist, cmax)) < 0.3] = -1  # holes
+    probes = torch.from_numpy(rng.integers(-1, nlist - 1, (5, 3)).astype(np.int64))
+    out = ivf_ops.prep_reference(probes, nlist, 64, torch.from_numpy(ids))
+    probed = set(probes[(probes >= 0)].tolist())
+    want = []
+    for c in range(nlist):
+        valid = np.nonzero(ids[c] >= 0)[0]
+        last = int(valid[-1]) // 128 + 1 if c in probed and valid.size else 0
+        want.append(last)
+    assert out[3].tolist() == want and out[3].dtype == torch.int32
+    assert all(torch.equal(a, b) for a, b in zip(out[:3], ivf_ops.prep_reference(probes, nlist, 64)))
+    got = ivf_ops.ivf_prep(probes, nlist, 64, torch.from_numpy(ids))
+    assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, out))
