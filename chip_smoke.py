@@ -8,20 +8,21 @@ NVIDIA Hopper card and the CUDA toolkit:
 Phases (any failed check exits non-zero before the final line):
 
 1. report the card and build the kernels from the sources in the checkout
-   (the three CUDA sources with nvcc, top2_scan and ivf_scan with ptxas's
-   registers, shared memory and spills printed, the two measurement builds
-   of each, and the native featurizer with g++, all started together);
+   (the three CUDA sources with nvcc, each with ptxas's registers, shared
+   memory and spills printed, the two measurement builds of top2_scan and
+   of ivf_scan, and the native featurizer with g++, all started together);
 2. hold the top2_scan kernel against its plain torch version on the card:
    int8 / bf16 / f32 storage, Rs in {100, 128, 1000, 70001}, d in {128,
-   384, 3072}, Q in {1, 8, 512}, ip and l2, ~5% dead rows; then int8 at the
-   new kernel's tile edges: Q in {65, 1000}, Rs in {256k - 1, 256k, 256k +
-   1}, d in {384, 3072}, a corpus with more work items than CTAs, exact
-   duplicates on both sides of the block boundary inside a tile and
-   all-dead blocks in either half of a tile. int8: identical rows and
-   bit-identical scores; bf16/f32: scores within rtol 1e-5 (atol 1e-6),
-   first rows identical wherever a block's top-2 gap exceeds 1e-4, and
-   every picked row scoring as the plain version's pick (runner-ups may
-   swap with a near-tied third: f32 sums run in another order);
+   384, 3072}, Q in {1, 8, 512}, ip and l2, ~5% dead rows; then every
+   storage at the kernel's tile edges: Q in {65, 1000}, Rs in {256k - 1,
+   256k, 256k + 1}, d in {128, 384, 1024, 3072}, corpora with more work
+   items than CTAs, exact duplicates on both sides of the block boundary
+   inside a tile and all-dead blocks in either half of a tile. int8:
+   identical rows and bit-identical scores; bf16/f32: scores within rtol
+   1e-5 (atol 1e-6), first rows identical wherever a block's top-2 gap
+   exceeds 1e-4, and every picked row scoring as the plain version's pick
+   (runner-ups may swap with a near-tied third: f32 sums run in another
+   order);
 2b. hold the ivf_scan kernels against their plain versions on the card:
    int8 / bf16 / f32 cluster blocks with ~10% empty slots and duplicated
    rows, d in {128, 384, 3072}, cmax in {128, 2176}, Q in {1, 8, 512},
@@ -36,7 +37,10 @@ Phases (any failed check exits non-zero before the final line):
    s32 and bf16, every row tile (64, 128, 256), N in {1, 100, 128, 70001},
    d in {128, 384, 3072 (s32 only)}, Q in {1, 8, 64, 512}; rows and queries
    hold the extremes (+127 and -128 in s32, -127 in bf16) so the sign and
-   the largest sums are exercised; equal bit for bit in every case;
+   the largest sums are exercised; then the tile edges: N at row-tile
+   multiples +- 1, Q in {63, 64, 65, 257}, and both modes at d = 1024 with
+   every operand +-127 (the largest sums bf16 mode accepts); equal bit for
+   bit in every case;
 3. the main path end to end: IndexerService ingests the repository's own
    ``semcode_tpu/`` (the frozen query set's corpus) into a flat int8 store
    routed through the kernel (index_scan_impl="pallas"), and the RAG
@@ -51,6 +55,11 @@ Phases (any failed check exits non-zero before the final line):
    the 102 queries' MRR@10 within 0.01 of the flat store's full-matrix
    route, the first 8 queries' top-10 paths equal to the same engine's on
    the CPU, and a saved and reloaded store returning identical hits;
+3c. the main path over bf16 storage: the same self-ingest into a flat
+   store with index_dtype="bfloat16" routed through the kernel, the 102
+   queries through the pipeline; the kernel launch count is read around
+   the run, MRR@10 printed, and the first 8 queries' top-10 paths must
+   equal the CPU engine's wherever neighbouring scores differ by > 1e-4;
 4. scale: a 1M x 384 int8 FlatIndex with its f32 rescore mirror (the JAX
    package's bench.py flagship shape, a clustered Gaussian mixture made on
    the card from a seeded torch.Generator): recall@10 against an f32
@@ -60,6 +69,9 @@ Phases (any failed check exits non-zero before the final line):
    version, one PyTorch-library computation of the same selection, and
    its bound, with its two measurement builds (products alone, selection
    alone) at both; plus a torch.profiler breakdown of one batch-512 search;
+   then a bf16 and an f32 FlatIndex of the same rows on the kernel route:
+   recall@10 (>= 0.99 required), QPS at batch 512, p50 at batch 8 and the
+   same kernel timings by storage;
 4b. IVF at scale (bench.py's flagship IVF shape): the same mixture built
    through IVFIndex.bulk into 1M x 384 int8 + f32 mirror, nlist 1024, 10
    k-means iterations, on the card (a second k-means on the same sample
@@ -74,17 +86,19 @@ Phases (any failed check exits non-zero before the final line):
    scores), beside the bound, the plain version and one PyTorch-library
    computation of the same selection; the pairs, tiles, probed clusters
    and most probers of one cluster; and a torch.profiler breakdown of one
-   batch-512 probe search with its kernel launches.
+   batch-512 probe search with its kernel launches; then bf16 and f32 IVF
+   indexes of the same rows: one probe search each (launches read around
+   it, recall@10 printed) and the bf16/f32 scan's call at the same shape
+   beside its bound, plain version and library computation.
 4c. the dot_max kernel at phase 4's shape, on phase 4's own int8 rows and
    quantized queries (the bytes top2_scan reads): ms per call in both modes
    at every row tile beside TOP/s, the bound, its plain version and one
    PyTorch-library computation (``torch._int_mm`` + ``amax``), and s32 at
-   128- and 256-row tiles at Q=8 too; the new top2_scan against the old
-   tiling's GEMM with no selection (dot_max s32, mma.sync, synchronous
-   staging) on the same operands, at Q=512 and Q=8; and one run of
+   every row tile at Q=8 too; top2_scan's int8 time printed beside dot_max
+   s32 (the same GEMM at the same design with no selection); and one run of
    the kernel-measurement tool ``semcode_tpu_torch.tools.dot_cuda`` at its
-   default 1M x 384 x 512 shape with a short SECS (the kernel's launch count
-   is read around this run).
+   default 1M x 384 x 512 shape with a short SECS (the kernel's launch
+   counts, by mode, are read around this run).
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -109,9 +123,11 @@ KMEANS_ITERS = 10
 BATCH = 512
 SERVE_BATCH = 8
 # published H100 SXM peaks (NVIDIA data sheet, dense): int8 and bf16
-# tensor-core operations and HBM3 bandwidth; used for the kernels' bounds
+# tensor-core operations, float32 operations and HBM3 bandwidth; used for
+# the kernels' bounds
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_OPS = 989e12
+PEAK_F32_OPS = 67e12  # float32 on the CUDA cores, outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -184,8 +200,12 @@ def check_float_rows(args, bm, br, rm, rr, tag) -> None:
     runner-up may swap with a near-tied third. Required: first-slot rows
     identical wherever the block's top-2 gap exceeds 1e-4, and every picked
     row inside its block, scoring (plain arithmetic) within rtol 1e-5 of
-    the plain version's pick for that slot."""
+    the plain version's pick for that slot; a sentinel slot (a block with
+    fewer than two live rows) holds the plain version's row, which the TPU
+    kernel's rule fixes."""
     import torch
+
+    from semcode_tpu_torch.ops.scan_top2 import NEG
 
     nb = bm.shape[1] // 2
     gap = (rm[:, :nb] - rm[:, nb:]).abs() > 1e-4
@@ -194,8 +214,11 @@ def check_float_rows(args, bm, br, rm, rr, tag) -> None:
     blk = torch.arange(nb, device=br.device).repeat(2)
     if not torch.equal(br.long() // 128, blk.expand_as(br)):
         fail(f"top2_scan {tag}: a picked row lies outside its block")
+    dead = rm <= NEG
+    if not torch.equal(br[dead], rr[dead]):
+        fail(f"top2_scan {tag}: a sentinel slot holds another row")
     picked = torch.gather(plain_scores(*args), 1, br.long())
-    if not torch.allclose(picked, rm, rtol=1e-5, atol=1e-6):
+    if not torch.allclose(picked[~dead], rm[~dead], rtol=1e-5, atol=1e-6):
         fail(f"top2_scan {tag}: a picked row does not score as the plain pick")
 
 
@@ -229,41 +252,59 @@ def check_kernel() -> float:
                             check_float_rows(args, bm, br, rm, rr, tag)
                         n += 1
                         del args, bm, br, rm, rr
-    for rs, d, nq in TILE_EDGE_CASES:
-        for metric in ("ip", "l2"):
-            args = tile_edge_inputs(rs, d, nq, metric, gen)
-            bm, br = top2_scan(*args)
-            torch.cuda.synchronize()
-            rm, rr = top2_scan_reference(*args)
-            if not (torch.equal(bm, rm) and torch.equal(br, rr)):
+    n_edge = 0
+    for storage, cases in (("int8", TILE_EDGE_CASES),
+                           ("bfloat16", FLOAT_TILE_EDGE_CASES),
+                           ("float32", FLOAT_TILE_EDGE_CASES)):
+        for rs, d, nq in cases:
+            for metric in ("ip", "l2"):
+                args = tile_edge_inputs(storage, rs, d, nq, metric, gen)
+                bm, br = top2_scan(*args)
+                torch.cuda.synchronize()
+                rm, rr = top2_scan_reference(*args)
                 err = (bm - rm).abs().max().item()
-                fail(f"top2_scan int8 tile edge Rs={rs} d={d} Q={nq} {metric}: "
-                     f"not bit-identical (max err {err})")
-            n += 1
-            del args, bm, br, rm, rr
-    log(f"[kernel] top2_scan matches its plain version in {n} cases "
-        f"(max |score err| {worst:.3g})")
+                worst = max(worst, err)
+                tag = f"{storage} tile edge Rs={rs} d={d} Q={nq} {metric}"
+                if storage == "int8":
+                    if not (torch.equal(bm, rm) and torch.equal(br, rr)):
+                        fail(f"top2_scan {tag}: not bit-identical (max err {err})")
+                else:
+                    if not torch.allclose(bm, rm, rtol=1e-5, atol=1e-6):
+                        fail(f"top2_scan {tag}: scores off by {err}")
+                    check_float_rows(args, bm, br, rm, rr, tag)
+                n += 1
+                n_edge += 1
+                del args, bm, br, rm, rr
+    log(f"[kernel] top2_scan matches its plain version in {n} cases, "
+        f"{n_edge} of them at the tile edges (max |score err| {worst:.3g})")
     return worst
 
 
-# int8 cases at the tile edges of the wgmma kernel (256-row tiles, query
-# tiles of 64 in pairs): (Rs, d, Q); 70001 x 1000 and 40000 x 3072 hold more
-# work items than the card has CTAs
+# cases at the tile edges of the wgmma kernel (256-row tiles, query tiles
+# of 64 in pairs): (Rs, d, Q); 70001 x 1000 and 40000 x 3072 hold more work
+# items than the card has CTAs. The float cases add d = 128 and 1024: bf16
+# rows take two ring chunks per 128 values of depth, f32 rows two raw
+# stages per chunk.
 TILE_EDGE_CASES = [
     (255, 384, 65), (256, 384, 1000), (257, 3072, 65),
     (1023, 3072, 1000), (1024, 384, 65), (1025, 3072, 1000),
     (70001, 384, 1000), (40000, 3072, 512),
 ]
+FLOAT_TILE_EDGE_CASES = [
+    (255, 128, 65), (256, 384, 1000), (257, 1024, 65),
+    (1023, 3072, 1000), (1024, 384, 65), (1025, 1024, 1000),
+    (70001, 384, 1000), (40000, 3072, 512),
+]
 
 
-def tile_edge_inputs(rs, d, nq, metric, gen):
-    """int8 operands with exact duplicates on both sides of the 128-row
-    block boundary inside the first tile (rows 124-131, all live: ties
-    across the tile's two blocks), a tie inside block 0, and all-dead
-    blocks opening the second tile and closing the third."""
+def tile_edge_inputs(storage, rs, d, nq, metric, gen):
+    """Operands with exact duplicates on both sides of the 128-row block
+    boundary inside the first tile (rows 124-131, all live: ties across
+    the tile's two blocks), a tie inside block 0, and all-dead blocks
+    opening the second tile and closing the third."""
     from semcode_tpu_torch.ops.scan_top2 import NEG
 
-    vecs, mult, add, qq, qsc = kernel_inputs("int8", rs, d, nq, metric, gen)
+    vecs, mult, add, qq, qsc = kernel_inputs(storage, rs, d, nq, metric, gen)
     for dst, src in ((slice(128, 132), slice(124, 128)), (5, 77)):
         vecs[dst] = vecs[src]
         mult[dst] = mult[src]
@@ -486,8 +527,6 @@ def dot_inputs(mode, n, d, nq, gen):
 def check_dot_max() -> int:
     import torch
 
-    from semcode_tpu_torch.ops.dot_max import RTILES, dot_max, dot_max_reference
-
     gen = torch.Generator(device="cuda").manual_seed(2024)
     t0 = time.perf_counter()
     n_cases = 0
@@ -496,19 +535,48 @@ def check_dot_max() -> int:
             for d in ((128, 384, 3072) if mode == "s32" else (128, 384)):
                 for nq in (1, 8, 64, 512):
                     rows, q = dot_inputs(mode, n, d, nq, gen)
-                    want = dot_max_reference(rows, q)
-                    for rtile in RTILES:
-                        got = dot_max(rows, q, mode=mode, rtile=rtile)
-                        torch.cuda.synchronize()
-                        if not torch.equal(got, want):
-                            bad = int((got != want).sum())
-                            fail(f"dot_max {mode} rtile={rtile} N={n} d={d} "
-                                 f"Q={nq}: {bad} maxima differ")
-                        n_cases += 1
-                    del rows, q, want
+                    n_cases += check_dot_case(rows, q, mode, f"N={n} d={d} Q={nq}")
+                    del rows, q
+    n_old = n_cases
+    # the tile edges: N at row-tile multiples +- 1 (ragged last tiles of
+    # every rtile), Q at the 64-query tile and its neighbours
+    for mode in ("s32", "bf16"):
+        for n in (63, 65, 127, 129, 255, 257, 513):
+            for nq in (63, 64, 65, 257):
+                rows, q = dot_inputs(mode, n, 384, nq, gen)
+                n_cases += check_dot_case(rows, q, mode, f"N={n} d=384 Q={nq}")
+    # every operand +-127 at d = 1024: sums up to 1024 * 127**2 = 16.5M,
+    # just under 2**24 where bf16 mode's f32 sums stop being exact
+    for mode in ("s32", "bf16"):
+        for n, nq in ((70001, 65), (300, 512)):
+            sign = lambda shape: torch.where(  # noqa: E731
+                torch.rand(shape, generator=gen, device="cuda") < 0.5, -127, 127
+            ).to(torch.int8)
+            rows, q = sign((n, 1024)), sign((nq, 1024))
+            rows[n // 3] = 127
+            q[0] = 127
+            q[nq - 1] = -127
+            n_cases += check_dot_case(rows, q, mode, f"N={n} d=1024 Q={nq} +-127")
     log(f"[kernel] dot_max equals its plain version bit for bit in {n_cases} "
-        f"cases (both modes, every row tile) in {time.perf_counter() - t0:.1f} s")
+        f"cases ({n_old} before the tile-edge cases; both modes, every row tile) "
+        f"in {time.perf_counter() - t0:.1f} s")
     return n_cases
+
+
+def check_dot_case(rows, q, mode, tag) -> int:
+    """dot_max at every row tile against its plain version, bit for bit."""
+    import torch
+
+    from semcode_tpu_torch.ops.dot_max import RTILES, dot_max, dot_max_reference
+
+    want = dot_max_reference(rows, q)
+    for rtile in RTILES:
+        got = dot_max(rows, q, mode=mode, rtile=rtile)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            fail(f"dot_max {mode} rtile={rtile} {tag}: {bad} maxima differ")
+    return len(RTILES)
 
 
 # -- phase 3: the main path end to end -----------------------------------------
@@ -720,6 +788,77 @@ def ivf_store(workdir: Path, mrr_flat_xla: float):
             "batch_ms": t_batch * 1e3}
 
 
+# -- phase 3c: the main path over bf16 storage ----------------------------------
+
+
+def apart_paths_equal(got, want, tol: float) -> bool:
+    """Hit paths equal at every position whose score (``want``'s) differs
+    from both neighbours' by more than ``tol``."""
+    pa = [s["path"] for s in got["sources"]]
+    pb = [s["path"] for s in want["sources"]]
+    sb = [s["score"] for s in want["sources"]]
+    if len(pa) != len(pb):
+        return False
+    for i, path in enumerate(pb):
+        near = any(abs(sb[i] - sb[j]) <= tol for j in (i - 1, i + 1)
+                   if 0 <= j < len(sb))
+        if not near and pa[i] != path:
+            return False
+    return True
+
+
+def bf16_store(workdir: Path):
+    from semcode_tpu_torch.ops.scan_top2 import top2_scan
+    from semcode_tpu_torch.rag import SemanticSearchPipeline
+    from semcode_tpu_torch.services import IndexerService
+    from semcode_tpu_torch.settings import AppSettings
+
+    queries = frozen_queries()
+    questions = [q for q, _ in queries]
+    labels = [rel for _, rel in queries]
+
+    def ingest(device: str):
+        cfg = AppSettings(
+            workspace_root=workdir / f"bf16-{device}",
+            index_kind="flat",
+            index_dtype="bfloat16",
+            index_scan_impl="pallas",
+            rag_provider="fallback",
+            rag_query_cache_size=0,
+        )
+        svc = IndexerService(config=cfg, device=device)
+        res = svc.index_repository([ROOT / "semcode_tpu"], "semcode_tpu")
+        pipe = SemanticSearchPipeline(config=cfg, vector_store=svc.vector_store,
+                                      embeddings=svc.embeddings, device=device)
+        return res, svc, pipe
+
+    top2_scan.launches = 0
+    t0 = time.perf_counter()
+    res, svc, pipe = ingest("cuda")
+    results = pipe.query_batch(questions, top_k=10)
+    t_run = time.perf_counter() - t0
+    launches = top2_scan.launches
+    if launches < 1:
+        fail("the bf16 store never launched the top2_scan kernel")
+    if svc.vector_store._index._storage_name() != "bfloat16":
+        fail("the phase 3c store does not hold bf16 rows")
+    if any(not r["sources"] for r in results):
+        fail("a frozen query got no hits from the bf16 store")
+    mrr, recall = rank_metrics(results, labels)
+    _, _, pipe_cpu = ingest("cpu")
+    for qtext, a, b in zip(questions, results,
+                           pipe_cpu.query_batch(questions[:8], top_k=10)):
+        if not apart_paths_equal(a, b, 1e-4):
+            fail(f"bf16 store: card and CPU disagree on {qtext!r}:\n"
+                 f"{[s['path'] for s in a['sources']]}\n"
+                 f"{[s['path'] for s in b['sources']]}")
+    log(f"[bf16-e2e] ingested {res.chunk_count} chunks into a bf16 flat store "
+        f"and answered 102 queries in {t_run:.2f} s: top2_scan launches "
+        f"{launches}, MRR@10 {mrr:.4f} recall@10 {recall:.4f}; first 8 queries: "
+        "card top-10 paths equal the CPU engine's (positions apart by 1e-4)")
+    return {"launches": launches, "mrr": mrr, "recall": recall}
+
+
 # -- phase 4: scale -----------------------------------------------------------
 
 
@@ -803,9 +942,10 @@ def scale_phase():
     t0 = time.perf_counter()
     x = mixture(gen, N_ROWS, DIM)
     q = queries_near(gen, x, BATCH)
+    x_host = x.cpu().numpy()
     index = FlatIndex(DIM, metric="ip", dtype="int8", scan_impl="pallas",
                       device="cuda")
-    index.add(x.cpu().numpy())
+    index.add(x_host)
     truth = oracle_topk(x, q, 10)
     del x
     torch.cuda.synchronize()
@@ -854,21 +994,84 @@ def scale_phase():
     out["kernel"] = timed[BATCH]
     out["kernel_q8"] = timed[SERVE_BATCH]
     out["dot_max"] = dot_max_phase(vecs, qq_all, timed)
+    del index, vecs, valid, scales, add, qq_all, qsc_all
+    for storage in ("bfloat16", "float32"):
+        out[storage] = float_scale_leg(storage, x_host, q, truth)
     return out
 
 
-def time_top2(vecs, scales, add, qq, qsc):
-    """top2_scan on the flat index's own operands: ms per call (CUDA events)
-    beside its plain version, one PyTorch-library computation of the same
-    selection and its bound; and its two measurement builds (products and
-    pipeline alone, selection and pipeline alone)."""
+def float_scale_leg(storage, x_host, q, truth):
+    """Phase 4 over bf16 or f32 storage: the same rows in a FlatIndex of
+    that dtype on the kernel route; recall, QPS, p50 and the kernel's
+    timings. top2_scan's launches are read around the searches."""
+    import gc
+
     import torch
 
+    from semcode_tpu_torch.index.flat import FlatIndex
+    from semcode_tpu_torch.ops.scan_top2 import NEG, top2_scan
+    from semcode_tpu_torch.tools._corpus import oracle_topk
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    index = FlatIndex(DIM, metric="ip", dtype=storage, scan_impl="pallas",
+                      device="cuda")
+    index.add(x_host)
+    vecs, _, valid, _, _, _ = index._ensure_device()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    top2_scan.launches = 0
+    _, ids = index.search_device(q, 10)
+    rec = recall_at_10(ids, truth)
+    qps, p50 = timed_search(lambda qb: index.search_device(qb, 10), q)
+    launches = top2_scan.launches
+    # bf16 rows are rescored from their f32 mirror: held to the f32 oracle.
+    # f32 rows have no rescore tier (storage counts as exact) and the kernel
+    # rounds them and the queries to bf16 (scan_kernel2.py:130): held to the
+    # oracle of those rounded operands, with the f32 oracle's recall printed
+    held, oracle = rec, "f32"
+    if storage == "float32":
+        xb = torch.from_numpy(x_host).to("cuda").to(torch.bfloat16).float()
+        held = recall_at_10(ids, oracle_topk(xb, q.to(torch.bfloat16).float(), 10))
+        oracle = "bf16-rounded"
+        del xb
+    log(f"[scale] {storage} flat index ({N_ROWS} x {DIM}, built in {build_s:.1f} "
+        f"s), kernel route: recall@10 {rec:.4f} (f32 oracle), {held:.4f} "
+        f"({oracle} oracle)  QPS@{BATCH} {qps:.0f}  p50@{SERVE_BATCH} {p50:.2f} "
+        f"ms; top2_scan launches {launches}")
+    if held < 0.99:
+        fail(f"{storage} kernel-route recall@10 {held:.4f} < 0.99 against the "
+             f"{oracle} oracle")
+    if launches < 1:
+        fail(f"the {storage} flat search never launched the top2_scan kernel")
+    rows = vecs.shape[0]
+    add = torch.where(valid, 0.0, NEG).float()
+    ones_r = torch.ones(rows, device="cuda")
+    qb = q.to(torch.bfloat16)
+    ones_q = torch.ones(BATCH, device="cuda")
+    timed = {nq: time_top2(vecs, ones_r, add, qb[:nq], ones_q[:nq])
+             for nq in (BATCH, SERVE_BATCH)}
+    return {"recall": rec, "recall_held": held, "oracle": oracle, "qps": qps,
+            "p50_b8_ms": p50, "launches": launches,
+            "kernel": timed[BATCH], "kernel_q8": timed[SERVE_BATCH]}
+
+
+def time_top2(vecs, scales, add, qq, qsc):
+    """top2_scan on a flat index's own operands (int8, bf16 or f32 rows):
+    ms per call (CUDA events) beside its plain version, one PyTorch-library
+    computation of the same selection and its bound; and its two
+    measurement builds (products and pipeline alone, selection and pipeline
+    alone)."""
+    import torch
+
+    from semcode_tpu_torch.device import f32_matmul
     from semcode_tpu_torch.ops.scan_top2 import (
         scan_geometry, top2_scan, top2_scan_probe, top2_scan_reference,
     )
     from semcode_tpu_torch.tools._timing import cuda_ms
 
+    storage = str(vecs.dtype).replace("torch.", "")
     args = (vecs, scales, add, qq, qsc)
     rows, nq = vecs.shape[0], qq.shape[0]
     nb = -(-rows // 128)
@@ -877,36 +1080,61 @@ def time_top2(vecs, scales, add, qq, qsc):
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: top2_scan_reference(*args), iters=3, warmup=1)
     rm, rr = top2_scan_reference(*args)
-    if not (torch.equal(bm, rm) and torch.equal(br, rr)):
-        fail(f"top2_scan differs from its plain version at the main-path shape "
-             f"(Q={nq})")
+    tag = f"{storage} at the main-path shape (Q={nq})"
+    if storage == "int8":
+        if not (torch.equal(bm, rm) and torch.equal(br, rr)):
+            fail(f"top2_scan differs from its plain version {tag}")
+    else:
+        if not torch.allclose(bm, rm, rtol=1e-5, atol=1e-6):
+            fail(f"top2_scan {tag}: scores off by {(bm - rm).abs().max().item()}")
+        check_float_rows(args, bm, br, rm, rr, tag)
     err = (bm - rm).abs().max().item()
     del rm, rr
     probe_ms = {kind: cuda_ms(lambda: top2_scan_probe(kind, *args), iters=20)
                 for kind in ("products", "selection")}
 
-    # cuBLASLt's int8 GEMM takes more than 16 query rows: zero rows pad it
-    qpad = torch.cat([qq, qq.new_zeros((max(0, 24 - nq), DIM))])
+    if storage == "int8":
+        # cuBLASLt's int8 GEMM takes more than 16 query rows: zero rows pad it
+        qpad = torch.cat([qq, qq.new_zeros((max(0, 24 - nq), DIM))])
 
-    def library():
-        # one PyTorch computation of the same selection: cuBLASLt int8 GEMM,
-        # the epilogue, and topk(2) over each 128-row block
-        raw = torch._int_mm(qpad, vecs.T)[:nq].float()
-        s = raw * qsc[:, None] * scales[None, :] + add[None, :]
-        return torch.topk(s.view(nq, nb, 128), 2, dim=2)
+        def library():
+            # one PyTorch computation of the same selection: cuBLASLt int8
+            # GEMM, the epilogue, and topk(2) over each 128-row block
+            raw = torch._int_mm(qpad, vecs.T)[:nq].float()
+            s = raw * qsc[:, None] * scales[None, :] + add[None, :]
+            return torch.topk(s.view(nq, nb, 128), 2, dim=2)
+        peak, esize = PEAK_INT8_OPS, 1
+    else:
+        qf = qq.float()
+
+        def library():
+            # the f32 GEMM (TF32 off) of the bf16-rounded operands, the
+            # epilogue and topk(2) over each 128-row block, in row chunks
+            out = []
+            for lo in range(0, rows, 1 << 17):
+                v = vecs[lo:lo + (1 << 17)].to(torch.bfloat16).float()
+                s = f32_matmul(qf, v.T) * qsc[:, None]
+                s = s * scales[None, lo:lo + v.shape[0]] + add[None, lo:lo + v.shape[0]]
+                out.append(torch.topk(s.view(nq, -1, 128), 2, dim=2))
+            return out
+        peak, esize = PEAK_BF16_OPS, vecs.element_size()
 
     library_ms = cuda_ms(library, iters=5)
-    n_bytes = rows * DIM + 2 * rows * 4 + nq * DIM + nq * 4 + nq * 2 * nb * 8
+    n_bytes = (rows * DIM * esize + 2 * rows * 4 + nq * DIM * qq.element_size()
+               + nq * 4 + nq * 2 * nb * 8)
     n_ops = 2 * nq * rows * DIM
-    bound_ms = max(n_bytes / PEAK_HBM_BYTES, n_ops / PEAK_INT8_OPS) * 1e3
-    bound_by = "operations" if n_ops / PEAK_INT8_OPS >= n_bytes / PEAK_HBM_BYTES else "bytes"
-    geom = scan_geometry(rows, DIM, nq, torch.cuda.get_device_properties(0).multi_processor_count)
-    log(f"[scale] top2_scan {rows} x {DIM} int8, Q={nq}: {kernel_ms:.3f} ms per "
-        f"call (plain {plain_ms:.1f} ms, _int_mm+topk {library_ms:.3f} ms, bound "
+    bound_ms = max(n_bytes / PEAK_HBM_BYTES, n_ops / peak) * 1e3
+    bound_by = "operations" if n_ops / peak >= n_bytes / PEAK_HBM_BYTES else "bytes"
+    geom = scan_geometry(rows, DIM, nq, torch.cuda.get_device_properties(0).multi_processor_count,
+                         storage)
+    log(f"[scale] top2_scan {rows} x {DIM} {storage}, Q={nq}: {kernel_ms:.3f} ms "
+        f"per call (plain {plain_ms:.1f} ms, library {library_ms:.3f} ms, bound "
         f"{bound_ms:.3f} ms by {bound_by}); measurement builds: products alone "
         f"{probe_ms['products']:.3f} ms, selection alone {probe_ms['selection']:.3f} "
         f"ms; grid {geom.grid} CTAs over {geom.work_items} work items, "
-        f"{geom.stages} stages, {geom.smem_bytes} B shared memory")
+        f"{geom.stages} stages, {geom.smem_bytes} B shared memory, rows "
+        f"{'shared' if geom.shared_rows else 'loaded per consumer'}, consumers "
+        f"{'taking turns' if geom.turns else 'together'}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
             "products_ms": probe_ms["products"],
@@ -917,15 +1145,16 @@ def time_top2(vecs, scales, add, qq, qsc):
 
 
 def dot_max_phase(vecs, qq, top2):
-    """dot_max on phase 4's own int8 rows and quantized queries; the new
-    top2_scan (``top2``: phase 4's timings by batch) against the old
-    tiling's GEMM; one run of the tools.dot_cuda entry point."""
+    """dot_max on phase 4's own int8 rows and quantized queries, in both
+    modes at every row tile; top2_scan's int8 time (``top2``: phase 4's
+    timings by batch) beside dot_max s32, the same GEMM with no selection;
+    one run of the tools.dot_cuda entry point."""
     import contextlib
     import io
 
     import torch
 
-    from semcode_tpu_torch.ops.dot_max import RTILES, dot_max, dot_max_reference
+    from semcode_tpu_torch.ops.dot_max import MODES, RTILES, dot_max, dot_max_reference
     from semcode_tpu_torch.tools import dot_cuda
     from semcode_tpu_torch.tools._timing import cuda_ms
 
@@ -956,42 +1185,34 @@ def dot_max_phase(vecs, qq, top2):
             log(f"[dot-max] {mode} rtile {rtile}: {t:.3f} ms per call, "
                 f"{n_ops / t / 1e9:.1f} TOP/s (bound {max(bounds[mode], bytes_ms):.3f} ms "
                 f"by {'operations' if bounds[mode] >= bytes_ms else 'bytes'})")
-    dot_ms = ms["s32_128"]
-    bound_ms = max(bounds["s32"], bytes_ms)
-    bound_by = "operations" if bounds["s32"] >= bytes_ms else "bytes"
-    log(f"[dot-max] {rows} x {d} int8, Q={nq}: s32 rtile 128 {dot_ms:.3f} ms "
-        f"(bound {bound_ms:.3f} ms by {bound_by}; plain {plain_ms:.1f} ms; "
-        f"_int_mm+amax {library_ms:.3f} ms)")
-    # the old design's GEMM at the interactive batch, on the same operands
-    for rtile in (128, 256):
-        q8 = qq[:SERVE_BATCH]
-        if not torch.equal(dot_max(vecs, q8, rtile=rtile), dot_max_reference(vecs, q8)):
+    q8 = qq[:SERVE_BATCH]
+    want8 = dot_max_reference(vecs, q8)
+    for rtile in RTILES:
+        if not torch.equal(dot_max(vecs, q8, rtile=rtile), want8):
             fail(f"dot_max s32 rtile={rtile} differs from its plain version at Q=8")
         ms[f"s32_{rtile}_q{SERVE_BATCH}"] = cuda_ms(
             lambda: dot_max(vecs, q8, rtile=rtile), iters=20)
+    log(f"[dot-max] s32 at Q={SERVE_BATCH}: " + ", ".join(
+        f"rtile {r} {ms[f's32_{r}_q{SERVE_BATCH}']:.3f} ms" for r in RTILES)
+        + f" (bound {(rows * d + SERVE_BATCH * (d + 4)) / PEAK_HBM_BYTES * 1e3:.3f} "
+        "ms by bytes)")
+    best = {mode: min(RTILES, key=lambda r: ms[f"{mode}_{r}"]) for mode in MODES}
     for batch, suffix in ((nq, ""), (SERVE_BATCH, f"_q{SERVE_BATCH}")):
         t = top2[batch]
-        log(f"[dot-max] decomposition at Q={batch}: the new top2_scan (TMA ring, "
-            f"wgmma, in-register top-2) {t['ms']:.3f} ms against the old tiling's "
-            f"GEMM with no selection (dot_max s32, mma.sync, synchronous staging) "
-            f"{ms['s32_128' + suffix]:.3f} ms at 128-row tiles and "
-            f"{ms['s32_256' + suffix]:.3f} ms at 256; within the new kernel, "
-            f"products and pipeline alone {t['products_ms']:.3f} ms, selection "
-            f"and pipeline alone {t['selection_ms']:.3f} ms (bound "
-            f"{t['bound_ms']:.3f} ms by {t['bound_by']})")
-    if top2[nq]["ms"] >= ms["s32_256"]:
-        fail(f"the new top2_scan is not faster than the old tiling's GEMM alone "
-             f"(dot_max s32, 256-row tiles) at Q={nq}")
-    if top2[SERVE_BATCH]["ms"] > ms[f"s32_128_q{SERVE_BATCH}"]:
-        fail(f"the new top2_scan is slower than the old tiling's GEMM alone "
-             f"(dot_max s32, 128-row tiles) at Q={SERVE_BATCH}")
+        gemm = ms[f"s32_{best['s32']}{suffix}"]
+        log(f"[dot-max] at Q={batch}: top2_scan int8 {t['ms']:.3f} ms (products "
+            f"alone {t['products_ms']:.3f}, selection alone {t['selection_ms']:.3f}) "
+            f"beside dot_max s32 {gemm:.3f} ms at rtile {best['s32']}, the same "
+            "GEMM and ring with no selection")
 
     # the kernel-measurement tool's path, at its default shape, short SECS
     buf = io.StringIO()
     dot_max.launches = 0
+    for mode in MODES:
+        dot_max.mode_launches[mode] = 0
     with contextlib.redirect_stdout(buf):
         dot_cuda.main([], {"SECS": "0.1", "CHUNK_B": "4"})
-    launches = dot_max.launches
+    launches = dict(dot_max.mode_launches)
     lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.strip()]
     for rec in lines:
         log(f"[dot_cuda] {json.dumps(rec)}")
@@ -1000,13 +1221,24 @@ def dot_max_phase(vecs, qq, top2):
         fail("tools.dot_cuda did not print one result line per config")
     if not all(r["max_equal"] for r in kernel_lines):
         fail("tools.dot_cuda: a kernel line does not equal the _int_mm yardstick")
-    if launches < 1:
-        fail("tools.dot_cuda never launched the dot_max kernel")
+    if min(launches.values()) < 1 or dot_max.launches != sum(launches.values()):
+        fail(f"tools.dot_cuda did not launch the dot_max kernel in both modes: "
+             f"{launches}")
     log(f"[dot-max] tools.dot_cuda ran {len(lines)} configs; dot_max launches "
         f"{launches}; phase 4c took {time.perf_counter() - t0:.1f} s")
-    return {"ms": dot_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": float(err),
-            "launches": launches, "ms_by_config": ms}
+    out = {}
+    for mode in MODES:
+        bound_ms = max(bounds[mode], bytes_ms)
+        bound_by = "operations" if bounds[mode] >= bytes_ms else "bytes"
+        out[mode] = {"ms": ms[f"{mode}_{best[mode]}"], "rtile": best[mode],
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "max_abs_err": float(err), "launches": launches[mode]}
+        log(f"[dot-max] {rows} x {d} int8, Q={nq}, {mode}: best rtile {best[mode]} "
+            f"{out[mode]['ms']:.3f} ms (bound {bound_ms:.3f} ms by {bound_by}; "
+            f"plain {plain_ms:.1f} ms; _int_mm+amax {library_ms:.3f} ms)")
+    out["ms_by_config"] = ms
+    return out
 
 
 # -- phase 4b: IVF at scale ------------------------------------------------------
@@ -1088,7 +1320,6 @@ def ivf_scale_phase():
             index.add(x[lo:lo + 131072])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    del x
     dev = index._ensure_device()
     log(f"[ivf-scale] {N_ROWS} x {DIM} int8 IVF (nlist {NLIST}, "
         f"{KMEANS_ITERS} k-means iterations) + f32 mirror built in "
@@ -1223,7 +1454,117 @@ def ivf_scale_phase():
                      "merge_ms": parts["ivf_merge"],
                      "products_ms": probe_ms["products"],
                      "selection_ms": probe_ms["selection"]}
+    del index, dev, args
+    for storage in ("bfloat16", "float32"):
+        out[storage] = ivf_float_leg(storage, x, q, truth)
     return out
+
+
+def ivf_library_float(data, ids, q, probing, k):
+    """One PyTorch computation of the bf16/f32 scan's selection: the f32
+    GEMM (TF32 off) of the f32 queries against the probed union's rows (in
+    slabs of 128 clusters), the probe/slot mask and a running topk."""
+    import torch
+
+    from semcode_tpu_torch.device import f32_matmul
+    from semcode_tpu_torch.ops.ivf_scan import NEG
+
+    nlist, cmax, d = data.shape
+    union = torch.nonzero(probing.any(dim=0)).flatten()
+    best_s = torch.full((q.shape[0], k), NEG, device="cuda")
+    best_i = torch.full((q.shape[0], k), -1, dtype=torch.int32, device="cuda")
+    for lo in range(0, union.numel(), 128):
+        cl = union[lo:lo + 128]
+        s = f32_matmul(q, data[cl].reshape(-1, d).float().T)
+        blk_ids = ids[cl].reshape(1, -1)
+        ok = (blk_ids >= 0) & probing[:, cl].repeat_interleave(cmax, dim=1)
+        s = torch.where(ok, s, NEG)
+        best_s, pos = torch.topk(torch.cat([best_s, s], dim=1), k, dim=1)
+        best_i = torch.gather(
+            torch.cat([best_i, blk_ids.expand(q.shape[0], -1)], dim=1), 1, pos)
+    return best_s, best_i
+
+
+def ivf_float_leg(storage, x, q, truth):
+    """Phase 4b over bf16 or f32 storage: the same rows in an IVFIndex of
+    that dtype (nlist 1024); one probe search at nprobe 32 (ivf_scan's
+    launches read around it), then the bf16/f32 scan's call at Q=512,
+    nprobe 32, k 64 beside its bound, plain version and library."""
+    import gc
+
+    import torch
+
+    from semcode_tpu_torch.device import f32_matmul
+    from semcode_tpu_torch.index.ivf import IVFIndex
+    from semcode_tpu_torch.index.scan import stable_topk
+    from semcode_tpu_torch.ops.ivf_scan import ivf_scan, ivf_scan_reference
+    from semcode_tpu_torch.tools._timing import cuda_ms
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    index = IVFIndex(DIM, nlist=NLIST, nprobe=32, metric="ip", dtype=storage,
+                     kmeans_iters=KMEANS_ITERS, device="cuda")
+    with index.bulk(expected_rows=N_ROWS):
+        for lo in range(0, N_ROWS, 131072):
+            index.add(x[lo:lo + 131072])
+    dev = index._ensure_device()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ivf_scan.launches = 0
+    _, ids = index.search_device(q, 10, nprobe=32, mode="ivf")
+    launches = ivf_scan.launches
+    rec = recall_at_10(ids, truth)
+    if launches < 1:
+        fail(f"the {storage} IVF probe search never launched the ivf_scan kernel")
+
+    _, probes = stable_topk(f32_matmul(q, dev.centroids.T), 32)
+    args = (dev.data, dev.ids, q, probes, 64, dev.scales)
+    call_ms = cuda_ms(lambda: ivf_scan(*args), iters=20)
+    scan_ms = kernel_device_ms(lambda: ivf_scan(*args), ("ivf_scan_f",))["ivf_scan_f"]
+    s, i = ivf_scan(*args)
+    torch.cuda.synchronize()
+    plain_ms = cuda_ms(lambda: ivf_scan_reference(*args), iters=2, warmup=1)
+    rs, ri = ivf_scan_reference(*args)
+    err = (s - rs).abs().max().item()
+    if not torch.allclose(s, rs, rtol=1e-5, atol=1e-6):
+        fail(f"ivf_scan {storage} at the main-path shape: scores off by {err}")
+    if not untied_ids_equal(rs, ri, i, 1e-5):
+        fail(f"ivf_scan {storage} at the main-path shape: ids differ at untied "
+             "positions")
+    del s, i, rs, ri
+    probing = torch.zeros((BATCH, NLIST), dtype=torch.bool, device="cuda")
+    probing.scatter_(1, probes, True)
+    library_ms = cuda_ms(
+        lambda: ivf_library_float(dev.data, dev.ids, q, probing, 64),
+        iters=3, warmup=1,
+    )
+    # the bytes the function must move (as for int8: every slot's id in the
+    # probed clusters, every valid slot's row, queries, probes, output) and
+    # its useful f32 products at the card's f32 rate
+    per_cluster = torch.zeros(NLIST, dtype=torch.int64, device="cuda")
+    per_cluster.index_add_(0, probes.flatten().long(),
+                           torch.ones(probes.numel(), dtype=torch.int64, device="cuda"))
+    probed = per_cluster > 0
+    valid = (dev.ids >= 0).sum(dim=1)
+    n_union = int(probed.sum())
+    n_valid = int(valid[probed].sum())
+    n_bytes = (n_union * index.cmax * 4 + n_valid * DIM * dev.data.element_size()
+               + q.numel() * 4 + probes.numel() * probes.element_size()
+               + BATCH * 64 * 8)
+    n_ops = 2 * DIM * int((per_cluster * valid).sum())
+    bound_ms = max(n_bytes / PEAK_HBM_BYTES, n_ops / PEAK_F32_OPS) * 1e3
+    bound_by = "operations" if n_ops / PEAK_F32_OPS >= n_bytes / PEAK_HBM_BYTES else "bytes"
+    log(f"[ivf-scale] {storage} IVF (built in {build_s:.1f} s, cmax {index.cmax}): "
+        f"nprobe 32 recall@10 {rec:.4f}, ivf_scan launches {launches}; call at "
+        f"Q={BATCH} nprobe 32 k 64: {call_ms:.3f} ms (CUDA events), scan kernel "
+        f"{scan_ms:.3f} ms (profiler); bound {bound_ms:.3f} ms by {bound_by} "
+        f"({n_bytes / 1e9:.3f} GB, {n_ops:.3g} f32 ops); plain {plain_ms:.1f} ms, "
+        f"f32 GEMM+mask+topk {library_ms:.3f} ms")
+    return {"recall": rec, "launches": launches, "build_s": build_s,
+            "kernel": {"ms": call_ms, "kernel_ms": scan_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": err}}
 
 
 def main() -> int:
@@ -1244,13 +1585,14 @@ def main() -> int:
 
     t_start = t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as pool:
-        top2_lib = pool.submit(scan_top2.build_library, True)  # ptxas -v
-        probes = {kind: pool.submit(lib.build)
+        # every CUDA library prints ptxas's registers, shared memory, spills
+        top2_lib = pool.submit(scan_top2.build_library, True)
+        probes = {kind: pool.submit(lib.build, True)
                   for kind, lib in scan_top2.PROBE_LIBRARIES.items()}
-        ivf_lib = pool.submit(ivf_scan.build_library, True)  # ptxas -v
+        ivf_lib = pool.submit(ivf_scan.build_library, True)
         ivf_probes = {kind: pool.submit(lib.build, True)
                       for kind, lib in ivf_scan.PROBE_LIBRARIES.items()}
-        dot_lib = pool.submit(dot_max.build_library)
+        dot_lib = pool.submit(dot_max.build_library, True)
         native = pool.submit(get_native)
         scan_top2._library.get(top2_lib.result())
         for kind, lib in probes.items():
@@ -1269,70 +1611,62 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="semcode_smoke_") as tmp:
         e2e = main_path(Path(tmp))
         ivf_e2e = ivf_store(Path(tmp), e2e["mrr_xla"])
+        bf16_e2e = bf16_store(Path(tmp))
     scale = scale_phase()
     ivf_scale = ivf_scale_phase()
 
-    kern = scale["kernel"]
-    record = {
-        "name": "top2_scan",
-        "route": "cuda",
-        "source": "semcode_tpu_torch/ops/csrc/top2_scan.cu",
-        "replaces": "semcode_tpu/ops/scan_kernel2.py:161",
-        "launches": e2e["launches"],
-        "max_abs_err": max(worst, kern["max_abs_err"]),
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"],
-        "matched": True,
-        # the interactive batch, and the kernel's two measurement builds
-        "ms_q8": scale["kernel_q8"]["ms"],
-        "bound_ms_q8": scale["kernel_q8"]["bound_ms"],
-        "products_ms": kern["products_ms"],
-        "selection_ms": kern["selection_ms"],
-    }
+    def kernel_record(name, source, replaces, launches, kern, worst_err=0.0, **extra):
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": max(worst_err, kern["max_abs_err"])}
+        for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+            rec[key] = kern[key]
+        rec["matched"] = True
+        rec.update(extra)
+        if launches < 1:
+            fail(f"{name} was not launched on its path")
+        return rec
+
+    top2_src = ("semcode_tpu_torch/ops/csrc/top2_scan.cu",
+                "semcode_tpu/ops/scan_kernel2.py:161")
+    ivf_src = ("semcode_tpu_torch/ops/csrc/ivf_scan.cu", "semcode_tpu/ops/kernels.py:247")
+    dot_src = ("semcode_tpu_torch/ops/csrc/dot_max.cu", "tools/dot_pallas.py:52")
+    records = []
+    # top2_scan: int8 on the main path (phase 3), bf16 on phase 3c's store,
+    # f32 on phase 4's f32 index; each with Q=8 and its measurement builds
+    for storage, launches, timed in (
+        ("int8", e2e["launches"], {"kernel": scale["kernel"],
+                                   "kernel_q8": scale["kernel_q8"]}),
+        ("bfloat16", bf16_e2e["launches"], scale["bfloat16"]),
+        ("float32", scale["float32"]["launches"], scale["float32"]),
+    ):
+        kern = timed["kernel"]
+        records.append(kernel_record(
+            f"top2_scan[{storage}]", *top2_src, launches, kern, worst,
+            ms_q8=timed["kernel_q8"]["ms"], bound_ms_q8=timed["kernel_q8"]["bound_ms"],
+            products_ms=kern["products_ms"], selection_ms=kern["selection_ms"]))
     ik = ivf_scale["kernel"]
-    ivf_record = {
-        "name": "ivf_scan",
-        "route": "cuda",
-        "source": "semcode_tpu_torch/ops/csrc/ivf_scan.cu",
-        "replaces": "semcode_tpu/ops/kernels.py:247",
-        "launches": ik["launches"],
-        "max_abs_err": max(worst_ivf, ik["max_abs_err"]),
-        "ms": ik["ms"],
-        "plain_ms": ik["plain_ms"],
-        "bound_ms": ik["bound_ms"],
-        "bound_by": ik["bound_by"],
-        "library_ms": ik["library_ms"],
-        "matched": True,
+    records.append(kernel_record(
+        "ivf_scan[int8]", *ivf_src, ik["launches"], ik, worst_ivf,
         # the scan kernel alone, the bookkeeping kernels and the scan's two
         # measurement builds
-        "kernel_ms": ik["kernel_ms"],
-        "prep_ms": ik["prep_ms"],
-        "scatter_ms": ik["scatter_ms"],
-        "merge_ms": ik["merge_ms"],
-        "products_ms": ik["products_ms"],
-        "selection_ms": ik["selection_ms"],
-    }
+        kernel_ms=ik["kernel_ms"], prep_ms=ik["prep_ms"],
+        scatter_ms=ik["scatter_ms"], merge_ms=ik["merge_ms"],
+        products_ms=ik["products_ms"], selection_ms=ik["selection_ms"]))
+    for storage in ("bfloat16", "float32"):
+        leg = ivf_scale[storage]
+        records.append(kernel_record(
+            f"ivf_scan[{storage}]", *ivf_src, leg["launches"], leg["kernel"],
+            worst_ivf, kernel_ms=leg["kernel"]["kernel_ms"]))
     dk = scale["dot_max"]
-    dot_record = {
-        "name": "dot_max",
-        "route": "cuda",
-        "source": "semcode_tpu_torch/ops/csrc/dot_max.cu",
-        "replaces": "tools/dot_pallas.py:52",
-        "launches": dk["launches"],
-        "max_abs_err": dk["max_abs_err"],
-        "ms": dk["ms"],
-        "plain_ms": dk["plain_ms"],
-        "bound_ms": dk["bound_ms"],
-        "bound_by": dk["bound_by"],
-        "library_ms": dk["library_ms"],
-        "matched": True,
-    }
+    for mode in ("s32", "bf16"):
+        records.append(kernel_record(f"dot_max[{mode}]", *dot_src,
+                                     dk[mode]["launches"], dk[mode],
+                                     rtile=dk[mode]["rtile"]))
     summary = {
         "e2e": e2e,
         "ivf_e2e": ivf_e2e,
+        "bf16_e2e": bf16_e2e,
         "scale": {k: v for k, v in scale.items() if k not in ("kernel", "dot_max")},
         "dot_max": dk,
         "ivf_scale": {k: v for k, v in ivf_scale.items() if k != "kernel"},
@@ -1340,7 +1674,7 @@ def main() -> int:
     log(f"[summary] {json.dumps(summary)}")
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s after the "
         "card check")
-    print(json.dumps({"kernels": [record, ivf_record, dot_record]}), flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({
         "ok": True,

@@ -4,263 +4,327 @@
 // int8 GEMM rate probe. Computes, for every query i,
 //     out[i] = max_r  sum_k q[i][k] * rows[r][k]          (int32, exact)
 // in one of two modes:
-//   mode 0 ("s32"):  s8 x s8 -> s32 on the tensor cores (mma m16n8k32);
-//   mode 1 ("bf16"): operands widened to bf16 on the way into shared memory,
-//                    bf16 x bf16 products summed in f32 (mma m16n8k16), the
-//                    sum converted to int32 before the max: the TPU tool's
-//                    "bf16cast" form. Exact while every partial sum stays
-//                    below 2^24, i.e. d * 127^2 < 2^24 (d <= 1040) for values
-//                    in [-127, 127]; the caller refuses a larger d.
+//   mode 0 ("s32"):  s8 x s8 -> s32 on the tensor cores (wgmma k32);
+//   mode 1 ("bf16"): operands widened to bf16, bf16 x bf16 products summed
+//                    in f32 (wgmma k16), the sum converted to int32 before
+//                    the max: the TPU tool's "bf16cast" form. Exact while
+//                    every partial sum stays below 2^24, i.e. d * 127^2 <
+//                    2^24 (d <= 1040) for values in [-127, 127]; the caller
+//                    refuses a larger d.
 //
-// Design: the tiling of top2_scan.cu's first design (its bf16/f32 path), so
-// that on int8 operands this kernel times that tiling's GEMM with no
-// selection, the yardstick for top2_scan's int8 kernel (TMA, wgmma, selection
-// in registers). One block of 256 threads (8 warps) owns ROWS rows x 64
-// queries (ROWS in {64, 128, 256}: the TPU tool's row-tile sweep); the depth
-// is walked in 128-byte chunks (128 int8 values, or 64 values widened to
-// bf16) staged synchronously through shared memory with rows padded to 144
-// bytes, and each warp runs mma.sync over its 16-row tiles and 8-query
-// tiles. The epilogue masks rows past the end, reduces each query column to
-// its maximum with warp shuffles and a shared-memory atomicMax, and folds the
-// block's 64 maxima into the output with a global atomicMax (initialised to
-// INT32_MIN by the caller). An integer maximum does not depend on the order
-// of the atomics, so the result is deterministic.
+// What bounds it on an H100 at 1M x 384 int8, Q=512 (1,000,064 rows as the
+// flat index pads them): 3.93e11 operations, 0.199 ms at the 1,979 TOP/s
+// int8 rate and 0.398 ms at the 989 TFLOP/s bf16 rate, against 384 MB of
+// rows, 0.115 ms at 3.35 TB/s: operations bound both modes.
 //
-// Bound on an H100 at 1M x 384 int8, Q=512 (1,000,064 rows as the flat
-// index pads them): 3.93e11 int8 operations, 0.199 ms at 1,979 TOP/s,
-// against 384 MB of rows, 0.115 ms at 3.35 TB/s: operations bound it. The
-// bf16 mode does the same operations at the 989 TFLOP/s bf16 rate: 0.398 ms.
-// This version uses mma.sync and synchronous staging; wgmma, TMA and a
-// persistent schedule are later work.
+// Design: top2_scan.cu's pipeline with a maximum for an epilogue.
+// Persistent warp-specialised CTAs of three warpgroups; a work item is
+// ROWS rows (64, 128 or 256: the TPU tool's row-tile sweep, wgmma N) x two
+// query tiles of 64 (wgmma M, one per consumer warpgroup). The producer's
+// first warp streams 128-byte depth chunks (128 int8 values) of the row tile
+// and the item's live query tiles by TMA (128-byte swizzle, rows past N and
+// queries past Q zero-filled). In s32 mode they land in the operand ring and
+// the consumers run wgmma.m64nROWSk32.s32.s8.s8 on them. In bf16 mode the
+// queries come widened already (the caller casts Q x d int8 to bf16 once:
+// exact, and each query tile would otherwise be widened again for every row
+// tile) and go by TMA into the operand stages, 64 values a row; the row
+// tile's chunks land in a raw ring of two stages, and the consumers
+// themselves widen each into the row part of two operand stages with
+// hopper.cuh's to_bf16, the conversion stage top2_scan.cu shares: every
+// consumer thread widens its share of stage q + 1 while its wgmmas on stage
+// q run, since the widening costs the SM more time than the
+// wgmma.m64nROWSk16.f32.bf16.bf16 that reads it (with three producer warps
+// converting, the conversion set the pace; PERF.md).
+// Both consumers read every stage of an item at once (no turns: the
+// epilogue is short), so a row chunk is loaded once for both query tiles
+// and no depth can deadlock the ring.
+// The epilogue keeps each thread's two running maxima in registers across
+// the items of one query pair (rows past N masked: zero padding could beat a
+// negative maximum) and folds them into the output, quad by quad, with one
+// global atomicMax per query when the CTA moves to another pair or ends
+// (the caller fills the output with INT32_MIN). An integer maximum does not
+// depend on the order of the atomics, so the result is deterministic. The
+// grid is min(#SMs, items); item u is (row tile u / pairs, query pair u %
+// pairs) and CTA b walks b, b + grid, ...: the CTAs that share a row tile run
+// together and re-read it from L2.
 //
 // Plain C interface (loaded with ctypes): returns the cudaError_t of the
-// launch; the caller allocates and initialises the output and owns the
-// stream.
+// launch; the caller allocates and initialises the output, owns the stream,
+// and chooses the launch geometry (ops/dot_max.dot_geometry), which is
+// checked here.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kQueries = 64;          // queries per block
-constexpr int kChunk = 128;           // bytes of depth per staged row
-constexpr int kStride = kChunk + 16;  // padded smem row stride (bytes)
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBf16Dim = 1040;     // d * 127^2 < 2^24
+using namespace hopper;
 
-// Warp layout of a ROWS x 64 tile: WM row groups x WN query groups; each warp
-// owns MT tiles of 16 rows and NT tiles of 8 queries.
-template <int ROWS>
-struct Tile {
-  static constexpr int WM = ROWS >= 16 * kWarps ? kWarps : ROWS / 16;
-  static constexpr int WN = kWarps / WM;
-  static constexpr int MT = ROWS / (16 * WM);
-  static constexpr int NT = kQueries / (8 * WN);
-  static_assert(WM * WN == kWarps && MT * 16 * WM == ROWS &&
-                    NT * 8 * WN == kQueries,
-                "unsupported row tile");
+constexpr int kQueryTile = 64;      // queries per consumer warpgroup: wgmma M
+constexpr int kChunk = 128;         // bytes of depth per stage row
+constexpr int kThreads = 384;       // 2 consumer warpgroups + producer
+constexpr int kConvThreads = 256;   // bf16 mode: both consumer warpgroups widen
+constexpr int kRawStages = 2;       // bf16 mode: int8 stages before widening
+constexpr int kBarrierBytes = 256;
+constexpr int kSmemAlign = 1024;    // 128-byte swizzle atoms
+constexpr int kSmemLimit = 232448;  // a block's dynamic shared memory
+constexpr int kMaxBf16Dim = 1040;   // d * 127^2 < 2^24
+
+// an operand stage: ROWS rows, then query tiles 0 and 1, each row 128
+// bytes; a raw stage (bf16 mode): ROWS int8 rows of 128 bytes
+__host__ __device__ constexpr int stage_bytes(int rows) {
+  return (rows + 2 * kQueryTile) * kChunk;
+}
+constexpr int smem_bytes_for(int rows, int stages, int raw_stages) {
+  return kSmemAlign + stages * stage_bytes(rows) + raw_stages * rows * kChunk +
+         kBarrierBytes;
+}
+
+struct Args {
+  int* out;
+  int n, d, nq, stages, raw_stages, n_qtiles, n_qpairs, n_units;
 };
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ int to_int(int x) { return x; }
 // the f32 sum holds an exact integer: rounding is the identity
 __device__ __forceinline__ int to_int(float x) { return __float2int_rn(x); }
 
-// the j-th int8 value of a packed word, as a float
-__device__ __forceinline__ float s8_at(uint32_t w, int j) {
-  return static_cast<float>(static_cast<int8_t>((w >> (8 * j)) & 0xffu));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // exact for |x| <= 128
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Stage `count` rows (rows base.. of a (limit, d) int8 matrix) of the current
-// depth chunk into shared memory; rows at or past `limit` stage as zeros.
-// MODE 0: the chunk is 128 int8 values as stored. MODE 1: the chunk is 64
-// int8 values, widened to bf16 (128 bytes) on the way in.
-template <int MODE>
-__device__ __forceinline__ void stage(uint8_t* dst, const int8_t* src,
-                                      int base, int limit, int count, int d,
-                                      int chunk) {
-  constexpr int per_row = 8;  // 16-byte smem stores per row
-  for (int i = threadIdx.x; i < count * per_row; i += kThreads) {
-    const int r = i / per_row, c = i % per_row;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (base + r < limit) {
-      const int8_t* row = src + (size_t)(base + r) * d;
-      if constexpr (MODE == 0) {
-        v = *reinterpret_cast<const int4*>(row + (size_t)chunk * kChunk + c * 16);
-      } else {
-        const int2 raw =
-            *reinterpret_cast<const int2*>(row + (size_t)chunk * 64 + c * 8);
-        const uint32_t w0 = static_cast<uint32_t>(raw.x);
-        const uint32_t w1 = static_cast<uint32_t>(raw.y);
-        v.x = static_cast<int>(pack_bf16(s8_at(w0, 0), s8_at(w0, 1)));
-        v.y = static_cast<int>(pack_bf16(s8_at(w0, 2), s8_at(w0, 3)));
-        v.z = static_cast<int>(pack_bf16(s8_at(w1, 0), s8_at(w1, 1)));
-        v.w = static_cast<int>(pack_bf16(s8_at(w1, 2), s8_at(w1, 3)));
-      }
-    }
-    *reinterpret_cast<int4*>(dst + r * kStride + c * 16) = v;
-  }
-}
-
 template <int MODE, int ROWS>
-__global__ void __launch_bounds__(kThreads)
-dot_max_kernel(const int8_t* __restrict__ rows, const int8_t* __restrict__ q,
-               int* __restrict__ out, int n, int d, int nq, int n_qtiles) {
-  using T = Tile<ROWS>;
+__global__ void __launch_bounds__(kThreads, 1)
+dot_max_kernel(const __grid_constant__ CUtensorMap rows_map,
+               const __grid_constant__ CUtensorMap q_map, const Args p) {
   using Acc = typename std::conditional<MODE == 0, int, float>::type;
-  __shared__ __align__(16) uint8_t rows_s[ROWS * kStride];
-  __shared__ __align__(16) uint8_t q_s[kQueries * kStride];
-  __shared__ int qmax_s[kQueries];
+  constexpr int kStage = stage_bytes(ROWS);
+  constexpr int kRowBytes = ROWS * kChunk;
+  constexpr int kQueryBytes = kQueryTile * kChunk;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) &
+      ~uintptr_t(kSmemAlign - 1));
+  const int stages = p.stages, raw_stages = p.raw_stages;
+  uint8_t* raw = smem + stages * kStage;  // bf16 mode: the int8 row stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(raw + raw_stages * kRowBytes);
+  uint64_t* empty = full + stages;
+  uint64_t* raw_full = empty + stages;
+  uint64_t* raw_empty = raw_full + raw_stages;
+  const int n_raw = p.d / kChunk;                   // int8 chunks of depth
+  const int n_k = MODE == 0 ? n_raw : 2 * n_raw;    // operand chunks
+  const int wg = threadIdx.x / 128;
 
-  // query tiles vary fastest, so the blocks sharing one row tile run
-  // together and re-read its rows from L2 rather than device memory
-  const int qtile = blockIdx.x % n_qtiles;
-  const int row0 = (blockIdx.x / n_qtiles) * ROWS;
-  const int q0 = qtile * kQueries;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      // bf16: the queries' TMA bytes and every converter thread's rows
+      mbar_init(full + s, MODE == 0 ? 1 : 1 + kConvThreads);
+      // both consumers read every stage
+      mbar_init(empty + s, 256);
+    }
+    for (int r = 0; r < raw_stages; ++r) {
+      mbar_init(raw_full + r, 1);
+      mbar_init(raw_empty + r, kConvThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
-  const int wm = warp % T::WM, wn = warp / T::WM;
-  const int m_base = wm * T::MT * 16;  // this warp's first row in the tile
-  const int n_base = wn * T::NT * 8;   // this warp's first query in the tile
-
-  if (threadIdx.x < kQueries) qmax_s[threadIdx.x] = INT_MIN;
-
-  Acc acc[T::MT][T::NT][4];
-#pragma unroll
-  for (int m = 0; m < T::MT; ++m)
-#pragma unroll
-    for (int n8 = 0; n8 < T::NT; ++n8)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n8][i] = Acc(0);
-
-  const int n_chunks = MODE == 0 ? d / kChunk : d / 64;
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    stage<MODE>(rows_s, rows, row0, n, ROWS, d, chunk);
-    stage<MODE>(q_s, q, q0, nq, kQueries, d, chunk);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 32) {
-      // the s8 k32 and bf16 k16 fragments read the same byte offsets
-      uint32_t a[T::MT][4];
-#pragma unroll
-      for (int m = 0; m < T::MT; ++m) {
-        const uint8_t* A = rows_s + (m_base + m * 16 + g) * kStride + kk + t * 4;
-        a[m][0] = *reinterpret_cast<const uint32_t*>(A);
-        a[m][1] = *reinterpret_cast<const uint32_t*>(A + 8 * kStride);
-        a[m][2] = *reinterpret_cast<const uint32_t*>(A + 16);
-        a[m][3] = *reinterpret_cast<const uint32_t*>(A + 8 * kStride + 16);
-      }
-#pragma unroll
-      for (int n8 = 0; n8 < T::NT; ++n8) {
-        const uint8_t* B = q_s + (n_base + n8 * 8 + g) * kStride + kk + t * 4;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(B);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(B + 16);
-#pragma unroll
-        for (int m = 0; m < T::MT; ++m) {
-          if constexpr (MODE == 0) {
-            mma_s8(acc[m][n8], a[m], b0, b1);
-          } else {
-            mma_bf16(acc[m][n8], a[m], b0, b1);
+  if (wg == 2) {
+    // ---- producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      // TMA: each depth chunk of the row tile and of the live query tiles,
+      // into the operand ring (s32); bf16: the row chunk into the raw ring
+      // and the query tiles, 64 bf16 values at a time, into the two operand
+      // stages the chunk becomes
+      int pos = 0, rpos = 0;
+      for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+        const int row0 = (u / p.n_qpairs) * ROWS;
+        const int qt0 = 2 * (u % p.n_qpairs);
+        const int n_live = qt0 + 1 < p.n_qtiles ? 2 : 1;
+        for (int k = 0; k < n_raw; ++k) {
+          if (MODE == 1) {
+            const int r = rpos % raw_stages;
+            mbar_wait(raw_empty + r, ((rpos / raw_stages) & 1) ^ 1);
+            mbar_expect_tx(raw_full + r, kRowBytes);
+            tma_load(raw + r * kRowBytes, &rows_map, raw_full + r, k * kChunk, row0);
+            ++rpos;
+          }
+          for (int h = 0; h < (MODE == 0 ? 1 : 2); ++h, ++pos) {
+            const int s = pos % stages;
+            mbar_wait(empty + s, ((pos / stages) & 1) ^ 1);
+            mbar_expect_tx(full + s, (MODE == 0 ? kRowBytes : 0) + n_live * kQueryBytes);
+            uint8_t* st = smem + s * kStage;
+            // element coordinates: 128 int8 or 64 bf16 values a chunk
+            const int kx = MODE == 0 ? k * kChunk : (2 * k + h) * (kChunk / 2);
+            if (MODE == 0) tma_load(st, &rows_map, full + s, kx, row0);
+            for (int c = 0; c < n_live; ++c)
+              tma_load(st + kRowBytes + c * kQueryBytes, &q_map, full + s, kx,
+                       (qt0 + c) * kQueryTile);
           }
         }
       }
     }
-    __syncthreads();
-  }
-
-  // epilogue: each thread holds rows g, g+8 of every 16-row tile for query
-  // columns t*2, t*2+1 of every 8-query tile; rows past the end are masked
-  // (they were staged as zeros, which could beat a negative maximum)
+  } else {
+    // ---- consumer warpgroups 0 and 1 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    const int c = wg;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    Acc acc[ROWS / 2];
 #pragma unroll
-  for (int n8 = 0; n8 < T::NT; ++n8) {
+    for (int i = 0; i < ROWS / 2; ++i) acc[i] = Acc(0);
+    // this thread's queries warp*16 + g + 8i of query tile `cur`: maxima
+    // folded into the output when the tile changes or the CTA ends
     int best[2] = {INT_MIN, INT_MIN};
+    int cur = -1;
+    auto flush = [&]() {
 #pragma unroll
-    for (int m = 0; m < T::MT; ++m) {
+      for (int i = 0; i < 2; ++i) {
+        int v = best[i];
+        v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = max(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        const int q = cur * kQueryTile + warp * 16 + g + 8 * i;
+        if (cur >= 0 && t == 0 && q < p.nq) atomicMax(p.out + q, v);
+        best[i] = INT_MIN;
+      }
+    };
+    // the CTA's items, as one stream of operand stages q: item q / n_k,
+    // depth chunk q % n_k
+    const int total = (p.n_units - blockIdx.x + gridDim.x - 1) / gridDim.x * n_k;
+    // bf16: widen this thread's share of operand stage q's rows (chunk half
+    // q % 2 of raw stage q / 2), then publish it
+    auto convert = [&](int q) {
+      const int rq = q / 2, r = rq % raw_stages, s = q % stages;
+      mbar_wait(raw_full + r, (rq / raw_stages) & 1);
+      mbar_wait(empty + s, ((q / stages) & 1) ^ 1);
+      to_bf16<int8_t, kConvThreads>(smem + s * kStage, raw + r * kRowBytes, ROWS,
+                                    q & 1, threadIdx.x);
+      fence_proxy_async();
+      mbar_arrive(full + s);
+      if (q & 1) mbar_arrive(raw_empty + r);
+    };
+    if (MODE == 1 && total > 0) convert(0);
+    for (int q = 0; q < total; ++q) {
+      const int k = q % n_k;
+      const int u = blockIdx.x + (q / n_k) * gridDim.x;
+      const int row0 = (u / p.n_qpairs) * ROWS;
+      const int qt = 2 * (u % p.n_qpairs) + c;
+      if (qt != cur) {
+        flush();
+        cur = qt;
+      }
+      // a dead query tile (past Q) is multiplied all the same, on stale
+      // operands, and never flushed: a wgmma under a branch is serialised
+      const int s = q % stages;
+      mbar_wait(full + s, (q / stages) & 1);
+      const uint8_t* st = smem + s * kStage;
+      const uint64_t a = sw128_desc(st + kRowBytes + c * kQueryBytes);
+      const uint64_t b = sw128_desc(st);
+      fence_acc(acc);
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = row0 + m_base + m * 16 + g + (i >= 2 ? 8 : 0);
-        if (row < n) best[i & 1] = max(best[i & 1], to_int(acc[m][n8][i]));
+      for (int kk = 0; kk < kChunk / 32; ++kk)
+        wgmma_step(acc, a + 2 * kk, b + 2 * kk, (k | kk) != 0);
+      wgmma_commit();
+      // bf16: the next stage's rows are widened while these products run
+      if (MODE == 1 && q + 1 < total) convert(q + 1);
+      if (k + 1 < n_k) {
+        wgmma_wait<1>();  // the previous chunk's products are done
+        fence_acc(acc);
+        if (k > 0) mbar_arrive(empty + (q - 1) % stages);
+        continue;
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (k > 0) mbar_arrive(empty + (q - 1) % stages);
+      mbar_arrive(empty + s);
+      // d[4j + 2i + e] is query warp*16 + g + 8i, tile row 8j + 2t + e
+#pragma unroll
+      for (int j = 0; j < ROWS / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = row0 + 8 * j + 2 * t + e < p.n;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int v = to_int(acc[4 * j + 2 * i + e]);
+            best[i] = in ? max(best[i], v) : best[i];
+          }
+        }
       }
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1)  // across g: lanes t, t+4, ...
-        best[j] = max(best[j], __shfl_xor_sync(0xffffffffu, best[j], off));
-    }
-    if (g == 0) {
-      atomicMax(&qmax_s[n_base + n8 * 8 + t * 2], best[0]);
-      atomicMax(&qmax_s[n_base + n8 * 8 + t * 2 + 1], best[1]);
-    }
+    flush();
   }
-  __syncthreads();
-  if (threadIdx.x < kQueries && q0 + threadIdx.x < nq)
-    atomicMax(&out[q0 + threadIdx.x], qmax_s[threadIdx.x]);
 }
 
 template <int MODE, int ROWS>
-cudaError_t launch(const int8_t* rows, const int8_t* q, int* out, int n, int d,
-                   int nq, cudaStream_t stream) {
-  const int n_qtiles = (nq + kQueries - 1) / kQueries;
-  const long long blocks = (long long)((n + ROWS - 1) / ROWS) * n_qtiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  dot_max_kernel<MODE, ROWS><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      rows, q, out, n, d, nq, n_qtiles);
+cudaError_t launch(const void* rows, const void* q, int* out, int n, int d,
+                   int nq, int grid, int stages, int raw_stages, int smem_bytes,
+                   cudaStream_t stream) {
+  const long long n_qtiles = (nq + kQueryTile - 1) / kQueryTile;
+  const long long n_qpairs = (n_qtiles + 1) / 2;
+  const long long units = ((long long)n + ROWS - 1) / ROWS * n_qpairs;
+  // bf16: a consumer widens stage q + 1 before it releases stage q - 1
+  if (units > 0x7fffffffLL || grid < 1 || grid > units || stages < (MODE == 0 ? 2 : 3) ||
+      raw_stages != (MODE == 0 ? 0 : kRawStages) ||
+      smem_bytes != smem_bytes_for(ROWS, stages, raw_stages) ||
+      smem_bytes > kSmemLimit ||
+      (reinterpret_cast<uintptr_t>(rows) | reinterpret_cast<uintptr_t>(q)) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap rows_map, q_map;
+  if (!tile_map(&rows_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rows, d, n, ROWS) ||
+      !tile_map(&q_map, MODE == 0 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                q, d, nq, kQueryTile))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dot_max_kernel<MODE, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return err;
+  const Args args{out, n, d, nq, stages, raw_stages, (int)n_qtiles,
+                  (int)n_qpairs, (int)units};
+  dot_max_kernel<MODE, ROWS><<<grid, kThreads, smem_bytes, stream>>>(
+      rows_map, q_map, args);
   return cudaGetLastError();
 }
 
 template <int MODE>
-cudaError_t launch_rows(const int8_t* rows, const int8_t* q, int* out, int n,
-                        int d, int nq, int rtile, cudaStream_t stream) {
+cudaError_t launch_rows(const void* rows, const void* q, int* out, int n,
+                        int d, int nq, int rtile, int grid, int stages,
+                        int raw_stages, int smem_bytes, cudaStream_t stream) {
   switch (rtile) {
-    case 64: return launch<MODE, 64>(rows, q, out, n, d, nq, stream);
-    case 128: return launch<MODE, 128>(rows, q, out, n, d, nq, stream);
-    case 256: return launch<MODE, 256>(rows, q, out, n, d, nq, stream);
+    case 64: return launch<MODE, 64>(rows, q, out, n, d, nq, grid, stages,
+                                     raw_stages, smem_bytes, stream);
+    case 128: return launch<MODE, 128>(rows, q, out, n, d, nq, grid, stages,
+                                       raw_stages, smem_bytes, stream);
+    case 256: return launch<MODE, 256>(rows, q, out, n, d, nq, grid, stages,
+                                       raw_stages, smem_bytes, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// `rows` (N, d) int8; `q` (Q, d) int8 in mode 0, bf16 (the int8 queries
+// widened) in mode 1. `grid` persistent CTAs, `stages` operand stages,
+// `raw_stages` int8 row stages (mode 1 only) and `smem_bytes` of dynamic
+// shared memory, refused unless it is exactly what the row tile and the
+// stages need.
 extern "C" int semcode_dot_max(const void* rows, const void* q, int* out,
                                int n, int d, int nq, int mode, int rtile,
-                               void* stream) {
+                               int grid, int stages, int raw_stages,
+                               int smem_bytes, void* stream) {
   if (n <= 0 || nq <= 0 || d <= 0 || d % kChunk != 0) return cudaErrorInvalidValue;
   if (mode == 1 && d > kMaxBf16Dim) return cudaErrorInvalidValue;
-  const int8_t* r = static_cast<const int8_t*>(rows);
-  const int8_t* qq = static_cast<const int8_t*>(q);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case 0: return launch_rows<0>(r, qq, out, n, d, nq, rtile, s);
-    case 1: return launch_rows<1>(r, qq, out, n, d, nq, rtile, s);
+    case 0: return launch_rows<0>(rows, q, out, n, d, nq, rtile, grid, stages,
+                                  raw_stages, smem_bytes, s);
+    case 1: return launch_rows<1>(rows, q, out, n, d, nq, rtile, grid, stages,
+                                  raw_stages, smem_bytes, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the int8 kernels: mbarriers,
-// TMA tile loads, wgmma descriptors and fences, and libcuda's tensor-map
-// encoder. Included by top2_scan.cu and ivf_scan.cu.
+// Hopper (sm_90a) building blocks shared by the kernels: mbarriers, TMA
+// tile loads, wgmma descriptors, steps and fences, the one stage that turns
+// int8 or f32 tiles into bf16 wgmma operands, and libcuda's tensor-map
+// encoder. Included by top2_scan.cu, ivf_scan.cu and dot_max.cu.
 
 #pragma once
 
@@ -53,9 +54,10 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 }
 
 // wgmma shared-memory descriptor of a K-major tile of 128-byte rows written
-// by TMA with 128-byte swizzle: 8-row groups 1024 bytes apart (SBO), the
-// leading offset unused, layout type 1 (128B swizzle). A k32 step inside the
-// atom advances the start address by 32 bytes (+2 in 16-byte units).
+// by TMA (or by to_bf16) with 128-byte swizzle: 8-row groups 1024 bytes
+// apart (SBO), the leading offset unused, layout type 1 (128B swizzle). A
+// step of 32 bytes of depth inside the atom (s8 k32, bf16 k16) advances the
+// start address by 32 bytes (+2 in 16-byte units).
 __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
   uint64_t desc = (smem_u32(tile) & 0x3FFFF) >> 4;
   desc |= uint64_t(1) << 16;
@@ -71,6 +73,11 @@ __device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -81,6 +88,285 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma, TMA) before an mbarrier arrive publishes them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One wgmma step over 32 bytes of depth, both operands K-major in shared
+// memory: the accumulator's type and size pick the instruction (int: s8 k32
+// -> s32; float: bf16 k16 -> f32; 32 / 64 / 128 registers: N = 64 / 128 /
+// 256). The accumulator element d[4j + 2i + c] of thread (warp w, lane l)
+// is row 16w + l/4 + 8i of A and row 8j + 2(l%4) + c of B.
+// D(64 x 64, s32) (+)= A(64 x 32 bytes) . B(64 x 32 bytes)^T: s8 k32
+__device__ __forceinline__ void wgmma_step(int (&d)[32], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D(64 x 64, f32) (+)= A(64 x 32 bytes) . B(64 x 32 bytes)^T: bf16 k16
+__device__ __forceinline__ void wgmma_step(float (&d)[32], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D(64 x 128, s32) (+)= A(64 x 32 bytes) . B(128 x 32 bytes)^T: s8 k32
+__device__ __forceinline__ void wgmma_step(int (&d)[64], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D(64 x 128, f32) (+)= A(64 x 32 bytes) . B(128 x 32 bytes)^T: bf16 k16
+__device__ __forceinline__ void wgmma_step(float (&d)[64], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D(64 x 256, s32) (+)= A(64 x 32 bytes) . B(256 x 32 bytes)^T: s8 k32
+__device__ __forceinline__ void wgmma_step(int (&d)[128], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D(64 x 256, f32) (+)= A(64 x 32 bytes) . B(256 x 32 bytes)^T: bf16 k16
+__device__ __forceinline__ void wgmma_step(float (&d)[128], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// The conversion stage: int8 (exact) or f32 (round to nearest even) -> bf16
+// ---------------------------------------------------------------------------
+//
+// TMA copies bytes as stored, and the bf16 wgmma reads bf16. to_bf16 turns a
+// stage that TMA wrote (`rows` rows of 128 bytes, 128-byte swizzled: 128
+// int8 or 32 f32 values a row) into the bf16 tile that sw128_desc describes
+// (`rows` rows of 128 bytes = 64 values, 128-byte swizzled):
+//   int8: source values 64*half .. 64*half + 63 fill the whole bf16 row, so
+//         one int8 stage makes two bf16 stages (half 0 and 1);
+//   f32:  the 32 source values fill 16-byte chunks 4*half .. 4*half + 3 of
+//         the bf16 row, so two f32 stages make one bf16 stage.
+// Each thread writes whole 16-byte chunks (8 values); the caller fences the
+// writes to the async proxy (fence_proxy_async) before it publishes the tile
+// to the wgmma. The conversion is not free next to the bf16 tensor rate: it
+// takes a warp ~10 dependent instructions per bf16 pair, and converting a
+// stage costs an SM more time than the wgmmas that read it, so every warp
+// that can spare the time converts.
+
+// the 16-byte chunk c of row r of a 128-byte-swizzled tile
+__device__ __forceinline__ int sw128_offset(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// bytes j and j + 1 of w (signed int8 stored with 0x80 added) -> bf16x2,
+// exactly: 0x4B0000xx is the float 2^23 + xx, so subtracting 2^23 + 128
+// leaves the value, an integer of at most 8 bits that bf16 holds exactly
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t w, int j) {
+  const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | j)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 | (j + 1))) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// round to nearest even, as __floats2bfloat162_rn: lo in the low half
+__device__ __forceinline__ uint32_t f32x2_to_bf16x2(float lo, float hi) {
+  uint32_t out;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(out) : "f"(hi), "f"(lo));
+  return out;
+}
+
+// to_bf16<T, NTHREADS>: thread `thread` of the NTHREADS (a multiple of 64
+// for int8, 32 for f32) converting one stage. It takes units thread,
+// thread + NTHREADS, ... (unit u: row u / kUnits, 16-byte chunk u % kUnits
+// of the source row's share), so it keeps one chunk column and one swizzle
+// phase (row % 8) and steps its addresses by a constant. A batch's loads
+// are all in flight before its first conversion. Shared-memory addresses
+// are 32-bit shared-window offsets.
+template <typename T, int NTHREADS>
+__device__ __forceinline__ void to_bf16(uint8_t* dst, const uint8_t* src,
+                                        int rows, int half, int thread) {
+  static_assert(sizeof(T) == 1 || sizeof(T) == 4, "int8 or f32 stages");
+  constexpr int kUnits = sizeof(T) == 1 ? 8 : 4;  // chunks a source row fills
+  static_assert(NTHREADS % (8 * kUnits) == 0, "one swizzle phase per thread");
+  constexpr int kStep = NTHREADS / kUnits * 128;  // bytes between a thread's units
+  constexpr int kBatch = sizeof(T) == 1 ? 8 : 2;
+  constexpr int kRaw = sizeof(T) == 1 ? 2 : 8;     // source words a unit
+  const int r = thread / kUnits, j = thread % kUnits;
+  const int count = r < rows ? (rows - r + NTHREADS / kUnits - 1) / (NTHREADS / kUnits) : 0;
+  // int8: values 64*half + 8j .. + 7, bytes 8(j & 1) .. of chunk
+  // 4*half + j/2; f32: values 8j .. 8j + 7, source chunks 2j and 2j + 1
+  const uint32_t s0 = smem_u32(src) + (sizeof(T) == 1
+      ? sw128_offset(r, 4 * half + j / 2) + 8 * (j & 1) : sw128_offset(r, 2 * j));
+  const uint32_t s1 = smem_u32(src) + sw128_offset(r, 2 * j + 1);
+  const uint32_t d0 = smem_u32(dst) + sw128_offset(r, sizeof(T) == 1 ? j : 4 * half + j);
+  for (int i0 = 0; i0 < count; i0 += kBatch) {
+    uint32_t raw[kBatch][kRaw];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (i0 + b >= count) break;
+      const uint32_t step = (i0 + b) * kStep;
+      if constexpr (sizeof(T) == 1) {
+        asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                     : "=r"(raw[b][0]), "=r"(raw[b][1]) : "r"(s0 + step));
+      } else {
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(raw[b][0]), "=r"(raw[b][1]), "=r"(raw[b][2]), "=r"(raw[b][3])
+                     : "r"(s0 + step));
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(raw[b][4]), "=r"(raw[b][5]), "=r"(raw[b][6]), "=r"(raw[b][7])
+                     : "r"(s1 + step));
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (i0 + b >= count) break;
+      uint32_t out[4];
+      if constexpr (sizeof(T) == 1) {
+        const uint32_t w0 = raw[b][0] ^ 0x80808080u, w1 = raw[b][1] ^ 0x80808080u;
+        out[0] = s8x2_to_bf16x2(w0, 0);
+        out[1] = s8x2_to_bf16x2(w0, 2);
+        out[2] = s8x2_to_bf16x2(w1, 0);
+        out[3] = s8x2_to_bf16x2(w1, 2);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          out[i] = f32x2_to_bf16x2(__uint_as_float(raw[b][2 * i]),
+                                   __uint_as_float(raw[b][2 * i + 1]));
+      }
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                   :: "r"(d0 + (i0 + b) * kStep), "r"(out[0]), "r"(out[1]),
+                      "r"(out[2]), "r"(out[3])
+                   : "memory");
+    }
+  }
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -103,19 +389,25 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (outer, inner) int8 matrix read in boxes of `box_outer` x 128 bytes,
+// A row-major (outer, inner) matrix of `type` elements (int8, bf16, f32)
+// read in boxes of `box_outer` rows x 128 bytes (128, 64 or 32 elements),
 // 128-byte swizzled; boxes past the edge are zero-filled.
-inline bool int8_map(CUtensorMap* map, const void* base, long long inner,
-                     long long outer, int box_outer) {
+inline bool tile_map(CUtensorMap* map, CUtensorMapDataType type,
+                     const void* base, long long inner, long long outer,
+                     int box_outer) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
+  const int esize = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1
+                    : type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
+                    : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 0;
+  if (esize == 0) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner};
-  const cuuint32_t box[2] = {128u, (cuuint32_t)box_outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)(inner * esize)};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_outer};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -55,11 +55,11 @@
 //    query): the query's pairs scanned later filter against it too, so their
 //    buffers stay small. Ties at a bound pass, so the merged top-k is exact
 //    and the same whichever CTA publishes first; only the per-pair lists,
-//    which nothing returns, shorten. bf16/f32 (ivf_scan_f): the
-//    first design, one block of 256 threads per tile of 32 queries, the f32 dot
-//    on the CUDA cores (the reference scores float rows against the f32
-//    query, and TMA cannot widen bf16) and a per-query top-k list in
-//    registers.
+//    which nothing returns, shorten. bf16/f32 (ivf_scan_f): one
+//    block of 256 threads per tile of 32 queries, the f32 dot on the CUDA
+//    cores (the reference scores float rows against the f32 query) and a
+//    per-query top-k list in registers; its redesign on hopper.cuh's TMA
+//    ring and bf16 conversion stage is still to come.
 // 4. ivf_merge: one warp per query merges its sorted per-pair lists by
 //    (score desc, cluster asc, list position asc); skipped probes are empty.
 //
@@ -300,25 +300,6 @@ static_assert(kPool / kQTile >= kMaxK + kRowChunk, "a chunk must fit after a mer
 static_assert(6 * kQTile * 4 + 8 * 128 * 4 + (2 * kMaxStages + 2 * kEpiSlots) * 8 <=
                   kMiscBytes,
               "per-query state, histograms and barriers");
-
-// D(64 queries x 64 rows, s32) (+)= A(64 x 32 s8) . B(64 x 32 s8)^T
-__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t a, uint64_t b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
 
 // The consumer warpgroups' own barrier (id 1; id 0 is __syncthreads).
 __device__ __forceinline__ void consumer_sync() {
@@ -797,7 +778,7 @@ ivf_scan_s8(const __grid_constant__ CUtensorMap rows_map,
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < kDepth / 32; ++kk)
-            wgmma_s8_n64(acc, a + 2 * kk, b + 2 * kk, (kc | kk) != 0);
+            wgmma_step(acc, a + 2 * kk, b + 2 * kk, (kc | kk) != 0);
           wgmma_commit();
           wgmma_wait<1>();  // the previous depth chunk's products are done
           fence_acc(acc);
@@ -856,7 +837,7 @@ ivf_scan_s8(const __grid_constant__ CUtensorMap rows_map,
 }
 
 // ---------------------------------------------------------------------------
-// 3b. bf16/f32 scan: the first design (CUDA-core f32 dot, top-k in registers)
+// 3b. bf16/f32 scan: CUDA-core f32 dot, top-k in registers
 // ---------------------------------------------------------------------------
 
 constexpr int kFQueries = 32;         // probing queries per block
@@ -1258,8 +1239,9 @@ extern "C" int semcode_ivf_scan(const void* data, const int* ids,
         (reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(queries)) % 16)
       return cudaErrorInvalidValue;
     CUtensorMap rows_map, q_map;
-    if (!int8_map(&rows_map, data, d, (long long)nlist * cmax, kRowChunk) ||
-        !int8_map(&q_map, queries, d, n_pairs, kQBox))
+    if (!tile_map(&rows_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, data, d,
+                  (long long)nlist * cmax, kRowChunk) ||
+        !tile_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, queries, d, n_pairs, kQBox))
       return cudaErrorInvalidValue;
     cudaError_t err = raise_smem_once<ivf_scan_s8>(kSmemLimit);
     if (err != cudaSuccess) return err;

@@ -14,50 +14,61 @@
 // What bounds it on an H100: at the main path's shape (1,000,064 x 384 int8
 // rows, Q=512) the dot is 3.93e11 int8 operations, 0.199 ms at 1,979 TOP/s,
 // against 392 MB of rows and 64 MB of output, 0.136 ms at 3.35 TB/s:
-// operations bound it. The selection is larger on the CUDA cores: for each
-// of the 5.1e8 scores a conversion, two multiplies and an add kept unfused
-// for bit-exact int8, then two compares and six selects of a branch-free
-// top-2 update, so it has to run beside the tensor cores, not after them.
-// On one H100 (chip_smoke.py's measurement builds) the products and pipeline
-// alone run at the bound and the selection alone takes the whole kernel's
-// time: the selection bounds this design.
+// operations bound it. bf16 rows do the same operations at the 989 TFLOP/s
+// bf16 rate, 0.398 ms (0.84 GB of rows and output take 0.25 ms); f32 rows
+// are 1.54 GB, ~0.48 ms, so bytes bound them. The selection is larger on the
+// CUDA cores: for each of the 5.1e8 scores (a conversion for int8), two
+// multiplies and an add kept unfused for bit-exact int8, then two compares
+// and six selects of a branch-free top-2 update, so it has to run beside the
+// tensor cores, not after them. On one H100 (chip_smoke.py's measurement
+// builds) the int8 products and pipeline alone run at the bound and the
+// selection alone takes the whole kernel's time: the selection bounds int8
+// and bf16 rows, and the rounding to bf16 bounds f32 rows.
 //
-// int8 design (top2_scan_s8): persistent warp-specialised CTAs of three
-// warpgroups. A work item is 256 rows x 2 query tiles of 64. The producer
-// warpgroup's first warp streams 128-byte depth chunks of the row tile and of
-// both query tiles by TMA (128-byte swizzle, rows past Rs and queries past Q
-// zero-filled) into a ring of mbarrier-guarded stages; its second warp loads
-// the tile's mult/add with coalesced loads (rows past Rs get add = -3e38).
-// Each consumer warpgroup owns one query tile of the item and runs
-// wgmma.m64n256k32.s32.s8.s8 with the queries as M and the rows as N, both
-// K-major from shared memory, so every thread holds 2 queries x 64 rows of
-// scores in registers: a block's top-2 is an in-thread scan over 32 values in
-// row order, then two shuffle rounds across the 4 threads of a quad. No score
-// reaches shared memory. The two consumers take turns at the tensor cores
-// (ping-pong, an mbarrier pair), so one's selection runs while the other's
-// products do; the row chunk of a stage serves both before it is released,
-// halving the rows' L2 reads. The grid is min(#SMs, items); item u is (row
-// tile u / pairs, query pair u % pairs) and CTA b walks b, b + grid, ...: the
-// CTAs that share a row tile run together and re-read it from L2.
-//
-// bf16/f32 storage keeps the first design (top2_scan_mma): one block of 256
-// threads owns 128 rows x 64 queries, depth staged synchronously through
-// padded shared memory (f32 rounded to bf16 on the way in, which TMA cannot
-// do), mma.sync bf16 m16n8k16, and the 128 x 64 score tile reduced through
-// shared memory.
+// Design (top2_scan_kernel<STORAGE>, one for int8, bf16 and f32 rows):
+// persistent warp-specialised CTAs of three warpgroups. A work item is 256
+// rows x 2 query tiles of 64. The producer warpgroup's first warp streams
+// 128-byte depth chunks of the row tile and of both query tiles by TMA
+// (128-byte swizzle, rows past Rs and queries past Q zero-filled) into a
+// ring of mbarrier-guarded stages: 128 int8 values or 64 bf16 values a row.
+// f32 rows go by TMA as stored, 32 values a row, into a ring of two raw
+// stages, and the producer's warps 2-3 round each pair of raw stages to bf16
+// (round to nearest even, as the TPU kernel casts them, scan_kernel2.py:130)
+// into the operand stage with hopper.cuh's to_bf16, the conversion stage
+// dot_max.cu shares. The producer's second warp loads the tile's mult/add
+// with coalesced loads (rows past Rs get add = -3e38). Each consumer
+// warpgroup owns one query tile of the item and runs wgmma m64n256 (int8:
+// k32 s8 -> s32; bf16/f32: k16 bf16 -> f32) with the queries as M and the
+// rows as N, both K-major from shared memory, so every thread holds 2
+// queries x 64 rows of scores in registers: a block's top-2 is an in-thread
+// scan over 32 values in row order, then two shuffle rounds across the 4
+// threads of a quad. No score reaches shared memory. For int8 and bf16 rows
+// the two consumers take turns at the tensor cores (ping-pong, an mbarrier
+// pair), so one's selection runs while the other's products do; while an
+// item's depth fits in the ring (int8 d <= 512, bf16 d <= 256) the row chunk
+// of a stage serves both before it is released, halving the rows' L2 reads;
+// deeper items load the row tile once for each consumer, since the second
+// consumer starts only after the first has read the whole depth. For f32
+// rows the rounding bounds the kernel (two converter warps beside selecting
+// consumers), so the consumers read each rounded chunk together, without
+// turns, and every row chunk is rounded once per item. The grid is
+// min(#SMs, items); item u is (row tile u / pairs, query pair u % pairs) and
+// CTA b walks b, b + grid, ...: the CTAs that share a row tile run together
+// and re-read it from L2.
 //
 // Plain C interface (loaded with ctypes): returns the cudaError_t of the
 // launch; the caller allocates the outputs, owns the stream, and chooses the
-// int8 launch geometry (ops/scan_top2.scan_geometry), which is checked here.
+// launch geometry (ops/scan_top2.scan_geometry), which is checked here.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
-// Measurement builds of the int8 kernel (ops/scan_top2.PROBE_LIBRARIES, timed
-// by chip_smoke.py): -DTOP2_PROBE=1 skips the selection (products and
+// Measurement builds of the kernel (ops/scan_top2.PROBE_LIBRARIES, timed by
+// chip_smoke.py for every storage): -DTOP2_PROBE=1 skips the selection (products and
 // pipeline alone), -DTOP2_PROBE=2 skips the products (pipeline and selection
 // alone, on zero accumulators). Their outputs are meaningless.
 #ifndef TOP2_PROBE
@@ -100,66 +111,38 @@ __device__ __forceinline__ void sentinel_rule(int i1, float& m2, int& i2) {
 }
 
 // ---------------------------------------------------------------------------
-// int8 storage: TMA ring + wgmma + in-register top-2, persistent ping-pong
+// TMA ring + wgmma + in-register top-2, persistent ping-pong, every storage
 // ---------------------------------------------------------------------------
 
 constexpr int kRowTile = 256;    // rows per work item: wgmma N, two top-2 blocks
 constexpr int kQueryTile = 64;   // queries per consumer warpgroup: wgmma M
-constexpr int kChunk = 128;      // bytes of depth per stage: one swizzle atom row
+constexpr int kChunk = 128;      // bytes of operand depth per stage: one swizzle atom row
 constexpr int kRowChunkBytes = kRowTile * kChunk;
 constexpr int kQueryChunkBytes = kQueryTile * kChunk;
 constexpr int kStageBytes = kRowChunkBytes + 2 * kQueryChunkBytes;
+constexpr int kRawStages = 2;    // f32 row stages (32 values a row) in flight
+constexpr int kRawBytes = kRowTile * kChunk;
 constexpr int kEpiBytes = kRowTile * 8;  // mult and add of one row tile
 constexpr int kEpiSlots = 4;             // row tiles of mult/add in flight
 constexpr int kBarrierBytes = 256;
 constexpr int kSmemAlign = 1024;         // 128-byte swizzle atoms
 constexpr int kSmemLimit = 232448;       // a block's dynamic shared memory
-constexpr int kMaxStages =
-    (kSmemLimit - kSmemAlign - kEpiSlots * kEpiBytes - kBarrierBytes) / kStageBytes;
-constexpr int kS8Threads = 384;          // 2 consumer warpgroups + producer
+constexpr int kThreads = 384;            // 2 consumer warpgroups + producer
+constexpr int kConvThreads = 64;         // producer warps 2-3: f32 -> bf16
 
-constexpr int smem_bytes_for(int stages) {
-  return kSmemAlign + stages * kStageBytes + kEpiSlots * kEpiBytes + kBarrierBytes;
+// storage 0 int8, 1 bf16, 2 f32: the f32 kernel adds the raw ring
+__host__ __device__ constexpr int raw_bytes(int storage) {
+  return storage == 2 ? kRawStages * kRawBytes : 0;
+}
+constexpr int smem_bytes_for(int storage, int stages) {
+  return kSmemAlign + stages * kStageBytes + raw_bytes(storage) +
+         kEpiSlots * kEpiBytes + kBarrierBytes;
+}
+constexpr int max_stages(int storage) {
+  return (kSmemLimit - smem_bytes_for(storage, 0)) / kStageBytes;
 }
 
-// D(64 queries x 256 rows, s32) (+)= A(64 x 32 s8) . B(256 x 32 s8)^T
-__device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t a, uint64_t b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
-        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
-        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
-        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
-        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
-        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-struct S8Args {
+struct Args {
   const float* mult;
   const float* add;
   const float* qsc;
@@ -168,12 +151,17 @@ struct S8Args {
   int rs, d, nq, stages, n_qtiles, n_qpairs, n_units;
 };
 
+// the accumulator as the epilogue reads it: s32 converted, f32 as summed
+__device__ __forceinline__ float raw_score(int raw) { return __int2float_rn(raw); }
+__device__ __forceinline__ float raw_score(float raw) { return raw; }
+
 // One consumer warpgroup's selection for its 64 queries x 256 rows: the
 // accumulator element d[4j + 2i + c] is query warp*16 + g + 8i, tile row
 // 8j + 2t + c (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void select_top2(const int (&acc)[128],
+template <typename Acc>
+__device__ __forceinline__ void select_top2(const Acc (&acc)[128],
                                             const float4* __restrict__ epi,
-                                            const S8Args& p, int row0, int q0,
+                                            const Args& p, int row0, int q0,
                                             int warp, int lane) {
   const int g = lane / 4, t = lane % 4;
   const int nb = (p.rs + 127) / 128;
@@ -198,9 +186,9 @@ __device__ __forceinline__ void select_top2(const int (&acc)[128],
       for (int b = 0; b < 2; ++b) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const int raw = acc[4 * (16 * b + jj) + 2 * i + c];
           const float s = __fadd_rn(
-              __fmul_rn(__fmul_rn(__int2float_rn(raw), qs[i]),
+              __fmul_rn(__fmul_rn(raw_score(acc[4 * (16 * b + jj) + 2 * i + c]),
+                                  qs[i]),
                         c ? ma[b].y : ma[b].x),
               c ? ma[b].w : ma[b].z);
           const int r = 8 * jj + c;
@@ -254,32 +242,43 @@ __device__ __forceinline__ void select_top2(const int (&acc)[128],
   }
 }
 
-__global__ void __launch_bounds__(kS8Threads, 1)
-top2_scan_s8(const __grid_constant__ CUtensorMap rows_map,
-             const __grid_constant__ CUtensorMap q_map, const S8Args p) {
+template <int STORAGE>
+__global__ void __launch_bounds__(kThreads, 1)
+top2_scan_kernel(const __grid_constant__ CUtensorMap rows_map,
+                 const __grid_constant__ CUtensorMap q_map, const Args p) {
+  using Acc = typename std::conditional<STORAGE == 0, int, float>::type;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + kSmemAlign - 1) &
       ~uintptr_t(kSmemAlign - 1));
   const int stages = p.stages;
   // stage s: rows [0, 32K), query tile 0 [32K, 40K), query tile 1 [40K, 48K)
-  float4* epi = reinterpret_cast<float4*>(smem + stages * kStageBytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * kStageBytes +
-                                               kEpiSlots * kEpiBytes);
+  uint8_t* raw = smem + stages * kStageBytes;  // f32: kRawStages row stages
+  float4* epi = reinterpret_cast<float4*>(raw + raw_bytes(STORAGE));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(epi) + kEpiSlots * kEpiBytes);
   uint64_t* empty = full + stages;
   uint64_t* epi_full = empty + stages;
   uint64_t* epi_empty = epi_full + kEpiSlots;
   uint64_t* turn = epi_empty + kEpiSlots;  // turn[c]: consumer c's turn
-  const int n_k = p.d / kChunk;
+  uint64_t* raw_full = turn + 2;
+  uint64_t* raw_empty = raw_full + kRawStages;
+  // operand chunks of 128 bytes: 128 int8 or 64 bf16 values of depth
+  const int n_k = STORAGE == 0 ? p.d / kChunk : p.d / (kChunk / 2);
+  // int8/bf16: the consumers take turns at the tensor cores (ping-pong).
   // While an item's depth fits in the ring, one load of each row chunk
-  // serves both consumers (consumer 1 reads it while consumer 0 selects);
-  // deeper items load the row tile once for each consumer.
-  const bool share = n_k <= stages;
+  // serves both (consumer 1 reads it while consumer 0 selects); deeper items
+  // load the row tile once for each consumer. f32: the conversion bounds
+  // the kernel, so the consumers read each converted chunk together, with
+  // no turns, and every row chunk is rounded once per item.
+  constexpr bool kTurns = STORAGE != 2;
+  const bool share = !kTurns || n_k <= stages;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(full + s, 1);
+      // f32: the queries' TMA bytes and every converter thread's rows
+      mbar_init(full + s, STORAGE == 2 ? 1 + kConvThreads : 1);
       mbar_init(empty + s, share ? 256 : 128);
     }
     for (int e = 0; e < kEpiSlots; ++e) {
@@ -288,6 +287,10 @@ top2_scan_s8(const __grid_constant__ CUtensorMap rows_map,
     }
     mbar_init(turn, 128);
     mbar_init(turn + 1, 128);
+    for (int r = 0; r < kRawStages; ++r) {
+      mbar_init(raw_full + r, 1);
+      mbar_init(raw_empty + r, kConvThreads);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -297,26 +300,39 @@ top2_scan_s8(const __grid_constant__ CUtensorMap rows_map,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
     if (warp == 0 && lane == 0) {
+      // TMA: each position's row chunk (f32: into two raw stages, converted
+      // by warps 2-3) and its live query tiles
       // ring positions in the order the consumers read them: per item, one
       // pass of n_k chunks for both consumers (share), or one pass for each
       // live consumer
-      int pos = 0;
+      int pos = 0, rpos = 0;
       for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
         const int row0 = (u / p.n_qpairs) * kRowTile;
         const int qt0 = 2 * (u % p.n_qpairs);
         const int n_live = qt0 + 1 < p.n_qtiles ? 2 : 1;
+        const int nq_tiles = share ? n_live : 1;
         for (int pass = 0; pass < (share ? 1 : n_live); ++pass) {
-          const int nq_tiles = share ? n_live : 1;
-          const uint32_t bytes = kRowChunkBytes + nq_tiles * kQueryChunkBytes;
           for (int k = 0; k < n_k; ++k, ++pos) {
+            if (STORAGE == 2) {
+              for (int h = 0; h < 2; ++h, ++rpos) {
+                const int r = rpos % kRawStages;
+                mbar_wait(raw_empty + r, ((rpos / kRawStages) & 1) ^ 1);
+                mbar_expect_tx(raw_full + r, kRawBytes);
+                tma_load(raw + r * kRawBytes, &rows_map, raw_full + r,
+                         k * 64 + h * 32, row0);
+              }
+            }
             const int s = pos % stages;
             mbar_wait(empty + s, ((pos / stages) & 1) ^ 1);
-            mbar_expect_tx(full + s, bytes);
+            mbar_expect_tx(full + s, (STORAGE == 2 ? 0 : kRowChunkBytes) +
+                                         nq_tiles * kQueryChunkBytes);
             uint8_t* st = smem + s * kStageBytes;
-            tma_load(st, &rows_map, full + s, k * kChunk, row0);
+            // element coordinates of the chunk: 128 int8 or 64 bf16 values
+            const int kx = STORAGE == 0 ? k * kChunk : k * (kChunk / 2);
+            if (STORAGE != 2) tma_load(st, &rows_map, full + s, kx, row0);
             for (int c = pass; c < pass + nq_tiles; ++c)
               tma_load(st + kRowChunkBytes + c * kQueryChunkBytes, &q_map,
-                       full + s, k * kChunk, (qt0 + c) * kQueryTile);
+                       full + s, kx, (qt0 + c) * kQueryTile);
           }
         }
       }
@@ -348,15 +364,36 @@ top2_scan_s8(const __grid_constant__ CUtensorMap rows_map,
         }
         mbar_arrive(epi_full + e);
       }
+    } else if (STORAGE == 2 && warp >= 2) {
+      // warps 2-3: round each position's two f32 row stages to bf16 into
+      // the operand stage (hopper.cuh's to_bf16), then publish it
+      const int ct = threadIdx.x - 256 - 64;
+      // the producer's positions: every item's passes of n_k chunks
+      int positions = 0;
+      for (int u = blockIdx.x; u < p.n_units; u += gridDim.x)
+        positions += (share || 2 * (u % p.n_qpairs) + 1 >= p.n_qtiles ? 1 : 2) * n_k;
+      for (int pos = 0; pos < positions; ++pos) {
+        const int s = pos % stages;
+        mbar_wait(empty + s, ((pos / stages) & 1) ^ 1);
+        for (int h = 0; h < 2; ++h) {
+          const int rpos = 2 * pos + h, r = rpos % kRawStages;
+          mbar_wait(raw_full + r, (rpos / kRawStages) & 1);
+          to_bf16<float, kConvThreads>(smem + s * kStageBytes, raw + r * kRawBytes,
+                                       kRowTile, h, ct);
+          mbar_arrive(raw_empty + r);
+        }
+        fence_proxy_async();
+        mbar_arrive(full + s);
+      }
     }
   } else {
     // ---- consumer warpgroups 0 and 1 ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
     const int c = wg;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    int acc[128];
+    Acc acc[128];
 #pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0;
+    for (int i = 0; i < 128; ++i) acc[i] = Acc(0);
     int n = 0, pos = 0;
     for (int u = blockIdx.x; u < p.n_units; u += gridDim.x, ++n) {
       const int row0 = (u / p.n_qpairs) * kRowTile;
@@ -374,7 +411,7 @@ top2_scan_s8(const __grid_constant__ CUtensorMap rows_map,
       const int first = share ? pos : pos + c * n_k;
       pos += share ? n_k : (live1 ? 2 : 1) * n_k;
       // consumer 0 goes first on every item, then consumer 1
-      mbar_wait(turn + c, (n & 1) ^ (c == 0 ? 1 : 0));
+      if (kTurns) mbar_wait(turn + c, (n & 1) ^ (c == 0 ? 1 : 0));
       for (int k = 0; reads && k < n_k; ++k) {
         const int at = first + k, s = at % stages;
         mbar_wait(full + s, (at / stages) & 1);
@@ -386,14 +423,14 @@ top2_scan_s8(const __grid_constant__ CUtensorMap rows_map,
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < kChunk / 32; ++kk)
-            wgmma_s8(acc, a + 2 * kk, b + 2 * kk, (k | kk) != 0);
+            wgmma_step(acc, a + 2 * kk, b + 2 * kk, (k | kk) != 0);
           wgmma_commit();
           wgmma_wait<1>();  // the previous chunk's products are done
           fence_acc(acc);
         }
         if (k > 0) mbar_arrive(empty + (at - 1) % stages);
       }
-      mbar_arrive(turn + (1 - c));
+      if (kTurns) mbar_arrive(turn + (1 - c));
       wgmma_wait<0>();
       fence_acc(acc);
       if (reads) mbar_arrive(empty + (first + n_k - 1) % stages);
@@ -407,246 +444,44 @@ top2_scan_s8(const __grid_constant__ CUtensorMap rows_map,
   }
 }
 
-cudaError_t launch_s8(const void* vecs, const float* mult, const float* add,
-                      const void* qq, const float* qsc, float* bmax, int* brow,
-                      int rs, int d, int nq, int grid, int stages,
-                      int smem_bytes, cudaStream_t stream) {
+template <int STORAGE>
+cudaError_t launch(const void* vecs, const float* mult, const float* add,
+                   const void* qq, const float* qsc, float* bmax, int* brow,
+                   int rs, int d, int nq, int grid, int stages, int smem_bytes,
+                   cudaStream_t stream) {
   const long long n_qtiles = (nq + kQueryTile - 1) / kQueryTile;
   const long long n_qpairs = (n_qtiles + 1) / 2;
   const long long units = ((long long)rs + kRowTile - 1) / kRowTile * n_qpairs;
   if (units > 0x7fffffffLL || grid < 1 || grid > units || stages < 2 ||
-      stages > kMaxStages || smem_bytes != smem_bytes_for(stages) ||
+      stages > max_stages(STORAGE) || smem_bytes != smem_bytes_for(STORAGE, stages) ||
       (reinterpret_cast<uintptr_t>(vecs) | reinterpret_cast<uintptr_t>(qq)) % 16)
     return cudaErrorInvalidValue;
+  const CUtensorMapDataType rows_type =
+      STORAGE == 0 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+      : STORAGE == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapDataType q_type =
+      STORAGE == 0 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap rows_map, q_map;
-  if (!int8_map(&rows_map, vecs, d, rs, kRowTile) ||
-      !int8_map(&q_map, qq, d, nq, kQueryTile))
+  if (!tile_map(&rows_map, rows_type, vecs, d, rs, kRowTile) ||
+      !tile_map(&q_map, q_type, qq, d, nq, kQueryTile))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      top2_scan_s8, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      top2_scan_kernel<STORAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
   if (err != cudaSuccess) return err;
-  const S8Args args{mult, add, qsc, bmax, brow, rs, d, nq, stages,
-                    (int)n_qtiles, (int)n_qpairs, (int)units};
-  top2_scan_s8<<<grid, kS8Threads, smem_bytes, stream>>>(rows_map, q_map, args);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// bf16/f32 storage: synchronous staging + mma.sync bf16 (the first design)
-// ---------------------------------------------------------------------------
-
-constexpr int kRows = 128;            // rows per block = one top-2 block
-constexpr int kQueries = 64;          // queries per block
-constexpr int kStride = kChunk + 16;  // padded smem row stride (bytes)
-constexpr int kThreads = 256;
-constexpr int kScoreStride = kRows + 1;  // padded score-tile row (floats)
-
-struct Stage {
-  uint8_t rows[kRows * kStride];
-  uint8_t queries[kQueries * kStride];
-};
-
-union Smem {
-  Stage stage;
-  float scores[kQueries * kScoreStride];
-};
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage `kRows` rows of the current depth chunk into shared memory.
-// STORAGE 1: the chunk is 128 bytes of the bf16 row as stored.
-// STORAGE 2: the chunk is 64 f32 values, rounded to bf16 on the way in.
-template <int STORAGE>
-__device__ __forceinline__ void stage_rows(uint8_t* dst, const uint8_t* vecs,
-                                           int row0, int rs, int d, int chunk) {
-  if (STORAGE == 2) {
-    const int per_row = kChunk / 8;  // 16 loads of 4 floats -> 8 bytes each
-    for (int i = threadIdx.x; i < kRows * per_row; i += kThreads) {
-      const int r = i / per_row, c = i % per_row;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < rs) {
-        const float* src = reinterpret_cast<const float*>(vecs) +
-                           (size_t)(row0 + r) * d + (size_t)chunk * 64 + c * 4;
-        v = *reinterpret_cast<const float4*>(src);
-      }
-      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-      uint2 packed;
-      packed.x = *reinterpret_cast<uint32_t*>(&lo);
-      packed.y = *reinterpret_cast<uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(dst + r * kStride + c * 8) = packed;
-    }
-  } else {
-    const int per_row = kChunk / 16;  // 8 loads of 16 bytes
-    for (int i = threadIdx.x; i < kRows * per_row; i += kThreads) {
-      const int r = i / per_row, c = i % per_row;
-      int4 v = make_int4(0, 0, 0, 0);
-      if (row0 + r < rs) {
-        const uint8_t* src = vecs + (size_t)(row0 + r) * d * 2 +
-                             (size_t)chunk * kChunk + c * 16;
-        v = *reinterpret_cast<const int4*>(src);
-      }
-      *reinterpret_cast<int4*>(dst + r * kStride + c * 16) = v;
-    }
-  }
-}
-
-// Stage `kQueries` bf16 query rows (`qbytes` bytes per row).
-__device__ __forceinline__ void stage_queries(uint8_t* dst, const uint8_t* qq,
-                                              int q0, int nq, int qbytes,
-                                              int chunk) {
-  const int per_row = kChunk / 16;
-  for (int i = threadIdx.x; i < kQueries * per_row; i += kThreads) {
-    const int r = i / per_row, c = i % per_row;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (q0 + r < nq) {
-      v = *reinterpret_cast<const int4*>(qq + (size_t)(q0 + r) * qbytes +
-                                         (size_t)chunk * kChunk + c * 16);
-    }
-    *reinterpret_cast<int4*>(dst + r * kStride + c * 16) = v;
-  }
-}
-
-template <int STORAGE>
-__global__ void __launch_bounds__(kThreads)
-top2_scan_mma(const uint8_t* __restrict__ vecs,
-              const float* __restrict__ mult,
-              const float* __restrict__ add,
-              const uint8_t* __restrict__ qq,
-              const float* __restrict__ qsc,
-              float* __restrict__ bmax, int* __restrict__ brow,
-              int rs, int d, int nq, int n_qtiles) {
-  __shared__ __align__(16) Smem smem;
-
-  // query tiles vary fastest, so the blocks sharing one row block run
-  // together and re-read its rows from L2 rather than device memory
-  const int qtile = blockIdx.x % n_qtiles;
-  const int blk = blockIdx.x / n_qtiles;
-  const int q0 = qtile * kQueries;
-  const int row0 = blk * kRows;
-  const int nb = (rs + kRows - 1) / kRows;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
-  const int m0 = warp * 16;              // this warp's first row in the block
-
-  const int qbytes = 2 * d;
-  const int n_chunks = qbytes / kChunk;
-
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    stage_rows<STORAGE>(smem.stage.rows, vecs, row0, rs, d, chunk);
-    stage_queries(smem.stage.queries, qq, q0, nq, qbytes, chunk);
-    __syncthreads();
-    const uint8_t* A = smem.stage.rows;
-    const uint8_t* B = smem.stage.queries;
-#pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 32) {
-      // two k16 steps of bf16 per 32 bytes of depth
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(A + (m0 + g) * kStride + kk + t * 4);
-      a[1] = *reinterpret_cast<const uint32_t*>(A + (m0 + g + 8) * kStride + kk + t * 4);
-      a[2] = *reinterpret_cast<const uint32_t*>(A + (m0 + g) * kStride + kk + 16 + t * 4);
-      a[3] = *reinterpret_cast<const uint32_t*>(A + (m0 + g + 8) * kStride + kk + 16 + t * 4);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const uint8_t* bq = B + (n * 8 + g) * kStride + kk + t * 4;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bq);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bq + 16);
-        mma_bf16(acc[n], a, b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: unfused f32 rescale, row mask, score tile to shared memory
-  float* S = smem.scores;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = m0 + g + (i >= 2 ? 8 : 0);
-      const int q = n * 8 + t * 2 + (i & 1);
-      const int row = row0 + r;
-      float s = kNeg;
-      if (row < rs) {
-        const float qs = q0 + q < nq ? qsc[q0 + q] : 0.f;
-        s = __fadd_rn(__fmul_rn(__fmul_rn(acc[n][i], qs), mult[row]), add[row]);
-      }
-      S[q * kScoreStride + r] = s;
-    }
-  }
-  __syncthreads();
-
-  // top-2 per query: lane holds rows lane, lane+32, lane+64, lane+96
-  for (int qi = 0; qi < kQueries / 8; ++qi) {
-    const int q = warp * (kQueries / 8) + qi;
-    if (q0 + q >= nq) break;
-    const float* sq = S + q * kScoreStride;
-    float m1 = sq[lane], m2 = __int_as_float(0xff800000);  // -inf
-    int i1 = lane, i2 = 0x7fffffff;
-#pragma unroll
-    for (int j = 1; j < 4; ++j) {
-      const float s = sq[lane + 32 * j];
-      const int i = lane + 32 * j;
-      if (better(s, i, m1, i1)) {
-        m2 = m1; i2 = i1; m1 = s; i1 = i;
-      } else if (better(s, i, m2, i2)) {
-        m2 = s; i2 = i;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float n1 = __shfl_xor_sync(0xffffffffu, m1, off);
-      const int j1 = __shfl_xor_sync(0xffffffffu, i1, off);
-      const float n2 = __shfl_xor_sync(0xffffffffu, m2, off);
-      const int j2 = __shfl_xor_sync(0xffffffffu, i2, off);
-      merge_top2(m1, i1, m2, i2, n1, j1, n2, j2);
-    }
-    if (lane == 0) {
-      sentinel_rule(i1, m2, i2);
-      const size_t o = (size_t)(q0 + q) * (2 * nb);
-      bmax[o + blk] = m1;
-      brow[o + blk] = row0 + i1;
-      bmax[o + nb + blk] = m2;
-      brow[o + nb + blk] = row0 + i2;
-    }
-  }
-}
-
-template <int STORAGE>
-cudaError_t launch_mma(const void* vecs, const float* mult, const float* add,
-                       const void* qq, const float* qsc, float* bmax, int* brow,
-                       int rs, int d, int nq, cudaStream_t stream) {
-  const int n_qtiles = (nq + kQueries - 1) / kQueries;
-  const long long nb = (rs + kRows - 1) / kRows;
-  const long long blocks = nb * n_qtiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  top2_scan_mma<STORAGE><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const uint8_t*>(vecs), mult, add,
-      static_cast<const uint8_t*>(qq), qsc, bmax, brow, rs, d, nq, n_qtiles);
+  const Args args{mult, add, qsc, bmax, brow, rs, d, nq, stages,
+                  (int)n_qtiles, (int)n_qpairs, (int)units};
+  top2_scan_kernel<STORAGE><<<grid, kThreads, smem_bytes, stream>>>(rows_map, q_map, args);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// storage 0 (int8) launches top2_scan_s8 with the caller's geometry: `grid`
-// persistent CTAs, `stages` ring stages and `smem_bytes` of dynamic shared
-// memory (refused unless it is exactly what `stages` needs); storage 1 (bf16)
-// and 2 (f32) launch top2_scan_mma, whose grid follows from the shape, and
-// ignore the three.
+// storage 0 (int8), 1 (bf16) or 2 (f32) launches top2_scan_kernel with the
+// caller's geometry: `grid` persistent CTAs, `stages` ring stages and
+// `smem_bytes` of dynamic shared memory (refused unless it is exactly what
+// the storage and `stages` need).
 extern "C" int semcode_top2_scan(const void* vecs, const float* mult,
                                  const float* add, const void* qq,
                                  const float* qsc, float* bmax, int* brow,
@@ -655,10 +490,12 @@ extern "C" int semcode_top2_scan(const void* vecs, const float* mult,
   if (rs <= 0 || nq <= 0 || d <= 0 || d % 128 != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (storage) {
-    case 0: return launch_s8(vecs, mult, add, qq, qsc, bmax, brow, rs, d, nq,
+    case 0: return launch<0>(vecs, mult, add, qq, qsc, bmax, brow, rs, d, nq,
                              grid, stages, smem_bytes, s);
-    case 1: return launch_mma<1>(vecs, mult, add, qq, qsc, bmax, brow, rs, d, nq, s);
-    case 2: return launch_mma<2>(vecs, mult, add, qq, qsc, bmax, brow, rs, d, nq, s);
+    case 1: return launch<1>(vecs, mult, add, qq, qsc, bmax, brow, rs, d, nq,
+                             grid, stages, smem_bytes, s);
+    case 2: return launch<2>(vecs, mult, add, qq, qsc, bmax, brow, rs, d, nq,
+                             grid, stages, smem_bytes, s);
     default: return cudaErrorInvalidValue;
   }
 }

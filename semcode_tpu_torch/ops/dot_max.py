@@ -11,26 +11,29 @@ layout, not reproduced here.
 
 Modes:
 
-- ``"s32"``: s8 x s8 -> s32 on the tensor cores (``mma.sync`` m16n8k32).
+- ``"s32"``: s8 x s8 -> s32 on the tensor cores (``wgmma`` k32).
 - ``"bf16"``: the TPU tool's ``bf16cast`` form (dot_pallas.py:64-72): the
   int8 operands are widened to bf16, the products summed in an f32
-  accumulator (``mma.sync`` m16n8k16) and the sum converted to int32 before
-  the maximum. That is exact only while every partial sum stays below 2^24,
+  accumulator (``wgmma`` k16) and the sum converted to int32 before the
+  maximum. That is exact only while every partial sum stays below 2^24,
   i.e. ``d * 127**2 < 2**24`` (``d <= 1040``) for values in [-127, 127], so
   the wrapper refuses a larger ``d`` in this mode (the TPU tool has the same
   limit, unstated); with ``d % 128 == 0`` the largest is 1024. A -128 in
   both operands lowers the limit to d = 1024.
 
-The CUDA kernel (``csrc/dot_max.cu``) keeps the first ``top2_scan``
-design's tiling (still ``top2_scan``'s bf16/f32 path): ``rtile`` rows (64,
-128 or 256; the TPU tool's row-tile sweep) x 64 queries per block of 256
-threads, synchronous staging of 128-byte depth chunks and ``mma.sync``, so
-``d % 128 == 0`` is required. Each block reduces its tile to 64 per-query
-maxima and folds them into the output with ``atomicMax``; an integer
-maximum does not depend on the order, so the result is deterministic. On
-int8 operands its time is that old tiling's GEMM with no selection: the
-yardstick that ``top2_scan``'s int8 kernel (TMA, ``wgmma``, selection in
-registers) is held against at one shape.
+The CUDA kernel (``csrc/dot_max.cu``) is ``top2_scan``'s pipeline with a
+maximum for an epilogue: persistent warp-specialised CTAs, a TMA ring of
+128-byte depth chunks (so ``d % 128 == 0`` is required) of ``rtile`` rows
+(64, 128 or 256; the TPU tool's row-tile sweep, ``wgmma`` N) and two
+64-query tiles (``wgmma`` M, one per consumer warpgroup). In bf16 mode the
+wrapper widens the queries once (exact) and the row chunks land in a raw
+ring, from which the consumer warpgroups widen the next stage into bf16
+operands while their ``wgmma`` on the current one runs (``csrc/hopper.cuh``'s
+``to_bf16``, shared with ``top2_scan``). Each consumer keeps its queries' running maxima in registers
+across the items of one query pair and folds them into the output with
+``atomicMax``; an integer maximum does not depend on the order, so the result
+is deterministic. The launch geometry is computed here by ``dot_geometry``
+and checked again by the kernel's entry point.
 
 What bounds it on an H100 at 1M x 384 int8, Q=512: 3.9e11 int8 operations
 (0.2 ms at the 1,979 TOP/s int8 peak; 0.4 ms at the bf16 rate in bf16 mode)
@@ -43,9 +46,11 @@ version; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
+from ..device import sm_count
 from .build import KernelLibrary
 
 MODES = {"s32": 0, "bf16": 1}
@@ -55,11 +60,73 @@ INT32_MIN = -(2**31)
 # elements of the (Q, rows) float64 product the plain version holds at once
 _PLAIN_CHUNK_ELEMS = 1 << 27
 
+# kernel geometry; csrc/dot_max.cu holds the same constants
+QUERY_TILE = 64  # queries per consumer warpgroup (wgmma M)
+DEPTH_CHUNK = 128  # bytes (int8 values) of depth per TMA stage
+RAW_STAGES = 2  # bf16 mode: int8 row stages before widening
+BARRIER_BYTES = 256
+SMEM_ALIGN = 1024  # slack to align the ring to the 128-byte swizzle atom
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper
+
+
+def stage_bytes(rtile: int) -> int:
+    """One operand stage: ``rtile`` rows and two query tiles of 128 bytes."""
+    return (rtile + 2 * QUERY_TILE) * DEPTH_CHUNK
+
+
+@dataclass(frozen=True)
+class DotGeometry:
+    """Launch geometry of the kernel for one (N, d, Q, mode, rtile).
+
+    A work item is one row tile x one pair of query tiles; item ``u`` is row
+    tile ``u // n_query_pairs``, pair ``u % n_query_pairs``, and CTA ``b``
+    of ``grid`` takes items ``b, b + grid, ...``. bf16 mode adds
+    ``raw_stages`` int8 row stages (``rtile`` x 128 bytes), each widened
+    into the rows of two operand stages, and needs three operand stages: a
+    consumer widens stage q + 1 before it releases stage q - 1."""
+
+    n_row_tiles: int
+    n_query_tiles: int
+    n_query_pairs: int
+    work_items: int
+    grid: int
+    stages: int
+    raw_stages: int
+    smem_bytes: int
+
+
+def dot_geometry(n: int, d: int, nq: int, sms: int, mode: str,
+                 rtile: int) -> DotGeometry:
+    """The kernel's work items, persistent grid (one CTA per SM, at most one
+    per item), ring stages and dynamic shared-memory bytes."""
+    if (n <= 0 or nq <= 0 or d <= 0 or d % DEPTH_CHUNK or sms <= 0
+            or mode not in MODES or rtile not in RTILES):
+        raise ValueError(f"no dot_max geometry for N={n} d={d} Q={nq} "
+                         f"{mode} rtile={rtile} on {sms} SMs")
+    n_row_tiles = -(-n // rtile)
+    n_query_tiles = -(-nq // QUERY_TILE)
+    n_query_pairs = -(-n_query_tiles // 2)
+    work_items = n_row_tiles * n_query_pairs
+    raw_stages = RAW_STAGES if mode == "bf16" else 0
+    fixed = SMEM_ALIGN + raw_stages * rtile * DEPTH_CHUNK + BARRIER_BYTES
+    stages = (SMEM_LIMIT - fixed) // stage_bytes(rtile)
+    return DotGeometry(
+        n_row_tiles=n_row_tiles,
+        n_query_tiles=n_query_tiles,
+        n_query_pairs=n_query_pairs,
+        work_items=work_items,
+        grid=min(sms, work_items),
+        stages=stages,
+        raw_stages=raw_stages,
+        smem_bytes=fixed + stages * stage_bytes(rtile),
+    )
+
 
 def _bind(lib: ctypes.CDLL) -> None:
-    # rows, q, out, n, d, nq, mode, rtile, stream
+    # rows, q, out, n, d, nq, mode, rtile, grid, stages, raw stages, smem
+    # bytes, stream
     lib.semcode_dot_max.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     )
     lib.semcode_dot_max.restype = ctypes.c_int
 
@@ -102,7 +169,7 @@ def _check_args(rows, q, mode, rtile) -> None:
     if q.shape[1] != d:
         raise ValueError(f"q must be (Q, {d}), got {tuple(q.shape)}")
     if d == 0 or d % 128 != 0:
-        raise ValueError(f"dot_max stages 128-byte depth chunks: needs d % 128 "
+        raise ValueError(f"dot_max streams 128-byte depth chunks: needs d % 128 "
                          f"== 0, got {d}")
     if mode == "bf16" and d > BF16_MAX_DIM:
         raise ValueError(f"bf16 mode is exact only for d <= {BF16_MAX_DIM} "
@@ -129,7 +196,9 @@ def dot_max(
     if rows.device.type != "cuda":
         raise ValueError(f"dot_max: unsupported device {rows.device}")
     rows = rows.contiguous()
-    q = q.contiguous()
+    # bf16 mode reads the queries widened (exact for int8): once here, not
+    # once per row tile in the kernel
+    q = (q if mode == "s32" else q.to(torch.bfloat16)).contiguous()
     for t in (rows, q):
         if t.data_ptr() % 16:
             raise ValueError("dot_max needs 16-byte aligned rows")
@@ -137,15 +206,20 @@ def dot_max(
     out = torch.full((q.shape[0],), INT32_MIN, dtype=torch.int32, device=rows.device)
     lib = _library.get()
     with torch.cuda.device(rows.device):
+        geom = dot_geometry(n, d, q.shape[0], sm_count(torch.cuda.current_device()),
+                            mode, rtile)
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = lib.semcode_dot_max(
             rows.data_ptr(), q.data_ptr(), out.data_ptr(), n, d, q.shape[0],
-            MODES[mode], rtile, stream,
+            MODES[mode], rtile, geom.grid, geom.stages, geom.raw_stages,
+            geom.smem_bytes, stream,
         )
     if err != 0:
         raise RuntimeError(f"dot_max kernel launch failed: CUDA error {err}")
     dot_max.launches += 1
+    dot_max.mode_launches[mode] += 1
     return out
 
 
 dot_max.launches = 0  # kernel launches (not plain-version calls)
+dot_max.mode_launches = dict.fromkeys(MODES, 0)  # the same, by mode

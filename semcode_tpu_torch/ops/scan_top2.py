@@ -10,25 +10,28 @@ TPU kernel, ``pallas_call`` at line 220). Same function, not the same tiling:
     (score, shard-local row), ties to the lowest row; output (Q, 2*nb) with
     nb = ceil(Rs/128): all block-firsts, then all runner-ups.
 
-The CUDA kernel (``csrc/top2_scan.cu``) has two designs. int8 storage, the
-default and the main path's, runs a persistent warp-specialised kernel: TMA
-streams 128-byte depth chunks of a 256-row tile and two 64-query tiles into
-an mbarrier ring, two consumer warpgroups run ``wgmma`` s8 m64n256k32 with
+The CUDA kernel (``csrc/top2_scan.cu``) is one persistent warp-specialised
+design for every storage: TMA streams 128-byte depth chunks of a 256-row
+tile and two 64-query tiles into an mbarrier ring, two consumer warpgroups
+run ``wgmma`` m64n256 (int8: k32 s8; bf16/f32: k16 bf16 with f32 sums) with
 the queries as M and the rows as N, and each takes a block's top-2 from its
 accumulator registers (an in-thread scan over 32 rows, then two shuffle
-rounds) while the other's products run. bf16/f32 storage keeps the first
-design: ``mma.sync`` bf16 m16n8k16 over 128 rows x 64 queries per block with
-synchronous staging (f32 rows are rounded to bf16 on load, as the TPU kernel
-casts them at scan_kernel2.py:130, which TMA cannot do) and the score tile
-reduced in shared memory. Both evaluate the epilogue with unfused f32
-multiplies and adds; the (Q, R) score matrix never reaches device memory.
+rounds) while the other's products run. f32 rows go by TMA as stored into a
+raw ring and the producer's converter warps round them to bf16 (as the TPU
+kernel casts them at scan_kernel2.py:130) into the operand stage; that
+rounding bounds the f32 kernel, so there both consumers read each rounded
+chunk together, without turns. The
+epilogue is evaluated with unfused f32 multiplies and adds; the (Q, R)
+score matrix never reaches device memory.
 
 What bounds it on an H100: at the main path's shape (1M x 384 int8, Q=512)
 the dot is 3.9e11 int8 ops (0.2 ms at the 1,979 TOP/s int8 peak) against
 ~0.46 GB of rows, row scalars and output (0.14 ms at 3.35 TB/s), so
-operations bound it; at Q=8 the bytes do. The int8 launch geometry (tiles,
-work items, persistent grid, ring stages, shared memory) is computed here by
-``scan_geometry`` and checked again by the kernel's entry point.
+operations bound it; bf16 rows take 0.4 ms at the bf16 rate, f32 rows
+~0.48 ms by their 1.54 GB; at Q=8 the bytes bound every storage. The
+launch geometry (tiles, work items, persistent grid, ring stages, shared
+memory) is computed here by ``scan_geometry`` and checked again by the
+kernel's entry point.
 
 On a CPU tensor the wrapper runs ``top2_scan_reference``, the plain torch
 version; on a CUDA tensor it launches the kernel or raises.
@@ -49,12 +52,15 @@ NEG = -3.0e38  # dead-row / masked-slot sentinel (f32)
 BLOCK = 128  # rows per top-2 block
 
 _STORAGE_CODES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+STORAGES = ("int8", "bfloat16", "float32")
 
-# int8 kernel geometry; csrc/top2_scan.cu holds the same constants
+# kernel geometry; csrc/top2_scan.cu holds the same constants
 ROW_TILE = 256  # rows per work item (wgmma N): two top-2 blocks
 QUERY_TILE = 64  # queries per consumer warpgroup (wgmma M)
-DEPTH_CHUNK = 128  # bytes of depth per ring stage
+DEPTH_CHUNK = 128  # bytes of operand depth per ring stage (int8 or bf16)
 STAGE_BYTES = ROW_TILE * DEPTH_CHUNK + 2 * QUERY_TILE * DEPTH_CHUNK
+RAW_STAGES = 2  # f32 rows: raw stages of 32 values a row before rounding
+RAW_STAGE_BYTES = ROW_TILE * DEPTH_CHUNK
 EPILOGUE_BYTES = 4 * ROW_TILE * 8  # mult/add of four row tiles in flight
 BARRIER_BYTES = 256
 SMEM_ALIGN = 1024  # slack to align the ring to the 128-byte swizzle atom
@@ -63,13 +69,20 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on Hopper
 
 @dataclass(frozen=True)
 class ScanGeometry:
-    """Launch geometry of the int8 kernel for one (Rs, d, Q).
+    """Launch geometry of the kernel for one (Rs, d, Q, storage).
 
     A work item is one row tile x one pair of query tiles (the two consumer
     warpgroups' shares); item ``u`` is row tile ``u // n_query_pairs``,
     pair ``u % n_query_pairs``, and CTA ``b`` of ``grid`` takes items
-    ``b, b + grid, ...``. ``shared_rows``: one load of a row chunk serves
-    both consumers (the item's depth fits in the ring)."""
+    ``b, b + grid, ...``. ``depth_chunks``: ring stages an item's depth
+    takes (128 int8 or 64 bf16 values each; f32 rows are rounded to bf16
+    on the way in, from ``raw_stages`` stages of their own). ``turns``: the
+    consumers take turns at the tensor cores, one selecting while the other
+    multiplies (int8, bf16); f32 rows, whose rounding bounds the kernel, are
+    read by both consumers together. ``shared_rows``: one load of a row
+    chunk serves both consumers; with turns that needs the item's whole
+    depth in the ring, since the second consumer starts only once the first
+    has read it all."""
 
     n_row_tiles: int
     n_query_tiles: int
@@ -77,22 +90,31 @@ class ScanGeometry:
     work_items: int
     grid: int
     stages: int
+    raw_stages: int
+    depth_chunks: int
     smem_bytes: int
+    turns: bool
     shared_rows: bool
 
 
-def scan_geometry(rs: int, d: int, nq: int, sms: int) -> ScanGeometry:
-    """The int8 kernel's tiles, work items, persistent grid (one CTA per SM,
-    at most one per item), ring stages and dynamic shared-memory bytes."""
-    if rs <= 0 or nq <= 0 or d <= 0 or d % DEPTH_CHUNK or sms <= 0:
+def scan_geometry(rs: int, d: int, nq: int, sms: int,
+                  storage: str = "int8") -> ScanGeometry:
+    """The kernel's tiles, work items, persistent grid (one CTA per SM, at
+    most one per item), ring stages and dynamic shared-memory bytes for
+    ``storage`` rows (int8, bfloat16 or float32)."""
+    if (rs <= 0 or nq <= 0 or d <= 0 or d % DEPTH_CHUNK or sms <= 0
+            or storage not in STORAGES):
         raise ValueError(f"no top2_scan geometry for Rs={rs} d={d} Q={nq} "
-                         f"on {sms} SMs")
+                         f"{storage} on {sms} SMs")
     n_row_tiles = -(-rs // ROW_TILE)
     n_query_tiles = -(-nq // QUERY_TILE)
     n_query_pairs = -(-n_query_tiles // 2)
     work_items = n_row_tiles * n_query_pairs
-    fixed = SMEM_ALIGN + EPILOGUE_BYTES + BARRIER_BYTES
+    raw_stages = RAW_STAGES if storage == "float32" else 0
+    fixed = SMEM_ALIGN + raw_stages * RAW_STAGE_BYTES + EPILOGUE_BYTES + BARRIER_BYTES
     stages = (SMEM_LIMIT - fixed) // STAGE_BYTES
+    depth_chunks = d * (1 if storage == "int8" else 2) // DEPTH_CHUNK
+    turns = storage != "float32"
     return ScanGeometry(
         n_row_tiles=n_row_tiles,
         n_query_tiles=n_query_tiles,
@@ -100,8 +122,11 @@ def scan_geometry(rs: int, d: int, nq: int, sms: int) -> ScanGeometry:
         work_items=work_items,
         grid=min(sms, work_items),
         stages=stages,
+        raw_stages=raw_stages,
+        depth_chunks=depth_chunks,
         smem_bytes=fixed + stages * STAGE_BYTES,
-        shared_rows=d // DEPTH_CHUNK <= stages,
+        turns=turns,
+        shared_rows=not turns or depth_chunks <= stages,
     )
 
 
@@ -239,13 +264,13 @@ top2_scan.launches = 0  # kernel launches (not plain-version calls)
 
 
 def top2_scan_probe(kind: str, vecs, mult, add, qq, q_scales):
-    """Launch a measurement build of the int8 kernel on the card: "products"
+    """Launch a measurement build of the kernel on the card: "products"
     skips the selection, "selection" skips the products (``TOP2_PROBE`` in
     csrc/top2_scan.cu). The outputs are meaningless, and no launch of
     ``top2_scan`` is counted: the two times split the kernel's."""
     _check_args(vecs, mult, add, qq, q_scales)
-    if vecs.dtype != torch.int8 or vecs.device.type != "cuda":
-        raise ValueError("top2_scan_probe runs the int8 kernel on a CUDA card")
+    if vecs.device.type != "cuda":
+        raise ValueError("top2_scan_probe runs the kernel on a CUDA card")
     return _launch(PROBE_LIBRARIES[kind].get(), vecs, mult, add, qq, q_scales)
 
 
@@ -263,16 +288,16 @@ def _launch(lib, vecs, mult, add, qq, q_scales):
             raise ValueError("top2_scan needs 16-byte aligned rows")
     bmax = torch.empty((n_q, 2 * nb), dtype=torch.float32, device=vecs.device)
     brow = torch.empty((n_q, 2 * nb), dtype=torch.int32, device=vecs.device)
+    storage = str(vecs.dtype).replace("torch.", "")
     with torch.cuda.device(vecs.device):
-        grid = stages = smem = 0  # bf16/f32 storage: the grid follows the shape
-        if vecs.dtype == torch.int8:
-            geom = scan_geometry(rs, d, n_q, sm_count(torch.cuda.current_device()))
-            grid, stages, smem = geom.grid, geom.stages, geom.smem_bytes
+        geom = scan_geometry(rs, d, n_q, sm_count(torch.cuda.current_device()),
+                             storage)
         stream = torch.cuda.current_stream(vecs.device).cuda_stream
         err = lib.semcode_top2_scan(
             vecs.data_ptr(), mult.data_ptr(), add.data_ptr(), qq.data_ptr(),
             q_scales.data_ptr(), bmax.data_ptr(), brow.data_ptr(),
-            rs, d, n_q, _STORAGE_CODES[vecs.dtype], grid, stages, smem, stream,
+            rs, d, n_q, _STORAGE_CODES[vecs.dtype], geom.grid, geom.stages,
+            geom.smem_bytes, stream,
         )
     if err != 0:
         raise RuntimeError(f"top2_scan kernel launch failed: CUDA error {err}")

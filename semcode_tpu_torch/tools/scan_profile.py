@@ -8,10 +8,10 @@ the route's own functions (``index/scan.py``):
                by a per-query max (the read + tensor-core floor)
   dot_kernel   the ``dot_max`` kernel (``ops/dot_max.py``, s32, 128-row
                tiles) at the same shape: the dot without the rescale, on
-               the first top2_scan design's tiling (mma.sync, synchronous
-               staging); against ``norescore`` with SCAN_IMPL=pallas it
-               compares the int8 top2_scan kernel (wgmma, selection in
-               registers) with that old tiling's GEMM alone
+               the int8 top2_scan kernel's pipeline (TMA ring, wgmma) with
+               a maximum for its epilogue; against ``norescore`` with
+               SCAN_IMPL=pallas it shows what the selection and the rest of
+               the route add to the GEMM
   dotsel       + the valid-row mask and the exact top-FETCH selection
   dotseltop    + the final top-K
   norescore    ``search_device_batched`` with the f32 mirror off

@@ -8,7 +8,8 @@ imports nothing of JAX, so it runs on a card host that has no JAX:
 (``--noconftest``: the suite's conftest configures JAX's CPU mesh.)
 Comparisons hold each kernel against its plain torch version on the same
 card inputs: int8 bit-identical (dot_max, an integer maximum, in both
-modes); bf16/f32 within rtol 1e-5 (f32 sums run in another order).
+modes); bf16/f32 within rtol 1e-5 (f32 sums run in another order). Each
+kernel's launch geometry is also held against what its entry point accepts.
 """
 
 import numpy as np
@@ -98,6 +99,79 @@ def test_top2_scan_int8_tile_edges(cuda, rs, d, nq):
     assert scan_top2.top2_scan.launches == before + 1
     rm, rr = top2_scan_reference(*ops)
     assert torch.equal(bm, rm) and torch.equal(br, rr)
+
+
+def _float_rows_agree(ops, bm, br, rm, rr):
+    """bf16/f32 rows: scores within rtol 1e-5; first rows identical where a
+    block's top-2 gap exceeds 1e-4; every pick scoring (plain arithmetic) as
+    the plain version's pick; sentinel slots on the plain version's row."""
+    torch.testing.assert_close(bm, rm, rtol=1e-5, atol=1e-6)
+    nb = bm.shape[1] // 2
+    gap = (rm[:, :nb] - rm[:, nb:]).abs() > 1e-4
+    assert torch.equal(br[:, :nb][gap], rr[:, :nb][gap])
+    vecs, mult, add, qq, qsc = ops
+    rs = vecs.shape[0]
+    raw = (qq.double() @ vecs.to(torch.bfloat16).double().T).float()
+    plain = torch.full((qq.shape[0], nb * 128), NEG, device=vecs.device)
+    plain[:, :rs] = raw * qsc[:, None] * mult[None, :] + add[None, :]
+    dead = rm <= NEG
+    assert torch.equal(br[dead], rr[dead])
+    picked = torch.gather(plain, 1, br.long())
+    torch.testing.assert_close(picked[~dead], rm[~dead], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("storage", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rs,d,nq", [
+    (255, 128, 65),
+    (256, 384, 1000),
+    (257, 1024, 65),      # a last block with one live row: sentinel runner-up
+    (1023, 3072, 1000),   # one row load per consumer
+    (1025, 1024, 8),
+    (70001, 384, 1000),   # more work items than CTAs
+    (40000, 3072, 512),
+])
+def test_top2_scan_float_tile_edges(cuda, storage, rs, d, nq):
+    gen = torch.Generator(device=cuda).manual_seed(rs * 5 + d + nq)
+    x, _, add, q, _ = _operands(storage, rs, d, nq, gen, cuda)
+    x[128:132] = x[124:128]  # duplicates across the block boundary
+    x[5] = x[77]
+    for lo in (256, 640):
+        if rs > lo + 128:
+            add[lo:lo + 128] = NEG
+    ops = (x, torch.ones(rs, device=cuda), add, q, torch.ones(nq, device=cuda))
+    before = scan_top2.top2_scan.launches
+    bm, br = top2_scan(*ops)
+    torch.cuda.synchronize()
+    assert scan_top2.top2_scan.launches == before + 1
+    _float_rows_agree(ops, bm, br, *top2_scan_reference(*ops))
+
+
+@pytest.mark.parametrize("storage", ["int8", "bfloat16", "float32"])
+def test_top2_scan_geometry_is_what_the_library_accepts(cuda, storage):
+    """scan_geometry's launch runs; one stage more, or other shared-memory
+    bytes, is refused by the entry point (cudaErrorInvalidValue)."""
+    rs, d, nq = 5000, 384, 100
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    vecs, mult, add, qq, qsc = _operands(storage, rs, d, nq, gen, cuda)
+    geom = scan_top2.scan_geometry(rs, d, nq, torch.cuda.get_device_properties(cuda)
+                                   .multi_processor_count, storage)
+    nb = -(-rs // 128)
+    bmax = torch.empty((nq, 2 * nb), device=cuda)
+    brow = torch.empty((nq, 2 * nb), dtype=torch.int32, device=cuda)
+    lib = scan_top2._library.get()
+    code = {"int8": 0, "bfloat16": 1, "float32": 2}[storage]
+
+    def call(stages, smem):
+        return lib.semcode_top2_scan(
+            vecs.data_ptr(), mult.data_ptr(), add.data_ptr(), qq.data_ptr(),
+            qsc.data_ptr(), bmax.data_ptr(), brow.data_ptr(), rs, d, nq, code,
+            geom.grid, stages, smem, torch.cuda.current_stream().cuda_stream)
+
+    assert call(geom.stages, geom.smem_bytes) == 0
+    torch.cuda.synchronize()
+    more = geom.smem_bytes + scan_top2.STAGE_BYTES
+    assert call(geom.stages + 1, more) != 0
+    assert call(geom.stages, geom.smem_bytes + 1024) != 0
 
 
 def _ivf_operands(storage, nlist, cmax, d, nq, nprobe, gen, device):
@@ -284,6 +358,80 @@ def test_dot_max_matches_plain_version(cuda, mode, rtile, n, d, nq):
     torch.cuda.synchronize()
     assert dot_ops.dot_max.launches == before + 1
     assert torch.equal(got, dot_ops.dot_max_reference(rows, q))
+
+
+def _dot_check(dot_ops, rows, q):
+    want = dot_ops.dot_max_reference(rows, q)
+    for mode in ("s32", "bf16"):
+        for rtile in dot_ops.RTILES:
+            before = dot_ops.dot_max.mode_launches[mode]
+            got = dot_ops.dot_max(rows, q, mode=mode, rtile=rtile)
+            torch.cuda.synchronize()
+            assert dot_ops.dot_max.mode_launches[mode] == before + 1
+            assert torch.equal(got, want), (mode, rtile)
+
+
+@pytest.mark.parametrize("n", [63, 65, 127, 129, 255, 257, 513])
+@pytest.mark.parametrize("nq", [63, 64, 65, 257])
+def test_dot_max_tile_edges(cuda, n, nq):
+    """N at row-tile multiples +- 1 and Q at the 64-query tile's edges, both
+    modes, every row tile: bit for bit."""
+    from semcode_tpu_torch.ops import dot_max as dot_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(n * 3 + nq)
+    rows = torch.randint(-127, 128, (n, 384), generator=gen, device=cuda,
+                         dtype=torch.int32).to(torch.int8)
+    q = torch.randint(-127, 128, (nq, 384), generator=gen, device=cuda,
+                      dtype=torch.int32).to(torch.int8)
+    rows[n - 1] = -127  # in the ragged last tile
+    q[nq - 1] = -127    # every maximum of this query is negative
+    _dot_check(dot_ops, rows, q)
+
+
+def test_dot_max_bf16_at_its_largest_sums(cuda):
+    """Every operand +-127 at d = 1024: sums up to 1024 * 127**2 = 16.5M,
+    just below 2**24, exact in both modes."""
+    from semcode_tpu_torch.ops import dot_max as dot_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(1024)
+    sign = lambda shape: torch.where(  # noqa: E731
+        torch.rand(shape, generator=gen, device=cuda) < 0.5, -127, 127
+    ).to(torch.int8)
+    rows, q = sign((20000, 1024)), sign((300, 1024))
+    rows[777] = 127
+    q[0] = 127
+    q[1] = -127
+    _dot_check(dot_ops, rows, q)
+    assert int(dot_ops.dot_max(rows, q, mode="bf16")[0]) == 1024 * 127 * 127
+
+
+@pytest.mark.parametrize("mode", ["s32", "bf16"])
+@pytest.mark.parametrize("rtile", [64, 128, 256])
+def test_dot_max_geometry_is_what_the_library_accepts(cuda, mode, rtile):
+    from semcode_tpu_torch.ops import dot_max as dot_ops
+
+    n, d, nq = 3000, 384, 100
+    rows = torch.zeros((n, d), dtype=torch.int8, device=cuda)
+    # bf16 mode's entry point reads the queries widened
+    q = torch.zeros((nq, d), dtype=torch.int8 if mode == "s32" else torch.bfloat16,
+                    device=cuda)
+    out = torch.full((nq,), dot_ops.INT32_MIN, dtype=torch.int32, device=cuda)
+    geom = dot_ops.dot_geometry(n, d, nq, torch.cuda.get_device_properties(cuda)
+                                .multi_processor_count, mode, rtile)
+    lib = dot_ops._library.get()
+
+    def call(stages, raw, smem):
+        return lib.semcode_dot_max(
+            rows.data_ptr(), q.data_ptr(), out.data_ptr(), n, d, nq,
+            dot_ops.MODES[mode], rtile, geom.grid, stages, raw, smem,
+            torch.cuda.current_stream().cuda_stream)
+
+    assert call(geom.stages, geom.raw_stages, geom.smem_bytes) == 0
+    torch.cuda.synchronize()
+    assert int(out.max()) == 0 and int(out.min()) == 0
+    step = dot_ops.stage_bytes(rtile)
+    assert call(geom.stages + 1, geom.raw_stages, geom.smem_bytes + step) != 0
+    assert call(geom.stages, 1 - geom.raw_stages // 2, geom.smem_bytes) != 0
 
 
 def test_flat_index_card_matches_cpu(cuda):

@@ -8,7 +8,9 @@ therefore the XLA formulation that tool holds its kernel against
 contraction (dot_pallas.py:64-72), both through ``jax.lax.dot_general`` on
 the CPU. The port's plain version, which the wrapper runs on CPU tensors,
 must equal them exactly (int32) on the same numpy inputs. The CUDA kernel is
-compared with the plain version on the card (tests/test_torch_cuda.py).
+compared with the plain version on the card (tests/test_torch_cuda.py); its
+launch geometry (``dot_geometry``) is checked here, with the constants the
+source repeats.
 """
 
 import jax
@@ -130,3 +132,72 @@ def test_cpu_call_launches_no_kernel():
     got = dot_max(torch.from_numpy(rows), torch.from_numpy(q), mode="bf16", rtile=64)
     assert dot_ops.dot_max.launches == before
     np.testing.assert_array_equal(got.numpy(), _jax_s32(rows, q))
+
+
+@pytest.mark.parametrize("mode", ["s32", "bf16"])
+@pytest.mark.parametrize("rtile", RTILES)
+@pytest.mark.parametrize("d", [128, 384, 1024, 3072])
+@pytest.mark.parametrize("nq", [1, 8, 65, 512])
+def test_launch_geometry_fits_and_covers_every_tile_once(mode, rtile, d, nq):
+    """The persistent grid walks every (row tile, query tile) exactly once,
+    and the ring (bf16 mode: operand stages plus the int8 raw stages) fits
+    a block's 232,448 bytes of shared memory."""
+    for n, sms in ((1, 132), (181, 132), (70001, 132), (5000, 4)):
+        geom = dot_ops.dot_geometry(n, d, nq, sms, mode, rtile)
+        assert geom.stages >= (3 if mode == "bf16" else 2)
+        assert geom.raw_stages == (dot_ops.RAW_STAGES if mode == "bf16" else 0)
+        # bf16 mode's raw stages hold the row tile alone, as int8
+        assert geom.smem_bytes == (dot_ops.SMEM_ALIGN + dot_ops.BARRIER_BYTES
+                                   + geom.stages * dot_ops.stage_bytes(rtile)
+                                   + geom.raw_stages * rtile * dot_ops.DEPTH_CHUNK)
+        assert geom.smem_bytes <= 232_448
+        # no further stage would fit
+        assert geom.smem_bytes + dot_ops.stage_bytes(rtile) > 232_448
+        assert geom.n_row_tiles == -(-n // rtile)
+        assert geom.n_query_tiles == -(-nq // dot_ops.QUERY_TILE)
+        assert 1 <= geom.grid == min(sms, geom.work_items)
+        seen = []
+        for cta in range(geom.grid):
+            for u in range(cta, geom.work_items, geom.grid):
+                rt, pair = divmod(u, geom.n_query_pairs)
+                seen.extend((rt, qt) for qt in (2 * pair, 2 * pair + 1)
+                            if qt < geom.n_query_tiles)
+        want = [(rt, qt) for rt in range(geom.n_row_tiles)
+                for qt in range(geom.n_query_tiles)]
+        assert sorted(seen) == want  # every tile exactly once
+
+
+def test_launch_geometry_rejects_what_the_kernel_cannot_run():
+    for args in ((0, 128, 8, 132, "s32", 128), (100, 96, 8, 132, "s32", 128),
+                 (100, 128, 0, 132, "s32", 128), (100, 128, 8, 0, "s32", 128),
+                 (100, 128, 8, 132, "f32", 128), (100, 128, 8, 132, "s32", 32)):
+        with pytest.raises(ValueError, match="no dot_max geometry"):
+            dot_ops.dot_geometry(*args)
+
+
+def test_geometry_constants_match_the_source():
+    """The constants dot_geometry mirrors, read from csrc/dot_max.cu."""
+    import re
+    from pathlib import Path
+
+    src = (Path(dot_ops.__file__).parent / "csrc" / "dot_max.cu").read_text()
+    const = {m.group(1): int(m.group(2))
+             for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kQueryTile"] == dot_ops.QUERY_TILE
+    assert const["kChunk"] == dot_ops.DEPTH_CHUNK
+    assert const["kRawStages"] == dot_ops.RAW_STAGES
+    assert const["kBarrierBytes"] == dot_ops.BARRIER_BYTES
+    assert const["kSmemAlign"] == dot_ops.SMEM_ALIGN
+    assert const["kSmemLimit"] == dot_ops.SMEM_LIMIT
+    assert const["kMaxBf16Dim"] == BF16_MAX_DIM
+    assert "return (rows + 2 * kQueryTile) * kChunk;" in src
+    assert "raw_stages * rows * kChunk" in src
+
+
+def test_launch_counts_by_mode_start_at_zero_and_skip_cpu_calls():
+    rows, q = _inputs(300, 128, 5, -127, seed=9)
+    before = dict(dot_ops.dot_max.mode_launches)
+    assert set(before) == set(dot_ops.MODES)
+    for mode in dot_ops.MODES:
+        dot_max(torch.from_numpy(rows), torch.from_numpy(q), mode=mode)
+    assert dot_ops.dot_max.mode_launches == before

@@ -8,7 +8,7 @@ bf16/f32: scores within rtol 1e-5 (f32 accumulation order differs), rows
 identical where a block's top-2 are separated by more than 1e-4. The CUDA
 kernel itself is compared with the plain version on the card only
 (tests/test_torch_cuda.py); its launch geometry (``scan_geometry``) is
-checked here.
+checked here for every storage, with the constants the source repeats.
 """
 
 import jax.numpy as jnp
@@ -19,9 +19,12 @@ import torch
 from semcode_tpu.ops.scan_kernel2 import top2_scan_shard
 from semcode_tpu_torch.ops.scan_top2 import (
     BARRIER_BYTES,
+    DEPTH_CHUNK,
     EPILOGUE_BYTES,
     NEG,
     QUERY_TILE,
+    RAW_STAGE_BYTES,
+    RAW_STAGES,
     ROW_TILE,
     SMEM_ALIGN,
     STAGE_BYTES,
@@ -170,27 +173,68 @@ def test_reference_matches_pallas_interpret_at_tile_edges(storage):
         assert (tr.numpy()[:, nb + blk] == 128 * blk).all()
 
 
+@pytest.mark.parametrize("storage", ["int8", "bfloat16", "float32"])
 @pytest.mark.parametrize("d", [128, 384, 1024, 3072])
 @pytest.mark.parametrize("nq", [1, 8, 65, 512, 1000])
-def test_launch_geometry_fits_and_covers_every_tile_once(d, nq):
+def test_launch_geometry_fits_and_covers_every_tile_once(d, nq, storage):
     for rs, sms in ((181, 132), (70001, 132), (5000, 4)):
-        geom = scan_geometry(rs, d, nq, sms)
+        geom = scan_geometry(rs, d, nq, sms, storage)
         assert 2 <= geom.stages
+        assert geom.raw_stages == (RAW_STAGES if storage == "float32" else 0)
         assert geom.smem_bytes == (SMEM_ALIGN + geom.stages * STAGE_BYTES
+                                   + geom.raw_stages * RAW_STAGE_BYTES
                                    + EPILOGUE_BYTES + BARRIER_BYTES)
         assert geom.smem_bytes <= 232_448
+        # a stage holds 128 int8 or 64 bf16 values of depth a row
+        assert geom.depth_chunks == d // (128 if storage == "int8" else 64)
         assert geom.n_row_tiles == -(-rs // ROW_TILE)
         assert geom.n_query_tiles == -(-nq // QUERY_TILE)
         assert 1 <= geom.grid == min(sms, geom.work_items)
-        assert geom.shared_rows == (d // 128 <= geom.stages)
+        assert geom.turns == (storage != "float32")
+        assert geom.shared_rows == (not geom.turns or geom.depth_chunks <= geom.stages)
         seen = [tile for cta in range(geom.grid) for tile in cta_tiles(geom, cta)]
         want = [(rt, qt) for rt in range(geom.n_row_tiles)
                 for qt in range(geom.n_query_tiles)]
         assert sorted(seen) == want  # every tile exactly once
 
 
+@pytest.mark.parametrize("storage", ["int8", "bfloat16", "float32"])
+def test_no_geometry_shares_rows_past_the_ring(storage):
+    """With turns, both consumers read a shared row chunk, the second only
+    after the first has read the item's whole depth: sharing is only
+    offered where that depth fits in the ring, or the ring deadlocks. f32
+    rows are read by both consumers together, which shares at any depth."""
+    shared = []
+    for d in range(128, 4096 + 1, 128):
+        geom = scan_geometry(70001, d, 512, 132, storage)
+        if geom.turns:
+            assert geom.shared_rows == (geom.depth_chunks <= geom.stages)
+        if geom.shared_rows:
+            shared.append(d)
+    limit = {"int8": 512, "bfloat16": 256, "float32": 4096}[storage]
+    assert shared == list(range(128, limit + 1, 128))
+
+
+def test_geometry_constants_match_the_source():
+    """The constants scan_geometry mirrors, read from csrc/top2_scan.cu."""
+    import re
+    from pathlib import Path
+
+    from semcode_tpu_torch.ops import scan_top2
+
+    src = (Path(scan_top2.__file__).parent / "csrc" / "top2_scan.cu").read_text()
+    const = {m.group(1): int(m.group(2))
+             for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kRowTile"] == ROW_TILE and const["kQueryTile"] == QUERY_TILE
+    assert const["kChunk"] == DEPTH_CHUNK
+    assert const["kRawStages"] == RAW_STAGES
+    assert const["kEpiSlots"] * const["kRowTile"] * 8 == EPILOGUE_BYTES
+    assert const["kBarrierBytes"] == BARRIER_BYTES
+    assert const["kSmemAlign"] == SMEM_ALIGN and const["kSmemLimit"] == 232_448
+
+
 def test_launch_geometry_rejects_what_the_kernel_cannot_run():
     for args in ((0, 128, 8, 132), (100, 96, 8, 132), (100, 128, 0, 132),
-                 (100, 128, 8, 0)):
+                 (100, 128, 8, 0), (100, 128, 8, 132, "float16")):
         with pytest.raises(ValueError, match="no top2_scan geometry"):
             scan_geometry(*args)
