@@ -10,7 +10,8 @@ Phases (any failed check exits non-zero before the final line):
 1. report the card and build the kernels from the sources in the checkout
    (the three CUDA sources with nvcc, each with ptxas's registers, shared
    memory and spills printed, the two measurement builds of top2_scan and
-   of ivf_scan, and the native featurizer with g++, all started together);
+   the three of ivf_scan, and the native featurizer with g++, all started
+   together);
 2. hold the top2_scan kernel against its plain torch version on the card:
    int8 / bf16 / f32 storage, Rs in {100, 128, 1000, 70001}, d in {128,
    384, 3072}, Q in {1, 8, 512}, ip and l2, ~5% dead rows; then every
@@ -26,10 +27,11 @@ Phases (any failed check exits non-zero before the final line):
 2b. hold the ivf_scan kernels against their plain versions on the card:
    int8 / bf16 / f32 cluster blocks with ~10% empty slots and duplicated
    rows, d in {128, 384, 3072}, cmax in {128, 2176}, Q in {1, 8, 512},
-   nprobe in {1, 16, 32, 128}, k in {10, 64}; then int8 at cmax 2176 with
-   clusters probed by 64, by 65 and by every query (tiles that end at,
-   past and far past one 64-query box), nprobe up to 128 and k 10; and the
-   prep and merge kernels alone. int8: bit-identical scores and identical
+   nprobe in {1, 16, 32, 128}, k in {10, 64}; then every storage at cmax
+   2176 with clusters probed by 64, by 65 and by every query (tiles that
+   end at, past and far past one 64-query int8 tile, past 20-query bf16
+   and 32-query f32 tiles) and empty tails of every length, nprobe up to 128, k 10 and 64,
+   d up to 3072; and the prep and merge kernels alone. int8: bit-identical scores and identical
    ids, ties included (the order (score, cluster, slot) is total);
    bf16/f32: scores within rtol 1e-5 (atol 1e-6), ids equal wherever a
    score stands apart from its neighbours by 1e-5;
@@ -83,12 +85,16 @@ Phases (any failed check exits non-zero before the final line):
    k 64: the whole ivf_scan call (CUDA events) and each of its kernels
    (prep, scatter, scan, merge; torch.profiler device time), the scan's two
    measurement builds (products alone, selection alone on synthetic
-   scores), beside the bound, the plain version and one PyTorch-library
-   computation of the same selection; the pairs, tiles, probed clusters
+   scores) and its phase build (each phase's share of the consumer warps'
+   cycles, and how long the TMA producer waits for a free stage), beside
+   the bound, the plain version and one PyTorch-library computation of the
+   same selection; the pairs, tiles, probed clusters
    and most probers of one cluster; and a torch.profiler breakdown of one
    batch-512 probe search with its kernel launches; then bf16 and f32 IVF
    indexes of the same rows: one probe search each (launches read around
-   it, recall@10 printed) and the bf16/f32 scan's call at the same shape
+   it, recall@10 >= 0.95 required) with a torch.profiler breakdown (device
+   busy share), and the bf16/f32 call at the same shape, its scan kernel
+   alone, the scan's three measurement builds and its registers and spills,
    beside its bound, plain version and library computation.
 4c. the dot_max kernel at phase 4's shape, on phase 4's own int8 rows and
    quantized queries (the bytes top2_scan reads): ms per call in both modes
@@ -371,11 +377,16 @@ IVF_CASES = [
 ]
 
 
-# int8 at cmax 2176 with crowded clusters: (nlist, d, Q, nprobe, k)
+# cmax 2176 with crowded clusters: (storage, nlist, d, Q, nprobe, k); int8
+# tiles hold 64 queries, bf16 tiles 20, f32 tiles 32
 IVF_CROWDED_CASES = [
-    (64, 384, 200, 16, 64),
-    (256, 128, 100, 128, 10),
-    (16, 384, 700, 8, 64),
+    ("int8", 64, 384, 200, 16, 64),
+    ("int8", 256, 128, 100, 128, 10),
+    ("int8", 16, 384, 700, 8, 64),
+    ("bfloat16", 64, 384, 200, 16, 64),
+    ("bfloat16", 16, 3072, 100, 8, 64),
+    ("float32", 256, 128, 100, 128, 10),
+    ("float32", 16, 384, 300, 8, 64),
 ]
 
 
@@ -413,8 +424,8 @@ def check_ivf_kernel() -> float:
     gen = torch.Generator(device="cuda").manual_seed(4321)
     worst = 0.0
     cases = [(c, None) for c in IVF_CASES] + [
-        (("int8", nlist, 2176, d, nq, nprobe, k), "crowded")
-        for nlist, d, nq, nprobe, k in IVF_CROWDED_CASES
+        ((storage, nlist, 2176, d, nq, nprobe, k), "crowded")
+        for storage, nlist, d, nq, nprobe, k in IVF_CROWDED_CASES
     ]
     for (storage, nlist, cmax, d, nq, nprobe, k), kind in cases:
         data, ids, q, probes, scales = ivf_inputs(storage, nlist, cmax, d, nq,
@@ -442,8 +453,9 @@ def check_ivf_kernel() -> float:
         del data, ids, q, probes, scales, s, i, rs, ri
     n_aux = check_ivf_prep_merge(gen)
     log(f"[kernel] ivf_scan matches its plain version in {len(cases)} cases "
-        f"({len(IVF_CROWDED_CASES)} with crowded clusters and empty tails; int8 "
-        f"ids identical, ties included), prep and merge in {n_aux} more (max "
+        f"({len(IVF_CROWDED_CASES)} with crowded clusters and empty tails, "
+        f"every storage; int8 ids identical, ties included; bf16/f32 by the "
+        f"float rule), prep and merge in {n_aux} more (max "
         f"|score err| {worst:.3g})")
     return worst
 
@@ -906,28 +918,44 @@ def device_breakdown(fn, label: str, iters: int = 5):
 
 def kernel_device_ms(fn, names, iters: int = 10):
     """Device ms per call of ``fn`` spent in the kernels whose names contain
-    each of ``names`` (torch.profiler, CUDA activity)."""
+    each of ``names`` (torch.profiler, CUDA activity), for kernels that
+    ``fn`` launches once a call: averaged over the launches the profiler
+    recorded. It has been seen to drop a window's events (a scan "taking"
+    0.016 ms), so a window with none of a kernel is profiled again, up to
+    three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        for name in names:
-            if name in ev.key:
-                out[name] += dev_us / 1e3 / iters
-    return out
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = dict.fromkeys(names, 0.0)
+        count = dict.fromkeys(names, 0)
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            for name in names:
+                if name in ev.key:
+                    total[name] += dev_us / 1e3
+                    count[name] += ev.count
+        if all(count[name] for name in names):
+            break
+        log(f"[profile] no launch of {[nm for nm in names if not count[nm]]} "
+            "recorded; profiling again")
+    for name in names:
+        if count[name] == 0:
+            fail(f"the profiler recorded no launch of {name}")
+        if count[name] != iters:
+            log(f"[profile] {name}: {count[name]} of {iters} launches recorded")
+    return {name: total[name] / count[name] for name in names}
 
 
 def scale_phase():
@@ -1290,6 +1318,29 @@ def ivf_library(data, ids, scales, qq, qsc, probing, k):
     return best_s, best_i
 
 
+def scan_phase_shares(args, storage):
+    """(each phase's share of the consumer warps' cycles, the share of its
+    time the TMA producer waits for a free stage) in ivf_scan's phase build
+    (clock64 counters in csrc/ivf_scan.cu), over three calls on ``args``."""
+    import torch
+
+    from semcode_tpu_torch.ops.ivf_scan import PHASE_NAMES, ivf_scan_probe, scan_phases
+
+    scan_phases(storage)  # clears
+    for _ in range(3):
+        ivf_scan_probe("phases", *args)
+    torch.cuda.synchronize()
+    ph = scan_phases(storage)
+    shares = {name: ph[name] / max(ph["consumer total"], 1) for name in PHASE_NAMES[:6]}
+    return shares, ph["producer waiting"] / max(ph["producer total"], 1)
+
+
+def phase_line(shares, producer_wait) -> str:
+    return (", ".join(f"{name} {100 * v:.1f}%" for name, v in shares.items())
+            + f"; the TMA producer waits for a free stage {100 * producer_wait:.1f}% "
+            "of its time")
+
+
 def ivf_scale_phase():
     import gc
 
@@ -1393,6 +1444,7 @@ def ivf_scale_phase():
     probe_ms = {kind: kernel_device_ms(lambda: ivf_scan_probe(kind, *args),
                                        ("ivf_scan_s8",))["ivf_scan_s8"]
                 for kind in ("products", "selection")}
+    phases, producer_wait = scan_phase_shares(args, torch.int8)
     s, i = ivf_scan(*args)
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: ivf_scan_reference(*args), iters=2, warmup=1)
@@ -1444,6 +1496,8 @@ def ivf_scale_phase():
         f"selection alone {probe_ms['selection']:.3f} ms; plain {plain_ms:.1f} ms, "
         f"_int_mm+mask+topk {library_ms:.3f} ms; {ivf_scan.launches - calls} "
         "timing launches")
+    log(f"[ivf-scale] int8 scan phases (consumer warps' cycles): "
+        + phase_line(phases, producer_wait))
     out["kernel"] = {"ms": call_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "max_abs_err": err,
@@ -1453,7 +1507,8 @@ def ivf_scale_phase():
                      "prep_ms": parts["ivf_prep"], "scatter_ms": parts["ivf_scatter"],
                      "merge_ms": parts["ivf_merge"],
                      "products_ms": probe_ms["products"],
-                     "selection_ms": probe_ms["selection"]}
+                     "selection_ms": probe_ms["selection"],
+                     "phases": phases, "producer_wait": producer_wait}
     del index, dev, args
     for storage in ("bfloat16", "float32"):
         out[storage] = ivf_float_leg(storage, x, q, truth)
@@ -1488,8 +1543,10 @@ def ivf_library_float(data, ids, q, probing, k):
 def ivf_float_leg(storage, x, q, truth):
     """Phase 4b over bf16 or f32 storage: the same rows in an IVFIndex of
     that dtype (nlist 1024); one probe search at nprobe 32 (ivf_scan's
-    launches read around it), then the bf16/f32 scan's call at Q=512,
-    nprobe 32, k 64 beside its bound, plain version and library."""
+    launches read around it) and a profile of it (device busy share), then
+    the bf16/f32 scan's call at Q=512, nprobe 32, k 64 and the scan kernel
+    alone, its two measurement builds (products alone, selection alone) and
+    its registers and spills, beside its bound, plain version and library."""
     import gc
 
     import torch
@@ -1497,7 +1554,9 @@ def ivf_float_leg(storage, x, q, truth):
     from semcode_tpu_torch.device import f32_matmul
     from semcode_tpu_torch.index.ivf import IVFIndex
     from semcode_tpu_torch.index.scan import stable_topk
-    from semcode_tpu_torch.ops.ivf_scan import ivf_scan, ivf_scan_reference
+    from semcode_tpu_torch.ops.ivf_scan import (
+        ivf_scan, ivf_scan_probe, ivf_scan_reference, scan_attributes,
+    )
     from semcode_tpu_torch.tools._timing import cuda_ms
 
     gc.collect()
@@ -1517,11 +1576,22 @@ def ivf_float_leg(storage, x, q, truth):
     rec = recall_at_10(ids, truth)
     if launches < 1:
         fail(f"the {storage} IVF probe search never launched the ivf_scan kernel")
+    if rec < 0.95:
+        fail(f"{storage} IVF recall@10 {rec:.4f} < 0.95 at nprobe 32")
+    search = device_breakdown(
+        lambda: index.search_device(q, 10, nprobe=32, mode="ivf"),
+        f"batch-{BATCH} {storage} IVF probe search (nprobe 32)",
+    )
 
     _, probes = stable_topk(f32_matmul(q, dev.centroids.T), 32)
     args = (dev.data, dev.ids, q, probes, 64, dev.scales)
+    name = "ivf_scan_bf16" if storage == "bfloat16" else "ivf_scan_f32"
     call_ms = cuda_ms(lambda: ivf_scan(*args), iters=20)
-    scan_ms = kernel_device_ms(lambda: ivf_scan(*args), ("ivf_scan_f",))["ivf_scan_f"]
+    scan_ms = kernel_device_ms(lambda: ivf_scan(*args), (name,))[name]
+    probe_ms = {kind: kernel_device_ms(lambda: ivf_scan_probe(kind, *args), (name,))[name]
+                for kind in ("products", "selection")}
+    regs, spill = scan_attributes(dev.data.dtype)
+    phases, producer_wait = scan_phase_shares(args, dev.data.dtype)
     s, i = ivf_scan(*args)
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: ivf_scan_reference(*args), iters=2, warmup=1)
@@ -1558,13 +1628,22 @@ def ivf_float_leg(storage, x, q, truth):
     log(f"[ivf-scale] {storage} IVF (built in {build_s:.1f} s, cmax {index.cmax}): "
         f"nprobe 32 recall@10 {rec:.4f}, ivf_scan launches {launches}; call at "
         f"Q={BATCH} nprobe 32 k 64: {call_ms:.3f} ms (CUDA events), scan kernel "
-        f"{scan_ms:.3f} ms (profiler); bound {bound_ms:.3f} ms by {bound_by} "
-        f"({n_bytes / 1e9:.3f} GB, {n_ops:.3g} f32 ops); plain {plain_ms:.1f} ms, "
-        f"f32 GEMM+mask+topk {library_ms:.3f} ms")
+        f"{name} {scan_ms:.3f} ms (profiler; products alone "
+        f"{probe_ms['products']:.3f}, selection alone {probe_ms['selection']:.3f}; "
+        f"{regs} registers, {spill} B local a thread); bound {bound_ms:.3f} ms by "
+        f"{bound_by} ({n_bytes / 1e9:.3f} GB, {n_ops:.3g} f32 ops); plain "
+        f"{plain_ms:.1f} ms, f32 GEMM+mask+topk {library_ms:.3f} ms")
+    log(f"[ivf-scale] {storage} scan phases (consumer warps' cycles): "
+        + phase_line(phases, producer_wait))
     return {"recall": rec, "launches": launches, "build_s": build_s,
+            "search": search,
             "kernel": {"ms": call_ms, "kernel_ms": scan_ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "max_abs_err": err}}
+                       "bound_by": bound_by, "max_abs_err": err,
+                       "products_ms": probe_ms["products"],
+                       "selection_ms": probe_ms["selection"],
+                       "registers": regs, "local_bytes": spill,
+                       "phases": phases, "producer_wait": producer_wait}}
 
 
 def main() -> int:
@@ -1652,12 +1731,16 @@ def main() -> int:
         # measurement builds
         kernel_ms=ik["kernel_ms"], prep_ms=ik["prep_ms"],
         scatter_ms=ik["scatter_ms"], merge_ms=ik["merge_ms"],
-        products_ms=ik["products_ms"], selection_ms=ik["selection_ms"]))
+        products_ms=ik["products_ms"], selection_ms=ik["selection_ms"],
+        producer_wait=ik["producer_wait"]))
     for storage in ("bfloat16", "float32"):
         leg = ivf_scale[storage]
+        lk = leg["kernel"]
         records.append(kernel_record(
-            f"ivf_scan[{storage}]", *ivf_src, leg["launches"], leg["kernel"],
-            worst_ivf, kernel_ms=leg["kernel"]["kernel_ms"]))
+            f"ivf_scan[{storage}]", *ivf_src, leg["launches"], lk, worst_ivf,
+            kernel_ms=lk["kernel_ms"], products_ms=lk["products_ms"],
+            selection_ms=lk["selection_ms"], registers=lk["registers"],
+            local_bytes=lk["local_bytes"], producer_wait=lk["producer_wait"]))
     dk = scale["dot_max"]
     for mode in ("s32", "bf16"):
         records.append(kernel_record(f"dot_max[{mode}]", *dot_src,

@@ -780,6 +780,83 @@ class VectorStore:
                 return hits  # blended on device inside the search stage
             return self._apply_rerank(hits, query_texts, top_k)
 
+    def search_bulk(
+        self,
+        vectors: np.ndarray,
+        *,
+        top_k: Any = 10,
+        filters: Optional[Dict[str, Any]] = None,
+        batch_q: int = 256,
+        chunk_batches: int = 16,
+    ) -> List[List[SearchHit]]:
+        """High-throughput bulk search: M query vectors through chunked
+        device dispatch (``search_device_batched``: ``chunk_batches``
+        batches of ``batch_q`` queries per call). For offline jobs (dedup
+        sweeps, corpus-vs-corpus nearest neighbours, eval), not the
+        interactive path: no rerank stage, which needs query text. Returns
+        one hit list per query, the same shape as ``search_batch``."""
+        self.connect()
+        top_k = validate_top_k(top_k, self.config.search_top_k_max)
+        q = np.ascontiguousarray(np.atleast_2d(vectors), dtype=np.float32)
+        m = q.shape[0]
+        view = self._view  # lock-free snapshot
+        index = view[0]
+        if index is None or self.count() == 0:
+            return [[] for _ in range(m)]
+        if q.shape[1] != index.dim:
+            raise ValueError(
+                f"embedding dim mismatch: query vectors are {q.shape[1]}-d "
+                f"but the index holds {index.dim}-d rows — the embedding "
+                "configuration changed after data was indexed; re-ingest "
+                "with --force (or restore the original [embeddings] settings)"
+            )
+        allow, residual, empty = self._split_filters(filters)
+        if empty:
+            return [[] for _ in range(m)]
+        if self.metric == "cosine":
+            q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        fetch_k = self._fetch_k(index, top_k, residual)  # x4 applied inside
+        # 8-aligned batches and one batch count per call (the tail padded
+        # with zero batches), as the reference keeps one compiled shape
+        bq = max(8, min(((batch_q + 7) // 8) * 8, ((m + 7) // 8) * 8))
+        n_b = (m + bq - 1) // bq
+        chunk_b = min(chunk_batches, n_b)
+        pad = n_b * bq - m
+        if pad:
+            q = np.concatenate([q, np.zeros((pad, q.shape[1]), np.float32)])
+        qs = torch.from_numpy(q.reshape(n_b, bq, -1))
+        all_scores = np.full((n_b * bq, fetch_k), _SCORE_SENTINEL, np.float32)
+        all_ids = np.full((n_b * bq, fetch_k), -1, np.int64)
+        for start in range(0, n_b, chunk_b):
+            stack = qs[start:start + chunk_b]
+            n_real = stack.shape[0]
+            if n_real < chunk_b:
+                stack = torch.cat([stack, stack.new_zeros(
+                    (chunk_b - n_real, bq, q.shape[1]))])
+            s, i = index.search_device_batched(
+                stack.to(self.device), fetch_k, allow_tags=allow
+            )
+            s = s[:n_real].reshape(-1, s.shape[-1]).cpu().numpy().astype(
+                np.float32, copy=False)
+            i = i[:n_real].reshape(-1, i.shape[-1]).cpu().numpy().astype(
+                np.int64, copy=False)
+            lo = start * bq
+            all_scores[lo:lo + s.shape[0], :s.shape[1]] = s
+            all_ids[lo:lo + i.shape[0], :i.shape[1]] = i
+        scores, ids = all_scores[:m], all_ids[:m]
+        # scrub sentinel-scored slots (tag-masked or padded) before the host
+        # rescore, as search_batch_device does
+        bad = (
+            (ids < 0)
+            | (ids >= max(index.rows_allocated, 1))
+            | ~np.isfinite(scores)
+            | (scores <= _SCORE_SENTINEL / 2)
+        )
+        scores = np.where(bad, _SCORE_SENTINEL, scores)
+        ids = np.where(bad, -1, ids)
+        scores, ids = self._rescore_host(index, q[:m], scores, ids)
+        return self._hits_from(view, scores, ids, [top_k] * m, residual)
+
     def _rerank_window(
         self, top_k: int, query_texts: Optional[Sequence[Optional[str]]]
     ) -> int:

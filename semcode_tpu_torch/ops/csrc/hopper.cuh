@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels: mbarriers, TMA
-// tile loads, wgmma descriptors, steps and fences, the one stage that turns
-// int8 or f32 tiles into bf16 wgmma operands, and libcuda's tensor-map
-// encoder. Included by top2_scan.cu, ivf_scan.cu and dot_max.cu.
+// tile loads and bulk copies, wgmma descriptors, steps and fences, the one
+// stage that turns int8 or f32 tiles into bf16 wgmma operands, and
+// libcuda's tensor-map encoder. Included by top2_scan.cu, ivf_scan.cu and
+// dot_max.cu.
 
 #pragma once
 
@@ -50,6 +51,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory by the TMA unit, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(smem_u32(bar))
       : "memory");
 }
 

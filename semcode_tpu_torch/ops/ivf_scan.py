@@ -19,7 +19,9 @@ unspecified, and only tied scores can differ.
 What bounds it on an H100 at the main path's shape (1M x 384 int8, nlist
 1024, cmax 2176, Q=512, nprobe 32, clusters ~45% full): reading the ids of
 every slot of the probed clusters and the row and scale of every valid
-one, ~0.40 GB (0.12 ms at 3.35 TB/s), against 2.7e10 int8 ops (0.014 ms).
+one, ~0.40 GB (0.12 ms at 3.35 TB/s), against 2.7e10 int8 ops (0.014 ms);
+bf16 rows are ~0.78 GB (0.23 ms) and f32 rows ~1.54 GB (0.46 ms), against
+1.2e10 useful f32 operations (0.18 ms on the CUDA cores).
 The CUDA source (``csrc/ivf_scan.cu``) streams each probed cluster up to
 its last valid 128-slot chunk (a layout packs a cluster's rows at the
 front of its block) and hides the selection under the stream, in four
@@ -28,20 +30,24 @@ launches and no host sync:
 - ``prep`` (one block) builds the probe table (repeats and out-of-range
   probes skipped), ranks the (query, probe) pairs in per-cluster buckets
   and writes the tile list; ``scatter`` puts each pair in its bucket, finds
-  each probed cluster's last chunk holding a valid id and, for int8, copies
-  the pair's quantized query row into pair order, so that a tile's queries
-  are contiguous rows for TMA;
-- the scan: for int8, persistent warp-specialised CTAs stream each tile's
-  cluster and query rows by TMA into an mbarrier ring; two consumer
-  warpgroups run ``wgmma`` s8 m64n64k32 on half a 128-row chunk each
-  (queries as M, rows as N); each query keeps its k-th score as a
-  threshold and appends the scores that beat it to a candidate buffer in
-  shared memory; before a chunk could overflow a buffer, and at the
-  cluster's end, a warp selects the buffer's k best (an exact histogram
-  select), raises the threshold and publishes the k-th score as a bound on
-  the query's final k-th, against which its later pairs filter too (ties
-  pass, so the result stays exact). bf16/f32 storage keeps the first design
-  (f32 dot on the CUDA cores, 32-query tiles, a top-k list in registers);
+  each probed cluster's last chunk holding a valid id and copies the pair's
+  query row into pair order (int8: the quantized row; bf16: the f32 row's
+  three bf16 parts, ``split_bf16x3``; f32: the row), so that a tile's
+  queries are contiguous rows for TMA;
+- the scan, one kernel body for every storage: persistent warp-specialised
+  CTAs stream each tile's cluster and query rows by TMA into an mbarrier
+  ring. int8: two consumer warpgroups run ``wgmma`` s8 m64n64k32 on half a
+  128-row chunk each (queries as M, rows as N). bf16 (tiles of 20 queries):
+  the same with one ``wgmma`` bf16 m64n64k16 a 16 of depth on the rows as
+  stored, each query's three parts as three M rows, so each score sums the
+  exact f32 products; f32 (tiles of 32): the consumers' eight warps run
+  exact f32 FMAs from the same stages on the CUDA cores. Each
+  query keeps its k-th score as a threshold and appends the scores that
+  beat it to a candidate buffer in shared memory; before a chunk could
+  overflow a buffer, and at the cluster's end, a warp selects the buffer's
+  k best (an exact histogram select), raises the threshold and publishes
+  the k-th score as a bound on the query's final k-th, against which its
+  later pairs filter too (ties pass, so the result stays exact);
 - ``merge`` (a warp per query) merges the query's sorted per-pair lists by
   (score desc, cluster asc, list position asc), which is the order a stable
   top-k over the probe-sorted partials gives.
@@ -75,16 +81,28 @@ _PLAIN_CHUNK_BYTES = 1 << 30
 
 # launch geometry; csrc/ivf_scan.cu holds the same constants
 QUERY_TILE = 64  # int8 tile queries (wgmma M)
-FLOAT_QUERY_TILE = 32  # bf16/f32 tile queries
+BF16_QUERY_TILE = 20  # bf16 tile queries: three parts of 5 a warp fill 15 of its 16 M rows
+FLOAT_QUERY_TILE = 32  # f32 tile queries
 ROW_CHUNK = 128  # cluster rows per streamed chunk (wgmma N)
 DEPTH_CHUNK = 128  # bytes of depth per ring stage
+QUERY_PARTS = 3  # bf16 storage: the f32 query's bf16 parts hi, mid, lo
+QUERY_BOX = 16  # int8/bf16 query rows per TMA box: one consumer warp's rows of M
+FLOAT_QUERY_BOX = 8  # f32 query rows per TMA box
+# a ring stage: the row chunk, then the queries: int8 and bf16 one 64-row M
+# operand (bf16: a query's three parts are three of its rows), f32 the
+# tile's 32 rows
 STAGE_BYTES = ROW_CHUNK * DEPTH_CHUNK + QUERY_TILE * DEPTH_CHUNK
-QUERY_BOX = 16  # query rows per TMA box: one consumer warp's rows of M
+BF16_STAGE_BYTES = STAGE_BYTES
+F32_STAGE_BYTES = ROW_CHUNK * DEPTH_CHUNK + FLOAT_QUERY_TILE * DEPTH_CHUNK
 # candidate (score, slot) entries of a tile's queries, shared out per tile:
 # min(CANDIDATES_MAX, pool / nq) each, never less than MAX_K + ROW_CHUNK
 CANDIDATE_POOL = QUERY_TILE * 192
+BF16_CANDIDATE_POOL = BF16_QUERY_TILE * 192
+FLOAT_CANDIDATE_POOL = FLOAT_QUERY_TILE * 192
 CANDIDATES_MAX = 384
 BUFFER_BYTES = CANDIDATE_POOL * 8
+BF16_BUFFER_BYTES = BF16_CANDIDATE_POOL * 8
+FLOAT_BUFFER_BYTES = FLOAT_CANDIDATE_POOL * 8
 EPILOGUE_BYTES = 4 * ROW_CHUNK * 8  # ids and scales of four row chunks
 MISC_BYTES = 6144  # per-query state, the select histograms, the barriers
 SMEM_ALIGN = 1024  # slack to align the ring to the 128-byte swizzle atom
@@ -98,10 +116,8 @@ MAX_MERGE_WARPS = 4
 class IvfGeometry:
     """Launch geometry of one ``ivf_scan`` call's scan.
 
-    ``tile_bound`` bounds the tiles without reading the bucket sizes back.
-    The int8 scan runs ``grid`` persistent CTAs with ``stages`` ring
-    stages; the float scan runs ``grid`` = ``tile_bound`` blocks (``stages``
-    0)."""
+    ``tile_bound`` bounds the tiles without reading the bucket sizes back;
+    the scan runs ``grid`` persistent CTAs with ``stages`` ring stages."""
 
     query_tile: int
     n_pairs: int
@@ -125,35 +141,49 @@ def merge_geometry(nprobe: int, k: int) -> Tuple[int, int]:
     return warps, warps * per_query
 
 
-def ivf_geometry(int8: bool, nlist: int, cmax: int, d: int, nq: int,
+def stage_bytes(storage: torch.dtype) -> int:
+    """Bytes of one ring stage of the scan over ``storage`` rows."""
+    return {torch.int8: STAGE_BYTES, torch.bfloat16: BF16_STAGE_BYTES,
+            torch.float32: F32_STAGE_BYTES}[storage]
+
+
+def query_tile(storage: torch.dtype) -> int:
+    """Queries of one tile of the scan over ``storage`` rows."""
+    return {torch.int8: QUERY_TILE, torch.bfloat16: BF16_QUERY_TILE,
+            torch.float32: FLOAT_QUERY_TILE}[storage]
+
+
+def buffer_bytes(storage: torch.dtype) -> int:
+    """Bytes of the candidate pool of one tile's queries."""
+    return {torch.int8: BUFFER_BYTES, torch.bfloat16: BF16_BUFFER_BYTES,
+            torch.float32: FLOAT_BUFFER_BYTES}[storage]
+
+
+def ivf_geometry(storage: torch.dtype, nlist: int, cmax: int, d: int, nq: int,
                  nprobe: int, k: int, sms: int) -> IvfGeometry:
-    """Tiles, ring stages, shared memory and grid of the scan on ``sms``
-    multiprocessors."""
-    if (nlist <= 0 or cmax <= 0 or cmax % ROW_CHUNK or d <= 0 or d % DEPTH_CHUNK
-            or nq <= 0 or not 0 < nprobe <= MAX_PROBE or not 0 < k <= MAX_K
-            or sms <= 0):
-        raise ValueError(f"no ivf_scan geometry for nlist={nlist} cmax={cmax} "
-                         f"d={d} Q={nq} nprobe={nprobe} k={k}")
-    tile = QUERY_TILE if int8 else FLOAT_QUERY_TILE
+    """Tiles, ring stages, shared memory and grid of the scan over
+    ``storage`` rows (int8, bf16 or f32) on ``sms`` multiprocessors."""
+    if (storage not in _STORAGE_CODES or nlist <= 0 or cmax <= 0 or cmax % ROW_CHUNK
+            or d <= 0 or d % DEPTH_CHUNK or nq <= 0 or not 0 < nprobe <= MAX_PROBE
+            or not 0 < k <= MAX_K or sms <= 0):
+        raise ValueError(f"no ivf_scan geometry for {storage} nlist={nlist} "
+                         f"cmax={cmax} d={d} Q={nq} nprobe={nprobe} k={k}")
+    tile = query_tile(storage)
     n_pairs = nq * nprobe
     bound = tile_bound(n_pairs, nlist, tile)
-    stages = smem = 0
-    grid = bound
-    if int8:
-        fixed = SMEM_ALIGN + BUFFER_BYTES + EPILOGUE_BYTES + MISC_BYTES
-        stages = (SMEM_LIMIT - fixed) // STAGE_BYTES
-        smem = fixed + stages * STAGE_BYTES
-        grid = min(sms, bound)
+    fixed = SMEM_ALIGN + buffer_bytes(storage) + EPILOGUE_BYTES + MISC_BYTES
+    stages = (SMEM_LIMIT - fixed) // stage_bytes(storage)
     return IvfGeometry(query_tile=tile, n_pairs=n_pairs, tile_bound=bound,
-                       grid=grid, stages=stages, smem_bytes=smem)
+                       grid=min(sms, bound), stages=stages,
+                       smem_bytes=fixed + stages * stage_bytes(storage))
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    # probes, int64?, Q, nprobe, nlist, tile; seven buffers; qq, d, qbuf;
-    # ids, cmax, nchunk; gather blocks, stream
+    # probes, int64?, Q, nprobe, nlist, tile; seven buffers; query form,
+    # query rows, d, qbuf; ids, cmax, nchunk; gather blocks, stream
     lib.semcode_ivf_prep.argtypes = (
-        [p, i, i, i, i, i] + [p] * 7 + [p, i, p] + [p, i, p] + [i, p]
+        [p, i, i, i, i, i] + [p] * 7 + [i, p, i, p] + [p, i, p] + [i, p]
     )
     lib.semcode_ivf_prep.restype = i
     # twelve pointers; nlist, cmax, d, n_pairs, nprobe, k, storage, grid,
@@ -162,18 +192,43 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.semcode_ivf_scan.restype = i
     lib.semcode_ivf_merge.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.semcode_ivf_merge.restype = i
+    lib.semcode_ivf_scan_attributes.argtypes = [i, p]
+    lib.semcode_ivf_scan_attributes.restype = i
+    lib.semcode_ivf_phases.argtypes = [i, p]
+    lib.semcode_ivf_phases.restype = i
 
 
 _library = KernelLibrary("ivf_scan", _bind)
 PROBE_LIBRARIES = {
     "products": KernelLibrary("ivf_scan", _bind, ("-DIVF_PROBE=1",), "products"),
     "selection": KernelLibrary("ivf_scan", _bind, ("-DIVF_PROBE=2",), "selection"),
+    "phases": KernelLibrary("ivf_scan", _bind, ("-DIVF_PROBE=3",), "phases"),
 }
+# the phase build's counters (csrc/ivf_scan.cu, PHASE): consumer warps'
+# cycles by phase, their total, and the TMA producer's wait for free stages
+# and total
+PHASE_NAMES = ("products", "merges", "ids wait", "offer", "offer barrier",
+               "tile start and end", "consumer total", "producer waiting",
+               "producer total")
 
 
 def build_library(verbose: bool = False):
     """Compile ``csrc/ivf_scan.cu`` into ``build/kernels`` (git-ignored)."""
     return _library.build(verbose=verbose)
+
+
+def split_bf16x3(q: torch.Tensor) -> torch.Tensor:
+    """The f32 query's three bf16 parts, (3, *q.shape): hi = bf16(q), mid =
+    bf16(q - hi), lo = bf16(q - hi - mid), as ``scatter`` writes them for
+    bf16 storage. Each residual is exact in f32 and the last part holds the
+    last 8 bits, so hi + mid + lo == q for every normal f32 value: three
+    bf16 x bf16 products, each exact in f32, make q . row exactly."""
+    q = q.to(torch.float32)
+    hi = q.to(torch.bfloat16)
+    r = q - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
 
 
 def probe_table(probes: torch.Tensor, nlist: int) -> torch.Tensor:
@@ -369,14 +424,34 @@ ivf_scan.launches = 0  # scan-kernel launches (not plain-version calls)
 
 
 def ivf_scan_probe(kind: str, data, ids, q, probes, k, scales):
-    """The whole call with a measurement build of the int8 scan on the card:
+    """The whole call with a measurement build of the scan on the card:
     "products" skips the selection, "selection" runs it on synthetic scores
-    with no products (``IVF_PROBE`` in csrc/ivf_scan.cu). The outputs are
-    meaningless, and no launch of ``ivf_scan`` is counted."""
+    with no products, "phases" is the whole scan with phase timers
+    (``IVF_PROBE`` in csrc/ivf_scan.cu; read them with ``scan_phases``).
+    The outputs of the first two are meaningless, and no launch of
+    ``ivf_scan`` is counted."""
     _check_args(data, ids, q, probes, k, scales)
-    if data.dtype != torch.int8 or data.device.type != "cuda":
-        raise ValueError("ivf_scan_probe runs the int8 kernel on a CUDA card")
+    if data.device.type != "cuda":
+        raise ValueError("ivf_scan_probe runs the kernel on a CUDA card")
     return _launch(PROBE_LIBRARIES[kind].get(), data, ids, q, probes, k, scales)
+
+
+def scan_phases(storage: torch.dtype) -> dict:
+    """Cycles by phase (``PHASE_NAMES``) summed over the phase build's scans
+    of ``storage`` rows since the last read, which clears them."""
+    out = (ctypes.c_ulonglong * len(PHASE_NAMES))()
+    _check(PROBE_LIBRARIES["phases"].get().semcode_ivf_phases(
+        _STORAGE_CODES[storage], ctypes.addressof(out)), "phases")
+    return dict(zip(PHASE_NAMES, out))
+
+
+def scan_attributes(storage: torch.dtype) -> Tuple[int, int]:
+    """(registers a thread, local-memory bytes a thread: spills) of the scan
+    kernel over ``storage`` rows, from the loaded library."""
+    out = (ctypes.c_int * 2)()
+    _check(_library.get().semcode_ivf_scan_attributes(
+        _STORAGE_CODES[storage], ctypes.addressof(out)), "attributes")
+    return out[0], out[1]
 
 
 def _check(err: int, what: str) -> None:
@@ -390,15 +465,20 @@ def _probes_operand(probes: torch.Tensor) -> torch.Tensor:
     return probes.contiguous()
 
 
+# how scatter writes a storage's query rows into pair order (csrc: qform)
+_QUERY_FORMS = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 3}
+
+
 class _Plan:
     """The device buffers of one call: a single int32 scratch tensor cut
     into ptab, prank, pair_at, cluster counts, each probed cluster's chunk
     count (nchunk), tiles (tiles, 4), hdr (tiles, valid pairs), qthr (each
-    query's bound for the int8 scan) and the per-pair lists (scores and
-    ids, n_pairs x k each), passed to the kernels as pointers; and qbuf,
-    the gathered int8 query rows."""
+    query's bound) and the per-pair lists (scores and ids, n_pairs x k
+    each), passed to the kernels as pointers; and qbuf, the query rows in
+    pair order for ``storage`` rows (int8 (n_pairs, d); bf16 (n_pairs, 3,
+    d), a pair's three parts; f32 (n_pairs, d)), or None."""
 
-    def __init__(self, n_q, n_pairs, nlist, tiles, k, qq, device):
+    def __init__(self, n_q, n_pairs, nlist, tiles, k, storage, d, device):
         n = n_pairs
         sizes = {"ptab": n, "prank": n, "pair_at": n, "count": nlist,
                  "nchunk": nlist, "tiles": 4 * tiles, "hdr": 2, "qthr": n_q,
@@ -413,25 +493,30 @@ class _Plan:
         base = self.scratch.data_ptr()
         self.ptr = {name: base + 4 * lo for name, (lo, _) in self.offsets.items()}
         self.qbuf = None
-        if qq is not None:
-            self.qbuf = torch.empty((n, qq.shape[1]), dtype=torch.int8, device=device)
+        if storage == torch.bfloat16:
+            self.qbuf = torch.empty((n, QUERY_PARTS, d), dtype=storage, device=device)
+        elif storage is not None:
+            self.qbuf = torch.empty((n, d), dtype=storage, device=device)
 
     def view(self, name):
         lo, size = self.offsets[name]
         return self.scratch[lo:lo + size]
 
 
-def _run_prep(lib, probes, nlist, query_tile, plan: _Plan, qq, ids, stream):
+def _run_prep(lib, probes, nlist, query_tile, plan: _Plan, qv, storage, ids,
+              stream):
     """Launch ``prep`` and ``scatter`` into ``plan``'s buffers; ``scatter``
-    also gathers the query rows when ``qq`` is given and counts each probed
-    cluster's chunks when ``ids`` is."""
+    also writes the query rows ``qv`` into ``plan.qbuf`` in pair order, in
+    the form ``storage`` rows take, when ``qv`` is given, and counts each
+    probed cluster's chunks when ``ids`` is."""
     n_q, n_probe = probes.shape
     p = plan.ptr
     _check(lib.semcode_ivf_prep(
         probes.data_ptr(), int(probes.dtype == torch.int64), n_q, n_probe,
         nlist, query_tile, p["ptab"], p["prank"], p["pair_at"], p["count"],
         p["tiles"], p["hdr"], p["qthr"],
-        None if qq is None else qq.data_ptr(), 0 if qq is None else qq.shape[1],
+        0 if qv is None else _QUERY_FORMS[storage],
+        None if qv is None else qv.data_ptr(), 0 if qv is None else qv.shape[1],
         None if plan.qbuf is None else plan.qbuf.data_ptr(),
         None if ids is None else ids.data_ptr(), 0 if ids is None else ids.shape[1],
         p["nchunk"], -(-(n_q * n_probe) // GATHER_ROWS), stream), "prep")
@@ -450,7 +535,6 @@ def _run_merge(lib, part_s_ptr, part_i_ptr, ptab_ptr, n_q, n_probe, k,
 
 def _launch(lib, data, ids, q, probes, k, scales):
     nlist, cmax, d = data.shape
-    int8 = data.dtype == torch.int8
     qv, qsc = _prepare(data, q, scales)
     qv = qv.contiguous()
     qsc = qsc.contiguous()
@@ -464,20 +548,18 @@ def _launch(lib, data, ids, q, probes, k, scales):
     probes = _probes_operand(probes)
     n_q, n_probe = probes.shape
     dev = data.device
-    geom = ivf_geometry(int8, nlist, cmax, d, n_q, n_probe, k,
+    geom = ivf_geometry(data.dtype, nlist, cmax, d, n_q, n_probe, k,
                         sm_count(dev.index or 0))
-    plan = _Plan(n_q, geom.n_pairs, nlist, geom.tile_bound, k,
-                 qv if int8 else None, dev)
+    plan = _Plan(n_q, geom.n_pairs, nlist, geom.tile_bound, k, data.dtype, d, dev)
     p = plan.ptr
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _run_prep(lib, probes, nlist, geom.query_tile, plan,
-                  qv if int8 else None, ids, stream)
-        queries = plan.qbuf if int8 else qv
+        _run_prep(lib, probes, nlist, geom.query_tile, plan, qv, data.dtype, ids,
+                  stream)
         _check(lib.semcode_ivf_scan(
             data.data_ptr(), ids.data_ptr(),
-            (scales if scales is not None else qsc).data_ptr(),
-            queries.data_ptr(), qsc.data_ptr(), p["pair_at"], p["tiles"],
+            None if scales is None else scales.data_ptr(),
+            plan.qbuf.data_ptr(), qsc.data_ptr(), p["pair_at"], p["tiles"],
             p["hdr"], p["nchunk"], p["part_s"], p["part_i"], p["qthr"],
             nlist, cmax, d, geom.n_pairs, n_probe, k,
             _STORAGE_CODES[data.dtype], geom.grid, geom.stages,
@@ -494,20 +576,20 @@ def ivf_prep(probes: torch.Tensor, nlist: int, query_tile: int = QUERY_TILE,
     path."""
     if probes.device.type == "cpu":
         return prep_reference(probes, nlist, query_tile, ids)
-    if query_tile not in (QUERY_TILE, FLOAT_QUERY_TILE):
-        raise ValueError(f"query_tile must be {QUERY_TILE} or {FLOAT_QUERY_TILE}")
+    if not 0 < query_tile <= QUERY_TILE:
+        raise ValueError(f"query_tile must be 1..{QUERY_TILE}")
     probes = _probes_operand(probes)
     n_q, n_probe = probes.shape
     n_pairs = n_q * n_probe
     plan = _Plan(n_q, n_pairs, nlist, tile_bound(n_pairs, nlist, query_tile), 1,
-                 None, probes.device)
+                 None, 0, probes.device)
     if ids is not None:
         ids = ids.contiguous()
         plan.view("nchunk").zero_()  # scatter writes the probed clusters'
     with torch.cuda.device(probes.device):
         stream = torch.cuda.current_stream(probes.device).cuda_stream
-        _run_prep(_library.get(), probes, nlist, query_tile, plan, None, ids,
-                  stream)
+        _run_prep(_library.get(), probes, nlist, query_tile, plan, None, None,
+                  ids, stream)
     n_tiles, n_valid = plan.view("hdr").tolist()
     out = (plan.view("ptab").view(n_q, n_probe), plan.view("pair_at")[:n_valid],
            plan.view("tiles").view(-1, 4)[:n_tiles, :3].contiguous())

@@ -282,6 +282,94 @@ def test_ivf_scan_int8_crowded_clusters(cuda, nlist, cmax, d, nq, nprobe, k):
     assert torch.equal(s, rs) and torch.equal(i, ri)
 
 
+@pytest.mark.parametrize("storage", ["bfloat16", "float32"])
+@pytest.mark.parametrize("nlist,cmax,d,nq,nprobe,k", [
+    (64, 2176, 384, 200, 16, 64),
+    (256, 2176, 128, 100, 128, 10),
+    (16, 2176, 3072, 70, 8, 64),
+])
+def test_ivf_scan_float_crowded_clusters(cuda, storage, nlist, cmax, d, nq,
+                                         nprobe, k):
+    """bf16/f32 at cmax 2176 with clusters probed by 64, by 65 and by all Q
+    queries (bf16 tiles of 20, f32 tiles of 32: tiles that end at, past and
+    far past the probers of one cluster), empty tails of every length,
+    nprobe up to 128: scores by the float rule and ids equal at untied
+    positions."""
+    from semcode_tpu_torch.ops import ivf_scan as ivf_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(nlist + nq + nprobe + d)
+    data, ids, q, _, scales = _ivf_operands(storage, nlist, cmax, d, nq, nprobe,
+                                            gen, cuda)
+    ids = _empty_tails(ids, gen)
+    probes = _crowded_probes(nq, nlist, nprobe, gen, cuda)
+    s, i = ivf_ops.ivf_scan(data, ids, q, probes, k, scales)
+    torch.cuda.synchronize()
+    rs, ri = ivf_ops.ivf_scan_reference(data, ids, q, probes, k, scales)
+    torch.testing.assert_close(s, rs, rtol=1e-5, atol=1e-6)
+    assert untied_ids_equal(rs, ri, i, 1e-5)
+
+
+@pytest.mark.parametrize("storage", ["int8", "bfloat16", "float32"])
+def test_ivf_scan_one_query_every_probe(cuda, storage):
+    """Q = 1 at d 3072, cmax 128, k 64 and nprobe 128 (every tile holds one
+    query), empty tails of every length: against the plain version."""
+    from semcode_tpu_torch.ops import ivf_scan as ivf_ops
+
+    gen = torch.Generator(device=cuda).manual_seed(3072)
+    data, ids, q, probes, scales = _ivf_operands(storage, 160, 128, 3072, 1, 128,
+                                                 gen, cuda)
+    ids = _empty_tails(ids, gen)
+    s, i = ivf_ops.ivf_scan(data, ids, q, probes, 64, scales)
+    torch.cuda.synchronize()
+    rs, ri = ivf_ops.ivf_scan_reference(data, ids, q, probes, 64, scales)
+    if storage == "int8":
+        assert torch.equal(s, rs) and torch.equal(i, ri)
+    else:
+        torch.testing.assert_close(s, rs, rtol=1e-5, atol=1e-6)
+        assert untied_ids_equal(rs, ri, i, 1e-5)
+
+
+@pytest.mark.parametrize("storage", ["int8", "bfloat16", "float32"])
+def test_ivf_scan_geometry_is_what_the_entry_point_accepts(cuda, storage):
+    """The scan launches at ivf_geometry's stages and shared memory, and
+    its entry point refuses a stage more or other shared memory; the
+    kernel spills nothing; the phase build computes the same scores and
+    counts its cycles."""
+    from semcode_tpu_torch.ops import ivf_scan as ivf_ops
+
+    dtype = {"int8": torch.int8, "bfloat16": torch.bfloat16,
+             "float32": torch.float32}[storage]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    data, ids, q, probes, scales = _ivf_operands(storage, 16, 128, 128, 8, 4,
+                                                 gen, cuda)
+    s, i = ivf_ops.ivf_scan(data, ids, q, probes, 10, scales)
+    torch.cuda.synchronize()
+    rs, _ = ivf_ops.ivf_scan_reference(data, ids, q, probes, 10, scales)
+    torch.testing.assert_close(s, rs, rtol=1e-5, atol=1e-6)
+    geom = ivf_ops.ivf_geometry(dtype, 16, 128, 128, 8, 4, 10, 132)
+    lib = ivf_ops._library.get()
+    stage = ivf_ops.stage_bytes(dtype)
+    for stages, smem in ((geom.stages + 1, geom.smem_bytes + stage),
+                         (geom.stages, geom.smem_bytes + 1024),
+                         (1, geom.smem_bytes - (geom.stages - 1) * stage)):
+        err = lib.semcode_ivf_scan(
+            data.data_ptr(), ids.data_ptr(), q.data_ptr(), q.data_ptr(),
+            q.data_ptr(), None, None,
+            None, None, None, None, None, 16, 128, 128, 32, 4, 10,
+            ivf_ops._STORAGE_CODES[dtype], 1, stages, smem, None)
+        assert err != 0
+    regs, spill = ivf_ops.scan_attributes(dtype)
+    assert 0 < regs <= 255 and spill == 0
+    # the phase build runs the whole scan, with its counters
+    ivf_ops.scan_phases(dtype)
+    ps, _ = ivf_ops.ivf_scan_probe("phases", data, ids, q, probes, 10, scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ps, rs, rtol=1e-5, atol=1e-6)
+    phases = ivf_ops.scan_phases(dtype)
+    assert phases["consumer total"] > 0 and phases["producer total"] > 0
+    assert sum(phases[name] for name in ivf_ops.PHASE_NAMES[:6]) <= phases["consumer total"]
+
+
 @pytest.mark.parametrize("nq,nlist,nprobe,tile", [
     (1, 16, 1, 64), (200, 64, 16, 64), (700, 16, 8, 64), (100, 256, 128, 32),
     (50, 70000, 32, 64),

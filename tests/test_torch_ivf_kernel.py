@@ -143,6 +143,56 @@ def test_argument_checks():
                  torch.from_numpy(sc)[:, :100])
 
 
+# -- the bf16 scan's query split -------------------------------------------------
+
+
+def test_split_bf16x3_reconstructs_the_query():
+    """hi + mid + lo == q exactly, over magnitudes from 1e-6 to 1e5; hi is
+    q rounded to bf16 and each later part the rounding of what is left."""
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((32, 3072)).astype(np.float32)
+    q *= (10.0 ** rng.integers(-6, 6, q.shape)).astype(np.float32)
+    tq = torch.from_numpy(q)
+    parts = ivf_ops.split_bf16x3(tq)
+    assert parts.shape == (3, 32, 3072) and parts.dtype == torch.bfloat16
+    assert torch.equal(parts.double().sum(0), tq.double())
+    assert torch.equal(parts[0], tq.to(torch.bfloat16))
+    rest = tq - parts[0].float()
+    assert torch.equal(parts[1], rest.to(torch.bfloat16))
+    assert torch.equal(parts[2].float(), rest - parts[1].float())
+
+
+@pytest.mark.parametrize("d", [128, 384, 3072])
+def test_three_part_bf16_products_hold_the_float_rule(d):
+    """bf16 rows scored against the query's three bf16 parts as the scan
+    sums them: each wgmma k16 step's 16 products exact (bf16 x bf16 fits
+    f32) and handed on as f32, each part's steps summed in its own f32
+    accumulator row, then hi + (mid + lo). Held to chip_smoke's float rule
+    (rtol 1e-5, atol 1e-6) against ivf_scan_reference on the same rows,
+    with a margin of 4x. The tensor cores' own accumulation is not modelled
+    here; the chip run holds the kernel itself to the rule."""
+    rng = np.random.default_rng(d)
+    n, nq, k = 256, 16, 64
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = rng.standard_normal((nq, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    rows = torch.from_numpy(x).to(torch.bfloat16)
+    tq = torch.from_numpy(q)
+    parts = ivf_ops.split_bf16x3(tq).double().view(3, nq, d // 16, 16)
+    steps = torch.einsum("pqkd,nkd->pqnk", parts, rows.double().view(n, d // 16, 16)).float()
+    acc = torch.zeros((3, nq, n), dtype=torch.float32)
+    for j in range(d // 16):
+        acc = acc + steps[:, :, :, j]
+    got = acc[0] + (acc[1] + acc[2])
+    ids = torch.arange(n, dtype=torch.int32).view(1, n)
+    rs, ri = ivf_scan_reference(rows.view(1, n, d), ids, tq,
+                                torch.zeros((nq, 1), dtype=torch.int64), k)
+    at = torch.gather(got, 1, ri.long())
+    torch.testing.assert_close(at, rs, rtol=1e-5, atol=1e-6)
+    assert ((at - rs).abs() <= (1e-6 + 1e-5 * rs.abs()) / 4).all()
+
+
 # -- launch geometry and the bookkeeping kernels' plain versions --------------
 
 
@@ -155,15 +205,16 @@ def _tiles_needed(counts, tile):
 @pytest.mark.parametrize("nq", [1, 8, 512])
 @pytest.mark.parametrize("nprobe", [1, 32, 128])
 def test_geometry_fits_and_bounds_the_tiles(cmax, d, nq, nprobe):
-    """Shared memory within Hopper's 232,448 B per block, and a tile bound
-    that covers every way the pairs can fall on the clusters: spread over
-    all of them, in clusters of one tile and one pair more, or every query
-    probing the same clusters."""
-    for int8 in (True, False):
+    """Shared memory within Hopper's 232,448 B per block for every storage,
+    and a tile bound that covers every way the pairs can fall on the
+    clusters: spread over all of them, in clusters of one tile and one pair
+    more, or every query probing the same clusters."""
+    for storage in (torch.int8, torch.bfloat16, torch.float32):
+        int8 = storage == torch.int8
         for nlist in (16, 1024, 70000):
             if nprobe > nlist:
                 continue
-            g = ivf_ops.ivf_geometry(int8, nlist, cmax, d, nq, nprobe, 64, 132)
+            g = ivf_ops.ivf_geometry(storage, nlist, cmax, d, nq, nprobe, 64, 132)
             n = nq * nprobe
             assert g.n_pairs == n
             assert g.smem_bytes <= ivf_ops.SMEM_LIMIT
@@ -172,15 +223,14 @@ def test_geometry_fits_and_bounds_the_tiles(cmax, d, nq, nprobe):
                 warps, smem = ivf_ops.merge_geometry(nprobe, k)
                 assert 1 <= warps <= ivf_ops.MAX_MERGE_WARPS
                 assert smem == warps * nprobe * k * 4 <= ivf_ops.MERGE_SMEM_MAX
-            if int8:
-                assert g.query_tile == ivf_ops.QUERY_TILE and g.stages >= 3
-                assert g.smem_bytes == (ivf_ops.SMEM_ALIGN + ivf_ops.BUFFER_BYTES
-                                        + ivf_ops.EPILOGUE_BYTES + ivf_ops.MISC_BYTES
-                                        + g.stages * ivf_ops.STAGE_BYTES)
-                assert 1 <= g.grid <= 132
-            else:
-                assert g.query_tile == ivf_ops.FLOAT_QUERY_TILE
-                assert g.grid == g.tile_bound and g.smem_bytes == 0
+            assert g.stages >= 3 and 1 <= g.grid <= min(132, g.tile_bound)
+            fixed = (ivf_ops.SMEM_ALIGN + ivf_ops.EPILOGUE_BYTES + ivf_ops.MISC_BYTES
+                     + ivf_ops.buffer_bytes(storage))
+            assert g.smem_bytes == fixed + g.stages * ivf_ops.stage_bytes(storage)
+            # one stage more would not fit
+            assert g.smem_bytes + ivf_ops.stage_bytes(storage) > ivf_ops.SMEM_LIMIT
+            assert g.query_tile == ivf_ops.query_tile(storage)
+            assert ivf_ops.buffer_bytes(storage) == 8 * 192 * g.query_tile
             tile = g.query_tile
             per = min(nq, tile + 1)
             layouts = [
@@ -199,7 +249,9 @@ def test_geometry_rejects_what_the_kernel_cannot_run():
                 (128, 384, 8, 8, 65), (128, 384, 0, 8, 10)]:
         cmax, d, nq, nprobe, k = bad
         with pytest.raises(ValueError):
-            ivf_ops.ivf_geometry(True, 64, cmax, d, nq, nprobe, k, 132)
+            ivf_ops.ivf_geometry(torch.int8, 64, cmax, d, nq, nprobe, k, 132)
+    with pytest.raises(ValueError):
+        ivf_ops.ivf_geometry(torch.float16, 64, 128, 128, 8, 8, 10, 132)
 
 
 def test_geometry_constants_match_the_source():
@@ -212,12 +264,31 @@ def test_geometry_constants_match_the_source():
              for m in re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
     assert const["kQTile"] == ivf_ops.QUERY_TILE
     assert const["kFQueries"] == ivf_ops.FLOAT_QUERY_TILE
+    assert const["kBQueries"] == ivf_ops.BF16_QUERY_TILE
     assert const["kRowChunk"] == ivf_ops.ROW_CHUNK
     assert const["kDepth"] == ivf_ops.DEPTH_CHUNK
     assert const["kQBox"] == ivf_ops.QUERY_BOX
+    assert const["kFBox"] == ivf_ops.FLOAT_QUERY_BOX
+    assert const["kParts"] == ivf_ops.QUERY_PARTS
     assert const["kCapMax"] == ivf_ops.CANDIDATES_MAX
     assert ivf_ops.CANDIDATE_POOL // ivf_ops.QUERY_TILE >= ivf_ops.MAX_K + ivf_ops.ROW_CHUNK
+    assert (ivf_ops.FLOAT_CANDIDATE_POOL // ivf_ops.FLOAT_QUERY_TILE
+            >= ivf_ops.MAX_K + ivf_ops.ROW_CHUNK)
     assert f"kPool = kQTile * {ivf_ops.CANDIDATE_POOL // ivf_ops.QUERY_TILE};" in src
+    assert (f"kBPool = kBQueries * "
+            f"{ivf_ops.BF16_CANDIDATE_POOL // ivf_ops.BF16_QUERY_TILE};") in src
+    assert (f"kFPool = kFQueries * "
+            f"{ivf_ops.FLOAT_CANDIDATE_POOL // ivf_ops.FLOAT_QUERY_TILE};") in src
+    # the stage layouts: rows, then the query operands of each storage (a
+    # 64-row M operand for int8 and bf16, whose warps' 16 rows hold the three
+    # parts of up to 5 queries each; f32 the tile's 32 rows)
+    assert "kRowBytes + (s == 2 ? kFQueries * kDepth : kQBytes)" in src
+    assert "s == 0 ? kPool : s == 1 ? kBPool : kFPool" in src
+    assert ivf_ops.QUERY_PARTS * -(-ivf_ops.BF16_QUERY_TILE // 4) <= ivf_ops.QUERY_BOX
+    assert ivf_ops.FLOAT_QUERY_TILE % ivf_ops.FLOAT_QUERY_BOX == 0
+    assert ivf_ops.STAGE_BYTES == (ivf_ops.ROW_CHUNK + ivf_ops.QUERY_TILE) * ivf_ops.DEPTH_CHUNK
+    assert ivf_ops.BF16_STAGE_BYTES == ivf_ops.STAGE_BYTES
+    assert ivf_ops.F32_STAGE_BYTES == (ivf_ops.ROW_CHUNK + ivf_ops.FLOAT_QUERY_TILE) * ivf_ops.DEPTH_CHUNK
     assert const["kMiscBytes"] == ivf_ops.MISC_BYTES
     assert const["kSmemAlign"] == ivf_ops.SMEM_ALIGN
     assert const["kSmemLimit"] == ivf_ops.SMEM_LIMIT

@@ -311,3 +311,69 @@ def test_reload_keeps_index_options(tmp_path):
     again.connect()
     assert again._index.scan_impl == "pallas"
     assert again._index.rescore_width == -1
+
+
+def _bulk_store(cls, tmp_path, index_kind, mesh1=None, payload=EmbeddingPayload):
+    kw = dict(embedding_dimension=32, index_auto_compact_ratio=0.0)
+    if index_kind == "ivf":
+        kw.update(index_kind="ivf", index_nlist=16, index_nprobe=16)
+    cfg = _settings(cls, tmp_path, **kw)
+    store = (JaxStore(cfg, mesh=mesh1) if cls is JaxSettings
+             else VectorStore(cfg, device="cpu"))
+    rng = np.random.default_rng(11)
+    p1, v1 = _payloads(payload, rng, 150, "a", "r1")
+    p2, v2 = _payloads(payload, rng, 250, "b", "r2")
+    store.upsert_embeddings(p1)
+    store.upsert_embeddings(p2)
+    return store, v1, v2
+
+
+@pytest.mark.parametrize("index_kind", ["flat", "ivf"])
+def test_search_bulk_matches_search_batch(tmp_path, index_kind):
+    """search_bulk (chunked device dispatch) returns search_batch's hits,
+    with a padded tail (13 queries in batches of 8), under filters, and
+    after deletions (on IVF, live rows keep ids past the shrunken size)."""
+    store, v1, v2 = _bulk_store(AppSettings, tmp_path, index_kind)
+    q = np.concatenate([v1[:7], v2[150:156]])
+    for filters in (None, {"repo": "r2"}):
+        bulk = store.search_bulk(q, top_k=3, filters=filters, batch_q=8,
+                                 chunk_batches=2)
+        ref = store.search_batch(q, top_k=3, filters=filters)
+        assert len(bulk) == len(ref) == 13
+        assert _ids(bulk) == _ids(ref)
+        for hb, hr in zip(bulk, ref):
+            np.testing.assert_allclose([h.score for h in hb], [h.score for h in hr],
+                                       rtol=1e-5)
+            assert filters is None or all(h.repo == "r2" for h in hb)
+    assert _ids(store.search_bulk(q[:7], top_k=1))[0] == ["a0"]
+    store.delete_repo("r1")
+    assert store.count() == 250
+    q = v2[150:163]
+    ref = store.search_batch(q, top_k=3)
+    assert all(h and h[0].id == f"b{150 + i}" for i, h in enumerate(ref))
+    assert _ids(store.search_bulk(q, top_k=3, batch_q=8, chunk_batches=2)) == _ids(ref)
+
+
+def test_search_bulk_refuses_other_dims(tmp_path):
+    store, _, _ = _bulk_store(AppSettings, tmp_path, "flat")
+    with pytest.raises(ValueError, match="dim mismatch"):
+        store.search_bulk(np.zeros((8, 48), dtype=np.float32), top_k=3)
+    empty = VectorStore(_settings(AppSettings, tmp_path / "e", embedding_dimension=32),
+                        device="cpu")
+    assert empty.search_bulk(np.zeros((3, 32), np.float32), top_k=3) == [[], [], []]
+
+
+@pytest.mark.parametrize("index_kind", ["flat", "ivf"])
+def test_search_bulk_matches_reference(tmp_path, mesh1, index_kind):
+    """The same store contents and queries through both packages' bulk
+    search: the same ids, scores within 1e-5."""
+    j, v1, v2 = _bulk_store(JaxSettings, tmp_path / "j", index_kind, mesh1, JaxPayload)
+    t, _, _ = _bulk_store(AppSettings, tmp_path / "t", index_kind)
+    q = np.concatenate([v1[:9], v2[:12]])
+    for filters in (None, {"repo": "r1"}):
+        hj = j.search_bulk(q, top_k=4, filters=filters, batch_q=8, chunk_batches=2)
+        ht = t.search_bulk(q, top_k=4, filters=filters, batch_q=8, chunk_batches=2)
+        assert _ids(ht) == _ids(hj)
+        for a, b in zip(hj, ht):
+            np.testing.assert_allclose([h.score for h in b], [h.score for h in a],
+                                       rtol=1e-5, atol=1e-5)
