@@ -62,6 +62,25 @@ Phases (any failed check exits non-zero before the final line):
    queries through the pipeline; the kernel launch count is read around
    the run, MRR@10 printed, and the first 8 queries' top-10 paths must
    equal the CPU engine's wherever neighbouring scores differ by > 1e-4;
+5. the API server on the card (run after phase 3c, on aiohttp over a
+   localhost socket): 5a. ``create_app`` over a fresh int8 kernel-route
+   workspace with an API key: a request without the key gets 401,
+   ``POST /jobs/ingest`` of ``semcode_tpu/`` is polled to ``completed``,
+   ``/repos`` lists it and ``/stats`` names the card; the 102 frozen
+   questions go to ``POST /query`` with 32 in flight, so they ride the
+   micro-batcher; every answer's paths must equal the same store's
+   in-process ``query_batch``, MRR@10 must equal phase 3's kernel-route
+   value, top2_scan's launches are read around the run (>= 1), and
+   ``/telemetry``'s per-stage means are printed. 5b. the port's
+   ``tools.bench_api`` at the reference API bench's shape (20,000 x 384
+   int8, concurrency 32, 8 s after a warm-up) on the full-matrix route and
+   on the kernel route: QPS, p50, p99, stage means and the device-busy share
+   of a profiled window of 64 requests; top2_scan's launches are read around
+   the kernel-route leg (>= 1), and an ingest job of ``semcode_tpu/index``
+   runs during its timed window: no request may fail or come back without
+   hits. Then top2_scan at the served shape (the SLO corpus's 20,000 rows,
+   one 16-question sub-batch) against its plain version, bit for bit, with
+   its time, bound and library time;
 4. scale: a 1M x 384 int8 FlatIndex with its f32 rescore mirror (the JAX
    package's bench.py flagship shape, a clustered Gaussian mixture made on
    the card from a seeded torch.Generator): recall@10 against an f32
@@ -869,6 +888,222 @@ def bf16_store(workdir: Path):
         f"{launches}, MRR@10 {mrr:.4f} recall@10 {recall:.4f}; first 8 queries: "
         "card top-10 paths equal the CPU engine's (positions apart by 1e-4)")
     return {"launches": launches, "mrr": mrr, "recall": recall}
+
+
+# -- phase 5: the API server on the card ------------------------------------------
+
+API_KEY = "smoke"
+API_ROWS = 20_000  # the reference API bench's corpus (tools/bench_api.py)
+API_CONCURRENCY = 32
+API_SECS = 8.0
+
+
+async def wait_job(client, job_id: str, headers, timeout_s: float = 300.0):
+    import asyncio
+
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        r = await client.get(f"/jobs/{job_id}", headers=headers)
+        if r.status != 200:
+            fail(f"GET /jobs/{job_id} answered {r.status}")
+        job = await r.json()
+        if job["status"] in ("completed", "failed", "interrupted"):
+            return job
+        await asyncio.sleep(0.1)
+    fail(f"ingest job {job_id} did not finish in {timeout_s} s")
+
+
+def api_ingest_and_query(workdir: Path, mrr_pallas: float, device: str = "cuda"):
+    """5a: the self-ingest through HTTP on a fresh workspace, then the 102
+    frozen questions with 32 in flight: answers equal to the same store's
+    in-process query_batch, MRR@10 equal to phase 3's kernel route."""
+    import asyncio
+
+    import aiohttp
+    import torch
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from semcode_tpu_torch.api.main import create_app
+    from semcode_tpu_torch.ops.scan_top2 import top2_scan
+    from semcode_tpu_torch.settings import AppSettings
+
+    queries = frozen_queries()
+    questions = [q for q, _ in queries]
+    labels = [rel for _, rel in queries]
+    cfg = AppSettings(
+        workspace_root=workdir / f"api-{device}",
+        index_kind="flat",
+        index_scan_impl="pallas",
+        rag_provider="fallback",
+        rag_query_cache_size=0,
+        api_key=API_KEY,
+    )
+    app = create_app(config=cfg, device=device)
+    auth = {"X-API-Key": API_KEY}
+    out = {}
+
+    async def serve():
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            r = await client.get("/repos")
+            if r.status != 401:
+                fail(f"/repos without the API key answered {r.status}, not 401")
+            t0 = time.perf_counter()
+            r = await client.post("/jobs/ingest", headers=auth, json={
+                "name": "semcode_tpu", "root": str(ROOT), "include": ["semcode_tpu"]})
+            if r.status != 200:
+                fail(f"POST /jobs/ingest answered {r.status}: {await r.text()}")
+            job = await wait_job(client, (await r.json())["id"], auth)
+            out["ingest_s"] = time.perf_counter() - t0
+            if job["status"] != "completed":
+                fail(f"the ingest job ended {job['status']}: {job['error']}")
+            out["chunks"] = job["result"]["chunk_count"]
+            repos = await (await client.get("/repos", headers=auth)).json()
+            if [(x["name"], x["chunk_count"]) for x in repos] != [
+                    ("semcode_tpu", out["chunks"])]:
+                fail(f"/repos does not list the ingested repo: {repos}")
+            stats = await (await client.get("/stats", headers=auth)).json()
+            out["stats_devices"], out["stats_backend"] = stats["devices"], stats["backend"]
+            if device == "cuda" and (stats["backend"] != "cuda" or stats["devices"][0]
+                                     != torch.cuda.get_device_name(0)):
+                fail(f"/stats does not name the card: {stats}")
+            if stats["index"]["rows"] != out["chunks"]:
+                fail(f"/stats counts {stats['index']['rows']} rows")
+
+            in_flight = asyncio.Semaphore(API_CONCURRENCY)
+
+            async def ask(question):
+                async with in_flight:
+                    r = await client.post("/query", headers=auth,
+                                          json={"question": question, "top_k": 10})
+                    if r.status != 200:
+                        fail(f"/query answered {r.status}: {await r.text()}")
+                    return await r.json()
+
+            top2_scan.launches = 0
+            t0 = time.perf_counter()
+            answers = await asyncio.gather(*(ask(q) for q in questions))
+            out["served_s"] = time.perf_counter() - t0
+            out["launches"] = top2_scan.launches
+            tele = await (await client.get("/telemetry", headers=auth)).json()
+            out["stages"] = tele["query_stages"]
+            return answers
+        finally:
+            await client.close()
+
+    answers = asyncio.run(serve())
+    direct = app["pipeline"].query_batch(questions, top_k=10)
+    for qtext, got, want in zip(questions, answers, direct):
+        pa = [s["path"] for s in got["sources"]]
+        if not pa or pa != [s["path"] for s in want["sources"]]:
+            fail(f"/query and query_batch disagree on {qtext!r}:\n{pa}\n"
+                 f"{[s['path'] for s in want['sources']]}")
+    mrr, recall = rank_metrics(answers, labels)
+    # each answer of a batch of n carries n in its meta
+    batches = sum(1 / max(int(a["meta"].get("batch_size") or 1), 1) for a in answers)
+    out.update(mrr=mrr, recall=recall, batches=round(batches))
+    stages = out["stages"]
+    log(f"[api] transport: aiohttp {aiohttp.__version__} on a localhost socket; "
+        "HTTP self-ingest of semcode_tpu/: "
+        f"{out['chunks']} chunks in {out['ingest_s']:.2f} s; /stats names "
+        f"{out['stats_devices']} ({out['stats_backend']})")
+    log(f"[api] 102 frozen questions, {API_CONCURRENCY} in flight: "
+        f"{out['served_s'] * 1e3:.1f} ms in {out['batches']} pipeline calls; "
+        f"top2_scan launches {out['launches']}; MRR@10 {mrr:.4f} recall@10 "
+        f"{recall:.4f} (phase 3 kernel route {mrr_pallas:.4f}); every answer's "
+        "paths equal the in-process query_batch's")
+    log("[api] /telemetry stage means per query (ms): " + ", ".join(
+        f"{k} {v}" for k, v in stages["avg_ms_per_query"].items()))
+    if device == "cuda" and out["launches"] < 1:
+        fail("/query never launched the top2_scan kernel")
+    if abs(mrr - mrr_pallas) > 1e-9:
+        fail(f"served MRR@10 {mrr:.4f} differs from phase 3's {mrr_pallas:.4f}")
+    return out
+
+
+def api_slo(device: str = "cuda", rows: int = API_ROWS, secs: float = API_SECS):
+    """5b: the port's /query SLO harness at the reference API bench's shape,
+    on the full-matrix route and on the kernel route; during the kernel
+    route's timed window an ingest job of semcode_tpu/index runs behind the
+    same server and no query may fail."""
+    import asyncio
+
+    from semcode_tpu_torch.ops.scan_top2 import top2_scan
+    from semcode_tpu_torch.tools import bench_api
+
+    auth = {"X-API-Key": bench_api.API_KEY}
+
+    async def ingest_job(client):
+        r = await client.post("/jobs/ingest", headers=auth, json={
+            "name": "index", "root": str(ROOT), "include": ["semcode_tpu/index"]})
+        if r.status != 200:
+            fail(f"POST /jobs/ingest answered {r.status}")
+        t0 = time.perf_counter()
+        job = await wait_job(client, (await r.json())["id"], auth)
+        job["wall_s"] = time.perf_counter() - t0
+        return job
+
+    legs = {}
+    for impl in ("auto", "pallas"):
+        top2_scan.launches = 0
+        leg = bench_api.run_api_bench(
+            rows, 384, API_CONCURRENCY, secs, impl=impl, device=device,
+            profile_requests=64, during=ingest_job if impl == "pallas" else None)
+        leg["launches"] = top2_scan.launches
+        legs[impl] = leg
+        if leg["failed"] or leg["empty"]:
+            fail(f"{impl} route: {leg['failed']} failed and {leg['empty']} empty "
+                 f"answers: {leg['errors']}")
+        prof = leg.get("profile") or {}
+        log(f"[api-slo] {impl}: {rows} x 384 int8, c={API_CONCURRENCY}, "
+            f"{secs:.0f} s: QPS {leg['qps']}, p50 {leg['p50_ms']} ms, p99 "
+            f"{leg['p99_ms']} ms, {leg['requests']} requests, 0 failed, in "
+            f"{leg['pipeline_calls']:.0f} pipeline calls (an answer rode a call of "
+            f"{leg['batch_mean']:.2f} on average); store built in "
+            f"{leg['build_s']:.2f} s; top2_scan launches {leg['launches']}")
+        log(f"[api-slo] {impl} stage means per query (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in leg["stage_ms"].items()))
+        if prof:
+            log(f"[api-slo] {impl} profiled window of {prof['requests']} requests: "
+                f"wall {prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.3f}"
+                f" ms ({100 * prof['busy_share']:.2f}%), {prof['launches']} kernel "
+                f"launches; most launched {prof['top_launches'][:4]}")
+    job = legs["pallas"]["during"]
+    if job["status"] != "completed":
+        fail(f"the ingest job under query load ended {job['status']}: {job['error']}")
+    log(f"[api-slo] ingest of semcode_tpu/index under the pallas leg's load: "
+        f"{job['result']['chunk_count']} chunks in {job['wall_s']:.2f} s, no "
+        "query failed")
+    if device == "cuda" and legs["pallas"]["launches"] < 1:
+        fail("the kernel-route SLO leg never launched top2_scan")
+    return legs
+
+
+def api_kernel_shape(rows: int = API_ROWS, nq: int = API_CONCURRENCY // 2):
+    """top2_scan at the served path's shape: the SLO store's rows (the same
+    seeded vectors as int8) and one sub-batch of hash-embedded questions
+    (c = 32 with the batcher's split of 2 runs groups of 16)."""
+    import torch
+
+    from semcode_tpu_torch.embeddings.hash_embedder import HashEmbeddings
+    from semcode_tpu_torch.index.flat import FlatIndex
+    from semcode_tpu_torch.index.scan import quantize_queries_device
+    from semcode_tpu_torch.ops.scan_top2 import NEG
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(rows, DIM, generator=gen, device="cuda")
+    x /= torch.clamp(x.norm(dim=1, keepdim=True), min=1e-9)
+    index = FlatIndex(DIM, metric="ip", dtype="int8", scan_impl="pallas",
+                      device="cuda")
+    index.add(x.cpu().numpy())
+    vecs, _, valid, scales, _, _ = index._ensure_device()
+    add = torch.where(valid, 0.0, NEG).float()
+    emb = HashEmbeddings(DIM, device="cuda")
+    q = emb.embed_queries_device([f"{q} served {i}" for i, (q, _) in
+                                  enumerate(frozen_queries()[:nq])])
+    qq, qsc = quantize_queries_device(q)
+    return time_top2(vecs, scales, add, qq, qsc)
 
 
 # -- phase 4: scale -----------------------------------------------------------
@@ -1691,6 +1926,9 @@ def main() -> int:
         e2e = main_path(Path(tmp))
         ivf_e2e = ivf_store(Path(tmp), e2e["mrr_xla"])
         bf16_e2e = bf16_store(Path(tmp))
+        api = api_ingest_and_query(Path(tmp), e2e["mrr"])
+    api_legs = api_slo()
+    api_kernel = api_kernel_shape()
     scale = scale_phase()
     ivf_scale = ivf_scale_phase()
 
@@ -1713,17 +1951,29 @@ def main() -> int:
     records = []
     # top2_scan: int8 on the main path (phase 3), bf16 on phase 3c's store,
     # f32 on phase 4's f32 index; each with Q=8 and its measurement builds
-    for storage, launches, timed in (
+    # the int8 record adds the served path (phase 5): launches behind
+    # /query and behind the SLO leg, and the kernel at its shape
+    api_extra = {
+        "api_launches": api["launches"],
+        "api_slo_launches": api_legs["pallas"]["launches"],
+        **{f"api_{key}": api_kernel[key] for key in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }
+    for storage, launches, timed, extra in (
         ("int8", e2e["launches"], {"kernel": scale["kernel"],
-                                   "kernel_q8": scale["kernel_q8"]}),
-        ("bfloat16", bf16_e2e["launches"], scale["bfloat16"]),
-        ("float32", scale["float32"]["launches"], scale["float32"]),
+                                   "kernel_q8": scale["kernel_q8"]}, api_extra),
+        ("bfloat16", bf16_e2e["launches"], scale["bfloat16"], {}),
+        ("float32", scale["float32"]["launches"], scale["float32"], {}),
     ):
         kern = timed["kernel"]
         records.append(kernel_record(
-            f"top2_scan[{storage}]", *top2_src, launches, kern, worst,
+            f"top2_scan[{storage}]", *top2_src, launches, kern,
+            max(worst, api_kernel["max_abs_err"]) if extra else worst,
             ms_q8=timed["kernel_q8"]["ms"], bound_ms_q8=timed["kernel_q8"]["bound_ms"],
-            products_ms=kern["products_ms"], selection_ms=kern["selection_ms"]))
+            products_ms=kern["products_ms"], selection_ms=kern["selection_ms"],
+            **extra))
+    if api["launches"] < 1:
+        fail("top2_scan was not launched behind /query")
     ik = ivf_scale["kernel"]
     records.append(kernel_record(
         "ivf_scan[int8]", *ivf_src, ik["launches"], ik, worst_ivf,
@@ -1750,6 +2000,9 @@ def main() -> int:
         "e2e": e2e,
         "ivf_e2e": ivf_e2e,
         "bf16_e2e": bf16_e2e,
+        "api": api,
+        "api_slo": api_legs,
+        "api_kernel": api_kernel,
         "scale": {k: v for k, v in scale.items() if k not in ("kernel", "dot_max")},
         "dot_max": dk,
         "ivf_scale": {k: v for k, v in ivf_scale.items() if k != "kernel"},

@@ -17,6 +17,10 @@ Subpackages:
     services    the ingest pipeline orchestrator
     rag         query pipeline (retrieve -> prompt -> LLM / fallback)
     eval        retrieval-quality harness
+    api         aiohttp HTTP server (micro-batched /query, jobs, telemetry)
+    frontend    built-in web UI and launcher
+    tools       kernel-measurement tools, frozen-set diagnosis, CLI smoke,
+                the /query SLO harness
 """
 
 from .version import __version__, get_version

@@ -2,10 +2,11 @@
 
 Counterpart of ``semcode_tpu/cli.py``: ``ingest`` (tree preview,
 confirmation, 4-bar rich progress over copy/chunk/embed/upsert), ``query``,
-``list``, ``remove``, ``chunks``, ``compact``, ``workspace``, ``stats`` and
-``version``, on argparse + rich. The engine runs on CUDA; set
-``SEMCODE_TORCH_DEVICE=cpu`` to run it on the CPU. ``serve``, ``eval``,
-``train``, ``train-rerank`` and ``train-lm`` are not ported yet and say so.
+``list``, ``remove``, ``chunks``, ``compact``, ``workspace``, ``stats``,
+``serve`` (the API server), ``eval`` (retrieval quality) and ``version``, on
+argparse + rich. The engine runs on CUDA; set ``SEMCODE_TORCH_DEVICE=cpu`` to
+run it on the CPU. ``train``, ``train-rerank`` and ``train-lm`` are not
+ported yet and say so.
 
 Run as ``python -m semcode_tpu_torch.cli`` or the ``semcode-tpu-torch``
 console script.
@@ -312,10 +313,68 @@ def cmd_stats(_args) -> int:
     return 0
 
 
+def cmd_serve(_args) -> int:
+    from .api.main import run
+
+    run()
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """Score embedding providers on self-labelled queries from the corpus.
+
+    The store must be populated with the SAME provider being scored (vectors
+    are compared in its space), so each provider gets its own in-memory
+    re-index of the snapshot corpus texts.
+    """
+    configure_logging()
+    from .eval import (
+        build_eval_store,
+        evaluate_store,
+        generate_queries,
+        load_frozen_queries,
+    )
+    from .index.store import VectorStore
+    from .settings import settings
+
+    base = VectorStore()
+    base.connect()
+    if base.count() == 0:
+        print("index is empty; ingest a repository first", file=sys.stderr)
+        return 1
+    filters = {"repo": args.repo} if args.repo else None
+    metas = [
+        (pid, meta)
+        for pid, meta in base.iter_payload_meta()
+        if not args.repo or meta.get("repo") == args.repo
+    ]
+    if not metas:
+        print(f"no chunks found for repo {args.repo!r}", file=sys.stderr)
+        return 1
+    queries = generate_queries(metas, max_per_kind=args.max_per_kind)
+    if args.frozen:
+        # hand-labelled path-relevance queries: scanner-independent numbers,
+        # reported separately as by_kind["frozen"] in the output
+        queries = queries + load_frozen_queries(args.frozen)
+    providers = args.provider or [settings.embedding_provider]
+    results = []
+    for name in providers:
+        cfg = settings.model_copy(update={"embedding_provider": name})
+        # shared recipe (eval.build_eval_store): embed through the
+        # PRODUCTION path — the indexer embeds symbol/stem-expanded text
+        # (embedding_text), not the raw chunk, and the eval must measure
+        # the exact vectors serving produces
+        store, emb = build_eval_store(metas, cfg, device=base.device)
+        report = evaluate_store(
+            store, emb, provider_name=name, queries=queries, filters=filters
+        )
+        results.append(report.as_dict())
+    print(json.dumps(results, indent=2))
+    return 0
+
+
 # subcommands of the JAX package's CLI that need modules not ported yet
 _NOT_PORTED = {
-    "serve": "Run the API server",
-    "eval": "Measure retrieval quality on an ingested repo",
     "train": "Contrastive-train the encoder",
     "train-rerank": "Train the learned term-embedding rerank channel",
     "train-lm": "Train the answer decoder",
@@ -391,6 +450,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--limit", type=int, default=50)
     p.add_argument("--json", action="store_true")
     p.set_defaults(func=cmd_chunks)
+
+    p = sub.add_parser("serve", help="Run the API server")
+    p.set_defaults(func=cmd_serve)
+
+    p = sub.add_parser(
+        "eval", help="Measure retrieval quality (MRR/recall) on an ingested repo"
+    )
+    p.add_argument("--repo", help="Restrict to one ingested repo (default: all)")
+    p.add_argument(
+        "--provider",
+        action="append",
+        help="Embedding provider(s) to score (default: configured provider)",
+    )
+    p.add_argument("--max-per-kind", type=int, default=150)
+    p.add_argument(
+        "--frozen",
+        nargs="?",
+        const=str(
+            Path(__file__).resolve().parents[1]
+            / "tests" / "fixtures" / "frozen_queries.json"
+        ),
+        help="Also score a frozen hand-labelled query set (JSON with "
+        "file-path relevance; default: the in-repo fixture). Its metrics "
+        "appear under by_kind['frozen'] and are comparable across "
+        "chunker/scanner generations.",
+    )
+    p.set_defaults(func=cmd_eval)
 
     for name, what in _NOT_PORTED.items():
         p = sub.add_parser(name, help=f"{what} (not ported yet)")

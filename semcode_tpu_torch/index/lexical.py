@@ -15,6 +15,7 @@ math of ``bm25_blend`` (lexical.py:269-377), chunked by query so the
 
 from __future__ import annotations
 
+import threading
 import zlib
 from typing import Optional, Sequence, Tuple
 
@@ -350,7 +351,11 @@ class LexicalFingerprints:
     Owned by the VectorStore (row ids are store-scoped: remapped by
     compaction, rebuilt on load). Mutations follow the store's writer lock;
     the device mirror is one tuple swapped as a whole and updated with
-    out-of-place scatters, like the index's own device state."""
+    out-of-place scatters, like the index's own device state. A lock-free
+    reader may still have to build that mirror from the host arrays (after
+    a growth or a remap dropped it), so the host arrays and the mirror
+    change only under ``_mu``, which such a build takes too: it never mixes
+    arrays of two generations, nor installs a mirror older than a write."""
 
     def __init__(self, row_multiple: int, kterms: int = DEFAULT_KTERMS,
                  device: DeviceLike = None):
@@ -363,6 +368,7 @@ class LexicalFingerprints:
         self._len = np.ones((cap,), dtype=np.float32)
         self._sym = np.full((cap,), -1, dtype=np.int32)
         self._dev: Optional[tuple] = None
+        self._mu = threading.RLock()
 
     # -- host mutation (store writer lock held) ---------------------------
 
@@ -387,19 +393,20 @@ class LexicalFingerprints:
         rows = np.asarray(rows, dtype=np.int64)
         if rows.size == 0:
             return
-        self._grow(int(rows.max()) + 1)
         ids, w, ln, sym = featurize_docs(metas, kterms=self.kterms)
-        self._ids[rows] = ids
-        self._w[rows] = w
-        self._len[rows] = ln
-        self._sym[rows] = sym
-        dev = self._dev
-        if dev is not None:
-            rows_d = torch.from_numpy(rows).to(self.device)
-            self._dev = tuple(
-                arr.index_copy(0, rows_d, torch.from_numpy(v).to(self.device))
-                for arr, v in zip(dev, (ids, w, ln, sym))
-            )
+        with self._mu:
+            self._grow(int(rows.max()) + 1)
+            self._ids[rows] = ids
+            self._w[rows] = w
+            self._len[rows] = ln
+            self._sym[rows] = sym
+            dev = self._dev
+            if dev is not None:
+                rows_d = torch.from_numpy(rows).to(self.device)
+                self._dev = tuple(
+                    arr.index_copy(0, rows_d, torch.from_numpy(v).to(self.device))
+                    for arr, v in zip(dev, (ids, w, ln, sym))
+                )
 
     def remap(self, remap: np.ndarray) -> None:
         """Renumber rows after compaction (old row -> new row, -1 =
@@ -417,19 +424,21 @@ class LexicalFingerprints:
         w = np.zeros((cap, self.kterms), dtype=np.float16)
         ln = np.ones((cap,), dtype=np.float32)
         sym = np.full((cap,), -1, dtype=np.int32)
-        ids[new_rows] = self._ids[keep]
-        w[new_rows] = self._w[keep]
-        ln[new_rows] = self._len[keep]
-        sym[new_rows] = self._sym[keep]
-        self._ids, self._w, self._len, self._sym = ids, w, ln, sym
-        self._dev = None
+        with self._mu:
+            ids[new_rows] = self._ids[keep]
+            w[new_rows] = self._w[keep]
+            ln[new_rows] = self._len[keep]
+            sym[new_rows] = self._sym[keep]
+            self._ids, self._w, self._len, self._sym = ids, w, ln, sym
+            self._dev = None
 
     def rebuild(self, row_meta: dict) -> None:
         """Re-featurize everything from the store's row metadata (load)."""
         if not row_meta:
             return
         rows = np.asarray(sorted(row_meta.keys()), dtype=np.int64)
-        self._grow(int(rows.max()) + 1)
+        with self._mu:
+            self._grow(int(rows.max()) + 1)
         self.set_rows(rows, [row_meta[int(r)] for r in rows])
 
     # -- device snapshot ----------------------------------------------------
@@ -437,13 +446,17 @@ class LexicalFingerprints:
     def device_arrays(self, min_rows: int) -> tuple:
         """Device mirror, padded to cover ``min_rows`` (the index's
         allocated rows) and the row multiple."""
-        self._grow(max(min_rows, 1))
         dev = self._dev
-        if dev is not None and dev[0].shape[0] >= self._ids.shape[0]:
+        if dev is not None and dev[0].shape[0] >= max(min_rows, 1):
+            return dev  # the common case: no lock on the read path
+        with self._mu:
+            self._grow(max(min_rows, 1))
+            dev = self._dev
+            if dev is not None and dev[0].shape[0] >= self._ids.shape[0]:
+                return dev
+            dev = tuple(
+                torch.from_numpy(a).to(self.device)
+                for a in (self._ids, self._w, self._len, self._sym)
+            )
+            self._dev = dev
             return dev
-        dev = tuple(
-            torch.from_numpy(a).to(self.device)
-            for a in (self._ids, self._w, self._len, self._sym)
-        )
-        self._dev = dev
-        return dev

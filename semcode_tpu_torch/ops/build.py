@@ -14,6 +14,13 @@ import threading
 from pathlib import Path
 from typing import Callable, Optional, Sequence
 
+
+class KernelError(RuntimeError):
+    """A kernel library failed to build, load or launch. The engine never
+    answers in its place: callers that degrade on other failures let this
+    one through."""
+
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -48,9 +55,12 @@ def build_library(source: str, verbose: bool = False,
     cmd = [nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(src)]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as exc:  # no nvcc on this machine
+        raise KernelError(f"cannot run {cmd[0]}: {exc}") from exc
     if proc.returncode != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"nvcc failed building {src.name}:\n{proc.stdout}\n{proc.stderr}"
         )
     if verbose and (proc.stdout or proc.stderr):
@@ -83,7 +93,11 @@ class KernelLibrary:
         (a caller may build in parallel with other work)."""
         with self._lock:
             if self._lib is None or lib_path is not None:
-                lib = ctypes.CDLL(str(lib_path or self.build()))
+                path = lib_path or self.build()
+                try:
+                    lib = ctypes.CDLL(str(path))
+                except OSError as exc:
+                    raise KernelError(f"cannot load {path}: {exc}") from exc
                 self._bind(lib)
                 self._lib = lib
             return self._lib

@@ -51,7 +51,7 @@ from dataclasses import dataclass
 import torch
 
 from ..device import sm_count
-from .build import KernelLibrary
+from .build import KernelError, KernelLibrary
 
 MODES = {"s32": 0, "bf16": 1}
 RTILES = (64, 128, 256)
@@ -215,7 +215,7 @@ def dot_max(
             geom.smem_bytes, stream,
         )
     if err != 0:
-        raise RuntimeError(f"dot_max kernel launch failed: CUDA error {err}")
+        raise KernelError(f"dot_max kernel launch failed: CUDA error {err}")
     dot_max.launches += 1
     dot_max.mode_launches[mode] += 1
     return out

@@ -69,7 +69,7 @@ import torch
 
 from ..device import sm_count
 from ..index.scan import quantize_queries_device, stable_topk
-from .build import KernelLibrary
+from .build import KernelError, KernelLibrary
 
 NEG = -3.0e38  # masked-slot / empty-result sentinel (f32)
 MAX_K = 64
@@ -215,6 +215,11 @@ PHASE_NAMES = ("products", "merges", "ids wait", "offer", "offer barrier",
 def build_library(verbose: bool = False):
     """Compile ``csrc/ivf_scan.cu`` into ``build/kernels`` (git-ignored)."""
     return _library.build(verbose=verbose)
+
+
+def load_library():
+    """The loaded kernel library, built at the first call of the process."""
+    return _library.get()
 
 
 def split_bf16x3(q: torch.Tensor) -> torch.Tensor:
@@ -456,7 +461,7 @@ def scan_attributes(storage: torch.dtype) -> Tuple[int, int]:
 
 def _check(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"ivf_scan {what} launch failed: CUDA error {err}")
+        raise KernelError(f"ivf_scan {what} launch failed: CUDA error {err}")
 
 
 def _probes_operand(probes: torch.Tensor) -> torch.Tensor:

@@ -46,7 +46,7 @@ from typing import List, Tuple
 import torch
 
 from ..device import sm_count
-from .build import KernelLibrary
+from .build import KernelError, KernelLibrary
 
 NEG = -3.0e38  # dead-row / masked-slot sentinel (f32)
 BLOCK = 128  # rows per top-2 block
@@ -159,6 +159,11 @@ PROBE_LIBRARIES = {
 def build_library(verbose: bool = False):
     """Compile ``csrc/top2_scan.cu`` into ``build/kernels`` (git-ignored)."""
     return _library.build(verbose=verbose)
+
+
+def load_library():
+    """The loaded kernel library, built at the first call of the process."""
+    return _library.get()
 
 
 def _top2_lanes(scores: torch.Tensor, nb: int) -> Tuple[torch.Tensor, ...]:
@@ -300,5 +305,5 @@ def _launch(lib, vecs, mult, add, qq, q_scales):
             geom.smem_bytes, stream,
         )
     if err != 0:
-        raise RuntimeError(f"top2_scan kernel launch failed: CUDA error {err}")
+        raise KernelError(f"top2_scan kernel launch failed: CUDA error {err}")
     return bmax, brow

@@ -4,7 +4,9 @@ Parity with the reference pipeline (reference src/semcode/rag/
 pipeline.py:25-301): embed the question, retrieve top-k context from the
 vector store, assemble the prompt (template override + ``{system_prompt}``
 substitution, snippet truncation), call the LLM, and on any retrieval/LLM
-failure fall back to an extractive summary of the best sources. Response
+failure fall back to an extractive summary of the best sources (except a
+kernel that fails to build or launch, ``ops.build.KernelError``, which
+propagates). Response
 shape: ``{"answer", "sources", "meta": {"fallback_used", "reason"?}}``.
 
 Counterpart of ``semcode_tpu/rag/pipeline.py``: query embedding and
@@ -27,6 +29,7 @@ from ..embeddings import EmbeddingProviderFactory
 from ..index.store import SearchHit, VectorStore
 from ..protocols import SearcherLike
 from ..logger import get_logger
+from ..ops.build import KernelError
 from ..settings import AppSettings, settings as default_settings
 from ..utils.tracing import StageTimer
 from .llm import create_llm
@@ -234,6 +237,8 @@ class SemanticSearchPipeline:
                         vectors, top_k=k, filters=filters,
                         query_texts=live_qs, timer=timer,
                     )
+        except KernelError:
+            raise  # a kernel that cannot build or launch fails the request
         except Exception as exc:
             log.warning("batch_retrieval_failed", error=str(exc))
             hits_batch = [[] for _ in live_qs]
@@ -460,6 +465,8 @@ class SemanticSearchPipeline:
                 return self.vector_store.search(
                     vector, top_k=k, filters=filters, query_text=question
                 )
+        except KernelError:
+            raise  # a kernel that cannot build or launch fails the request
         except Exception as exc:
             log.warning("retrieval_failed", error=str(exc))
             return []

@@ -46,8 +46,7 @@ class AppSettings:
     api_host: str = "0.0.0.0"
     api_port: int = 8000
     telemetry_enabled: bool = True
-    # dynamic micro-batching of concurrent /query requests (0 disables);
-    # the api_* fields are read by the API server, which is not ported yet
+    # dynamic micro-batching of concurrent /query requests (0 disables)
     api_batch_window_ms: float = 3.0
     api_batch_max: int = 64
     # concurrent sub-groups per full batch window (1 disables): overlaps one

@@ -3,7 +3,8 @@
 - an AST scan of every module of ``semcode_tpu_torch`` and of
   ``chip_smoke.py`` finds no such import;
 - a fresh process that ingests and queries through the engine's CLI ends
-  with no ``jax``/``flax``/``semcode_tpu`` module loaded;
+  with no ``jax``/``flax``/``semcode_tpu`` module loaded, and so does one
+  that imports the API server, serves a query and runs ``cli eval``;
 - without a CUDA card the default device raises instead of running on the
   CPU, and ``SEMCODE_TORCH_DEVICE=cpu`` opts in to the CPU.
 """
@@ -43,8 +44,13 @@ def test_no_forbidden_imports():
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {"semcode_tpu_torch/ops/dot_max.py"} | {
         f"semcode_tpu_torch/tools/{m}.py"
-        for m in ("_timing", "dot_cuda", "dot_rate", "scan_ab", "scan_profile", "scan_tune")
-    } <= names
+        for m in ("_timing", "dot_cuda", "dot_rate", "scan_ab", "scan_profile",
+                  "scan_tune", "bench_api", "frozen_misses", "smoke")
+    } | {
+        f"semcode_tpu_torch/api/{m}.py"
+        for m in ("dependencies", "telemetry", "jobs", "batcher", "main")
+    } | {"semcode_tpu_torch/frontend/webui.py", "semcode_tpu_torch/frontend/cli.py"
+         } <= names
     bad = [
         (str(p.relative_to(ROOT)), root)
         for p in files
@@ -100,6 +106,58 @@ def test_cli_session_loads_no_jax(tmp_path):
     result = json.loads(line[len("RESULT "):])
     assert result == {"rc": [0, 0, 0, 0], "bad": []}
     assert "settings.py" in proc.stdout  # the query's JSON names the hit
+
+
+_API_EVAL_SCRIPT = """
+import asyncio, contextlib, io, json, sys
+from semcode_tpu_torch.cli import main
+from semcode_tpu_torch.api.main import create_app
+from aiohttp.test_utils import TestClient, TestServer
+rc = [main(["ingest", "-n", "demo", "-I", "src", "-r", sys.argv[1], "-y"])]
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc.append(main(["eval", "--frozen", "--max-per-kind", "5"]))
+report = json.loads(buf.getvalue())[0]
+
+async def serve():
+    client = TestClient(TestServer(create_app()))
+    await client.start_server()
+    try:
+        r = await client.post("/query", json={{"question": "parse_config"}})
+        return r.status, await r.json()
+    finally:
+        await client.close()
+
+status, body = asyncio.run(serve())
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {roots})
+print("RESULT", json.dumps({{"rc": rc, "bad": bad, "status": status,
+                            "paths": [s["path"] for s in body["sources"]],
+                            "frozen_n": report["by_kind"]["frozen"]["n"]}}))
+"""
+
+
+def test_api_and_eval_load_no_jax(tmp_path):
+    src = tmp_path / "repo" / "src"
+    src.mkdir(parents=True)
+    (src / "settings.py").write_text(
+        "def parse_config(path):\n    '''Read the TOML config.'''\n"
+        "    return open(path).read()\n"
+    )
+    code = _API_EVAL_SCRIPT.format(roots=repr(set(FORBIDDEN))).replace(
+        "sys.argv[1]", repr(str(tmp_path / "repo"))
+    )
+    proc = _run(code, {
+        "SEMCODE_TORCH_DEVICE": "cpu",
+        "SEMCODE_WORKSPACE_ROOT": str(tmp_path / "ws"),
+        "SEMCODE_EMBEDDING_DIMENSION": "64",
+        "SEMCODE_INDEX_KIND": "flat",
+    }, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")][-1]
+    result = json.loads(line[len("RESULT "):])
+    assert result == {"rc": [0, 0], "bad": [], "status": 200,
+                      "paths": ["src/settings.py"], "frozen_n": 102}
 
 
 def test_default_device_refuses_cpu_fallback(tmp_path):

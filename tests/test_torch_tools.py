@@ -17,7 +17,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from semcode_tpu_torch.tools import dot_cuda, dot_rate, scan_ab, scan_profile, scan_tune
+from semcode_tpu_torch.tools import (
+    bench_api, dot_cuda, dot_rate, scan_ab, scan_profile, scan_tune,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = {"N": "4096", "DIM": "128", "BATCH": "16", "CHUNK_B": "2", "SECS": "0.05"}
@@ -158,3 +160,45 @@ def test_tool_runs_as_module_without_jax(tmp_path):
     assert out[-1] == "BAD []"
     modes = [json.loads(line)["mode"] for line in out[:-1]]
     assert modes == ["torch_int_mm_s8s8", "cuda_s8s8_s32", "cuda_s8s8_bf16cast"]
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_bench_api_short_cpu_run(impl):
+    """The /query SLO harness at a few hundred rows for a second at
+    concurrency 4, with an ingest job run beside the timed window: QPS > 0,
+    no failed request, every answer with hits, and the job completed."""
+
+    async def ingest_job(client):
+        import asyncio
+
+        r = await client.post(
+            "/jobs/ingest", headers={"X-API-Key": bench_api.API_KEY},
+            json={"name": "index", "root": str(ROOT),
+                  "include": ["semcode_tpu/index"]})
+        job = await r.json()
+        for _ in range(600):
+            r = await client.get(f"/jobs/{job['id']}",
+                                 headers={"X-API-Key": bench_api.API_KEY})
+            job = await r.json()
+            if job["status"] in ("completed", "failed"):
+                return job
+            await asyncio.sleep(0.05)
+        return job
+
+    out = bench_api.run_api_bench(rows=300, dim=128, concurrency=4, secs=1.0,
+                                  warm_secs=0.3, impl=impl, during=ingest_job)
+    assert out["qps"] > 0 and out["requests"] > 0
+    assert out["failed"] == 0 and out["empty"] == 0, out["errors"]
+    assert out["p50_ms"] > 0 and out["p99_ms"] >= out["p50_ms"]
+    assert {"embed", "search"} <= set(out["stage_ms"])
+    assert out["during"]["status"] == "completed", out["during"]
+    assert out["during"]["result"]["chunk_count"] == 57
+    assert (out["rows"], out["impl"], out["device"]) == (300, impl, "cpu")
+    assert "profile" not in out  # a profiled window needs the card
+
+
+def test_bench_api_main_prints_one_line(capsys):
+    assert bench_api.main(["--rows", "200", "--dim", "128", "--concurrency", "2",
+                           "--secs", "0.3"]) == 0
+    (line,) = _lines(capsys)
+    assert line["failed"] == 0 and line["qps"] > 0 and line["impl"] == "auto"
