@@ -16,7 +16,8 @@ Phases (any failed check exits non-zero before the final line):
    int8 / bf16 / f32 storage, Rs in {100, 128, 1000, 70001}, d in {128,
    384, 3072}, Q in {1, 8, 512}, ip and l2, ~5% dead rows; then every
    storage at the kernel's tile edges: Q in {65, 1000}, Rs in {256k - 1,
-   256k, 256k + 1}, d in {128, 384, 1024, 3072}, corpora with more work
+   256k, 256k + 1}, d in {128, 384, 768, 1024, 3072} (768: the tpu-hybrid
+   store's width, phase 6), corpora with more work
    items than CTAs, exact duplicates on both sides of the block boundary
    inside a tile and all-dead blocks in either half of a tile. int8:
    identical rows and bit-identical scores; bf16/f32: scores within rtol
@@ -81,6 +82,28 @@ Phases (any failed check exits non-zero before the final line):
    hits. Then top2_scan at the served shape (the SLO corpus's 20,000 rows,
    one 16-question sub-batch) against its plain version, bit for bit, with
    its time, bound and library time;
+6. the transformer encoder on the card (run after phase 5a): 6a. the
+   shipped encoder-mini checkpoint (``semcode_tpu/assets/encoder-mini``, read
+   by path) embeds 13 queries (prose, identifiers, empty) and 3 documents
+   (two of 3 or more 255-token windows) on the card and on the CPU: per-row
+   cosine >= 0.999; the forward timed with CUDA events at batch 64 x 256
+   tokens (ingest) and 8 x 64 (served queries): ms, tokens/s, its bound
+   (2 x (4h^2 + 2h*mlp + 2Lh) x layers FLOP a token at the bf16 dense peak)
+   and the peak's share, a torch.profiler breakdown by operator class
+   (GEMM, softmax, layernorm, elementwise) with launches, and one layer's
+   attention beside ``scaled_dot_product_attention``; 6b. IndexerService
+   self-ingests ``semcode_tpu/`` with ``tpu-hybrid`` into a 768-d int8 flat
+   store on the kernel route (top2_scan's launches read around it, >= 1),
+   the 102 frozen questions through ``query_batch`` on both routes: MRR@10
+   on the full-matrix route within 0.01 of the JAX package's 0.8013 by the
+   same recipe (``JAX_HYBRID_FROZEN_MRR``), ingest seconds and the
+   embedding's share; 6c. phase 5a's flow over a tpu-hybrid workspace
+   (HTTP ingest, 102 questions at 32 in flight, paths equal to the
+   in-process ``query_batch``, MRR@10 equal to 6b's kernel route, /telemetry's
+   embed stage and QPS); 6d. ``tools.eval_heldout`` over the installed
+   aiohttp package for tpu-hybrid and tpu-hash: chunks, queries, MRR@10,
+   recall@10 and embed seconds (recorded, not compared: the JAX figures
+   came from another aiohttp release).
 4. scale: a 1M x 384 int8 FlatIndex with its f32 rescore mirror (the JAX
    package's bench.py flagship shape, a clustered Gaussian mixture made on
    the card from a seeded torch.Generator): recall@10 against an f32
@@ -309,16 +332,20 @@ def check_kernel() -> float:
 # of 64 in pairs): (Rs, d, Q); 70001 x 1000 and 40000 x 3072 hold more work
 # items than the card has CTAs. The float cases add d = 128 and 1024: bf16
 # rows take two ring chunks per 128 values of depth, f32 rows two raw
-# stages per chunk.
+# stages per chunk. d = 768 is the tpu-hybrid store's width (384 hash + 384
+# encoder; phase 6): int8 rows that deep no longer share a row chunk
+# between the consumers (top2_scan.cu), each loads it for itself.
 TILE_EDGE_CASES = [
     (255, 384, 65), (256, 384, 1000), (257, 3072, 65),
     (1023, 3072, 1000), (1024, 384, 65), (1025, 3072, 1000),
     (70001, 384, 1000), (40000, 3072, 512),
+    (257, 768, 65), (40000, 768, 1000),
 ]
 FLOAT_TILE_EDGE_CASES = [
     (255, 128, 65), (256, 384, 1000), (257, 1024, 65),
     (1023, 3072, 1000), (1024, 384, 65), (1025, 1024, 1000),
     (70001, 384, 1000), (40000, 3072, 512),
+    (1023, 768, 65), (40000, 768, 512),
 ]
 
 
@@ -913,10 +940,13 @@ async def wait_job(client, job_id: str, headers, timeout_s: float = 300.0):
     fail(f"ingest job {job_id} did not finish in {timeout_s} s")
 
 
-def api_ingest_and_query(workdir: Path, mrr_pallas: float, device: str = "cuda"):
+def api_ingest_and_query(workdir: Path, mrr_pallas: float, device: str = "cuda",
+                         provider: str = "tpu-hash"):
     """5a: the self-ingest through HTTP on a fresh workspace, then the 102
     frozen questions with 32 in flight: answers equal to the same store's
-    in-process query_batch, MRR@10 equal to phase 3's kernel route."""
+    in-process query_batch, MRR@10 equal to phase 3's kernel route (6c: the
+    same with ``provider`` tpu-hybrid, MRR@10 equal to phase 6b's kernel
+    route)."""
     import asyncio
 
     import aiohttp
@@ -931,13 +961,15 @@ def api_ingest_and_query(workdir: Path, mrr_pallas: float, device: str = "cuda")
     questions = [q for q, _ in queries]
     labels = [rel for _, rel in queries]
     cfg = AppSettings(
-        workspace_root=workdir / f"api-{device}",
+        workspace_root=workdir / f"api-{provider}-{device}",
+        embedding_provider=provider,
         index_kind="flat",
         index_scan_impl="pallas",
         rag_provider="fallback",
         rag_query_cache_size=0,
         api_key=API_KEY,
     )
+    tag = "[api]" if provider == "tpu-hash" else f"[api {provider}]"
     app = create_app(config=cfg, device=device)
     auth = {"X-API-Key": API_KEY}
     out = {}
@@ -1004,21 +1036,24 @@ def api_ingest_and_query(workdir: Path, mrr_pallas: float, device: str = "cuda")
     batches = sum(1 / max(int(a["meta"].get("batch_size") or 1), 1) for a in answers)
     out.update(mrr=mrr, recall=recall, batches=round(batches))
     stages = out["stages"]
-    log(f"[api] transport: aiohttp {aiohttp.__version__} on a localhost socket; "
+    log(f"{tag} transport: aiohttp {aiohttp.__version__} on a localhost socket; "
         "HTTP self-ingest of semcode_tpu/: "
         f"{out['chunks']} chunks in {out['ingest_s']:.2f} s; /stats names "
         f"{out['stats_devices']} ({out['stats_backend']})")
-    log(f"[api] 102 frozen questions, {API_CONCURRENCY} in flight: "
-        f"{out['served_s'] * 1e3:.1f} ms in {out['batches']} pipeline calls; "
+    out["qps"] = len(questions) / out["served_s"]
+    log(f"{tag} 102 frozen questions, {API_CONCURRENCY} in flight: "
+        f"{out['served_s'] * 1e3:.1f} ms ({out['qps']:.1f} QPS) in "
+        f"{out['batches']} pipeline calls; "
         f"top2_scan launches {out['launches']}; MRR@10 {mrr:.4f} recall@10 "
-        f"{recall:.4f} (phase 3 kernel route {mrr_pallas:.4f}); every answer's "
+        f"{recall:.4f} (in-process kernel route {mrr_pallas:.4f}); every answer's "
         "paths equal the in-process query_batch's")
-    log("[api] /telemetry stage means per query (ms): " + ", ".join(
+    log(f"{tag} /telemetry stage means per query (ms): " + ", ".join(
         f"{k} {v}" for k, v in stages["avg_ms_per_query"].items()))
     if device == "cuda" and out["launches"] < 1:
         fail("/query never launched the top2_scan kernel")
     if abs(mrr - mrr_pallas) > 1e-9:
-        fail(f"served MRR@10 {mrr:.4f} differs from phase 3's {mrr_pallas:.4f}")
+        fail(f"served MRR@10 {mrr:.4f} differs from the in-process kernel "
+             f"route's {mrr_pallas:.4f}")
     return out
 
 
@@ -1104,6 +1139,289 @@ def api_kernel_shape(rows: int = API_ROWS, nq: int = API_CONCURRENCY // 2):
                                   enumerate(frozen_queries()[:nq])])
     qq, qsc = quantize_queries_device(q)
     return time_top2(vecs, scales, add, qq, qsc)
+
+
+# -- phase 6: the transformer encoder on the card ---------------------------------
+
+# The JAX package's frozen-set MRR@10 with tpu-hybrid by phase 6b's recipe
+# (IndexerService self-ingest of semcode_tpu/ into an int8 flat store, the
+# full-matrix route, 102 questions through query_batch, ranked by path):
+# 0.8013, recall@10 1.0, 181 chunks, from `JAX_PLATFORMS=cpu python
+# tests/test_torch_hybrid.py` (JAX 0.9.0, flax 0.12.3, on the CPU); the
+# port gives the same 0.8013 on the CPU in that run.
+JAX_HYBRID_FROZEN_MRR = 0.8013
+ENCODER_SHAPES = (("ingest", 64, 256), ("query", 8, 64))
+
+
+def encoder_texts():
+    """~16 texts: short prose queries, identifier queries, and two chunks
+    long enough to take 3 or more 255-token windows."""
+    queries = [
+        "where is the flat index defined",
+        "how are int8 rows quantized before the scan",
+        "what happens when the store promotes to IVF",
+        "how does the micro-batcher group concurrent queries",
+        "load a saved snapshot of the vector store",
+        "which module splits source files into chunks",
+        "quantize_rows_device",
+        "VectorStore.search_batch(",
+        "IVFIndex nprobe",
+        "top2_scan_reference",
+        "embeddingProviderFactory",
+        "x",
+        "",
+    ]
+    root = ROOT / "semcode_tpu" / "index"
+    docs = [(root / "store.py").read_text()[:12000],
+            (root / "flat.py").read_text()[:9000],
+            "def parse_config(path):\n    return toml.load(path)\n"]
+    return queries, docs
+
+
+def op_class(name: str) -> str:
+    low = name.lower()
+    if any(key in low for key in ("gemm", "nvjet", "xmma", "cutlass", "matmul")):
+        return "gemm"
+    if "softmax" in low:
+        return "softmax"
+    if "layer_norm" in low or "layernorm" in low:
+        return "layernorm"
+    return "elementwise"
+
+
+def op_class_breakdown(fn, iters: int = 5):
+    """Device ms per call of ``fn`` by operator class (GEMM, softmax,
+    layernorm, elementwise: every other kernel), with the launches per call
+    and the largest kernels (torch.profiler, CUDA activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    classes = dict.fromkeys(("gemm", "softmax", "layernorm", "elementwise"), 0.0)
+    counts = dict.fromkeys(classes, 0)
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if ev.device_type != DeviceType.CUDA or dev_us <= 0:
+            continue
+        cls = op_class(ev.key)
+        classes[cls] += dev_us / 1e3 / iters
+        counts[cls] += ev.count / iters
+        rows.append((ev.key, dev_us / 1e3 / iters))
+    rows.sort(key=lambda r: -r[1])
+    if not rows:
+        fail("the profiler recorded no device time for the encoder")
+    return {"ms": classes, "launches": counts,
+            "device_ms": sum(classes.values()),
+            "top": [[name[:120], ms] for name, ms in rows[:6]]}
+
+
+def attention_times(model, batch: int, length: int):
+    """One layer's attention at this shape: the port's plain products,
+    mask and softmax beside ``scaled_dot_product_attention`` on the same
+    q, k, v (what a fused kernel could save; not used by the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from semcode_tpu_torch.tools._timing import cuda_ms
+
+    attn = model.blocks[0].attn
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(batch, length, model.cfg.hidden, generator=gen,
+                    device="cuda").to(model.cfg.dtype)
+    mask = torch.ones(batch, 1, length, length, dtype=torch.bool, device="cuda")
+    with torch.inference_mode():
+        q, k, v = (attn.qkv(x).view(batch, length, 3, attn.heads, attn.head_dim)
+                   .permute(2, 0, 3, 1, 4).unbind(0))
+
+    def plain():
+        with torch.inference_mode():
+            logits = (q / attn.scale) @ k.transpose(-1, -2)
+            logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+            return torch.softmax(logits, dim=-1) @ v
+
+    def library():
+        with torch.inference_mode():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=1.0 / attn.scale)
+
+    err = (plain().float() - library().float()).abs().max().item()
+    return {"plain_ms": cuda_ms(plain, 20), "sdpa_ms": cuda_ms(library, 20),
+            "max_abs_diff": err}
+
+
+def encoder_model_phase():
+    """6a: the shipped checkpoint on the card against the port's CPU path,
+    then the forward timed at the ingest and the served-query shapes."""
+    import numpy as np
+    import torch
+
+    from semcode_tpu_torch.models.encoder import EncoderEmbeddings
+    from semcode_tpu_torch.tools._timing import cuda_ms
+
+    t0 = time.perf_counter()
+    card = EncoderEmbeddings(device="cuda")
+    load_s = time.perf_counter() - t0
+    cpu = EncoderEmbeddings(device="cpu")
+    if card.random_init or card.signature != cpu.signature:
+        fail("the card did not load the shipped encoder checkpoint")
+    cfg = card.cfg
+    queries, docs = encoder_texts()
+    window = cfg.max_len - 1
+    wins = [max(1, -(-len(card.tokenizer.encode_ids(d, cap=window * card.MAX_DOC_WINDOWS))
+                   // window)) for d in docs]
+    if sum(w >= 3 for w in wins) < 2:
+        fail(f"the long chunks take {wins} windows, not 3 or more")
+
+    def cosines(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        den = np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1)
+        return (a * b).sum(1) / np.maximum(den, 1e-30)
+
+    cos_q = cosines(card.embed_queries(queries), cpu.embed_queries(queries))
+    cos_d = cosines(card.embed_documents(docs), cpu.embed_documents(docs))
+    cos_1 = cosines([card.embed_query(queries[0])], [cpu.embed_query(queries[0])])
+    worst = float(min(cos_q.min(), cos_d.min(), cos_1.min()))
+    log(f"[encoder] shipped checkpoint {card.signature} loaded on the card in "
+        f"{load_s:.2f} s ({cfg.layers} layers, hidden {cfg.hidden}, {cfg.heads} heads, "
+        f"MLP {cfg.mlp_dim}, max_len {cfg.max_len}, {str(cfg.dtype)[6:]}); "
+        f"{len(queries)} queries + {len(docs)} documents ({wins} windows): card vs "
+        f"CPU per-row cosine min {worst:.6f}")
+    if not worst >= 0.999:
+        fail(f"the card's encoder vectors differ from the CPU's: cosine {worst}")
+
+    out = {"load_s": load_s, "cos_min": worst, "windows": wins}
+    h, mlp, layers = cfg.hidden, cfg.mlp_dim, cfg.layers
+    for label, batch, length in ENCODER_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        ids = torch.randint(2, cfg.vocab_size, (batch, length), generator=gen,
+                            device="cuda")
+        mask = torch.ones_like(ids)
+
+        def forward():
+            with torch.inference_mode():
+                return card.model(ids, mask)
+
+        ms = cuda_ms(forward, 30, warmup=3)
+        tokens = batch * length
+        flops = 2 * (4 * h * h + 2 * h * mlp + 2 * length * h) * layers * tokens
+        bound_ms = flops / PEAK_BF16_OPS * 1e3
+        prof = op_class_breakdown(forward)
+        attn = attention_times(card.model, batch, length)
+        rec = {"batch": batch, "length": length, "ms": ms,
+               "tokens_per_s": tokens / (ms / 1e3), "flops": flops,
+               "bound_ms": bound_ms, "bound_by": "operations",
+               "peak_share": bound_ms / ms, "profile": prof, "attention": attn}
+        out[label] = rec
+        log(f"[encoder] {label} forward {batch} x {length}: {ms:.4f} ms "
+            f"(CUDA events, 30 calls), {rec['tokens_per_s']:.4g} tokens/s, "
+            f"{flops / 1e9:.2f} GFLOP, bound {bound_ms:.4f} ms (operations, bf16 "
+            f"dense peak {PEAK_BF16_OPS / 1e12:.0f} TFLOP/s): "
+            f"{100 * rec['peak_share']:.2f}% of peak")
+        log(f"[encoder]   device {prof['device_ms']:.4f} ms a forward by class: "
+            + ", ".join(f"{k} {v:.4f} ms ({prof['launches'][k]:.0f} launches)"
+                        for k, v in prof["ms"].items()))
+        log(f"[encoder]   largest kernels: {prof['top'][:4]}")
+        log(f"[encoder]   one layer's attention: plain {attn['plain_ms']:.4f} ms, "
+            f"scaled_dot_product_attention {attn['sdpa_ms']:.4f} ms "
+            f"(max |diff| {attn['max_abs_diff']:.3g})")
+    return out
+
+
+def hybrid_main_path(workdir: Path, device: str = "cuda"):
+    """6b: IndexerService self-ingests semcode_tpu/ with tpu-hybrid into an
+    int8 flat store on the kernel route (768-d rows); the 102 frozen
+    questions through query_batch on both routes."""
+    from semcode_tpu_torch.ops.scan_top2 import top2_scan
+    from semcode_tpu_torch.rag import SemanticSearchPipeline
+    from semcode_tpu_torch.services import IndexerService
+    from semcode_tpu_torch.services.indexer import IndexingCallbacks
+    from semcode_tpu_torch.settings import AppSettings
+
+    queries = frozen_queries()
+    questions = [q for q, _ in queries]
+    labels = [rel for _, rel in queries]
+    cfg = AppSettings(
+        workspace_root=workdir / f"hybrid-{device}",
+        embedding_provider="tpu-hybrid",
+        index_kind="flat",
+        index_scan_impl="pallas",
+        rag_provider="fallback",
+        rag_query_cache_size=0,
+    )
+    stamps = {}
+    callbacks = IndexingCallbacks(
+        stage=lambda s: stamps.setdefault(s, time.perf_counter()))
+    top2_scan.launches = 0
+    t0 = time.perf_counter()
+    svc = IndexerService(config=cfg, device=device)
+    res = svc.index_repository([ROOT / "semcode_tpu"], "semcode_tpu",
+                               callbacks=callbacks)
+    t_ingest = time.perf_counter() - t0
+    t_embed = stamps["upserting"] - stamps["embedding"]
+    pipe = SemanticSearchPipeline(config=cfg, vector_store=svc.vector_store,
+                                  embeddings=svc.embeddings, device=device)
+    t0 = time.perf_counter()
+    results = pipe.query_batch(questions, top_k=10)
+    t_batch = time.perf_counter() - t0
+    launches = top2_scan.launches
+    store = svc.vector_store
+    if store.dim != 768 or store._index._storage_name() != "int8":
+        fail(f"the hybrid store holds {store.dim}-d "
+             f"{store._index._storage_name()} rows, not 768-d int8")
+    if device == "cuda" and launches < 1:
+        fail("the tpu-hybrid path never launched top2_scan")
+    if any(not r["sources"] for r in results):
+        fail("a frozen question got no hits from the hybrid store")
+    mrr, recall = rank_metrics(results, labels)
+    index = store._index
+    index.scan_impl = "xla"
+    mrr_x, recall_x = rank_metrics(pipe.query_batch(questions, top_k=10), labels)
+    index.scan_impl = "pallas"
+    log(f"[hybrid-e2e] tpu-hybrid self-ingest of semcode_tpu/: {res.chunk_count} "
+        f"chunks into 768-d int8 rows in {t_ingest:.2f} s, embedding {t_embed:.2f} s "
+        f"of it ({100 * t_embed / t_ingest:.1f}%); 102 questions in one batch "
+        f"{t_batch * 1e3:.1f} ms; top2_scan launches {launches}")
+    log(f"[hybrid-e2e] pallas route: MRR@10 {mrr:.4f} recall@10 {recall:.4f}; "
+        f"xla route: MRR@10 {mrr_x:.4f} recall@10 {recall_x:.4f} (the JAX "
+        f"package's tpu-hybrid figure by this recipe on the CPU: "
+        f"{JAX_HYBRID_FROZEN_MRR:.4f})")
+    if abs(mrr_x - JAX_HYBRID_FROZEN_MRR) > 0.01:
+        fail(f"tpu-hybrid MRR@10 {mrr_x:.4f} is not within 0.01 of the JAX "
+             f"package's {JAX_HYBRID_FROZEN_MRR:.4f}")
+    return {"chunks": res.chunk_count, "ingest_s": t_ingest, "embed_s": t_embed,
+            "batch_ms": t_batch * 1e3, "launches": launches, "mrr": mrr,
+            "recall": recall, "mrr_xla": mrr_x, "recall_xla": recall_x}
+
+
+def heldout_phase():
+    """6d: the held-out harness over the installed aiohttp package, for
+    tpu-hybrid and tpu-hash, on the card."""
+    from semcode_tpu_torch.tools import eval_heldout
+
+    results = eval_heldout.run(["aiohttp"], ["tpu-hybrid", "tpu-hash"])
+    import aiohttp
+
+    out = {}
+    for key, r in results.items():
+        if not r["device"].startswith("cuda"):
+            fail(f"{key} ran on {r['device']}, not the card")
+        if not (r["n_queries"] > 0 and 0.0 <= r["mrr@10"] <= 1.0):
+            fail(f"{key}: no queries or an impossible MRR@10: {r}")
+        out[key] = {k: r[k] for k in ("n_chunks", "n_queries", "mrr@10",
+                                      "recall@10", "embed_s", "eval_s")}
+        log(f"[heldout] {key} (aiohttp {aiohttp.__version__}): {r['n_chunks']} chunks, "
+            f"{r['n_queries']} queries, MRR@10 {r['mrr@10']:.4f} recall@10 "
+            f"{r['recall@10']:.4f}, embed {r['embed_s']:.2f} s, eval {r['eval_s']:.2f} s")
+    return out
 
 
 # -- phase 4: scale -----------------------------------------------------------
@@ -1731,7 +2049,7 @@ def ivf_scale_phase():
         f"selection alone {probe_ms['selection']:.3f} ms; plain {plain_ms:.1f} ms, "
         f"_int_mm+mask+topk {library_ms:.3f} ms; {ivf_scan.launches - calls} "
         "timing launches")
-    log(f"[ivf-scale] int8 scan phases (consumer warps' cycles): "
+    log("[ivf-scale] int8 scan phases (consumer warps' cycles): "
         + phase_line(phases, producer_wait))
     out["kernel"] = {"ms": call_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": bound_ms,
@@ -1927,6 +2245,11 @@ def main() -> int:
         ivf_e2e = ivf_store(Path(tmp), e2e["mrr_xla"])
         bf16_e2e = bf16_store(Path(tmp))
         api = api_ingest_and_query(Path(tmp), e2e["mrr"])
+        encoder = encoder_model_phase()
+        hybrid = hybrid_main_path(Path(tmp))
+        hybrid_api = api_ingest_and_query(Path(tmp), hybrid["mrr"],
+                                          provider="tpu-hybrid")
+    heldout = heldout_phase()
     api_legs = api_slo()
     api_kernel = api_kernel_shape()
     scale = scale_phase()
@@ -1956,6 +2279,9 @@ def main() -> int:
     api_extra = {
         "api_launches": api["launches"],
         "api_slo_launches": api_legs["pallas"]["launches"],
+        # phase 6: the 768-d tpu-hybrid store in process and behind /query
+        "hybrid_launches": hybrid["launches"],
+        "hybrid_api_launches": hybrid_api["launches"],
         **{f"api_{key}": api_kernel[key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }
@@ -2003,6 +2329,10 @@ def main() -> int:
         "api": api,
         "api_slo": api_legs,
         "api_kernel": api_kernel,
+        "encoder": encoder,
+        "hybrid_e2e": hybrid,
+        "hybrid_api": hybrid_api,
+        "heldout": heldout,
         "scale": {k: v for k, v in scale.items() if k not in ("kernel", "dot_max")},
         "dot_max": dk,
         "ivf_scale": {k: v for k, v in ivf_scale.items() if k != "kernel"},

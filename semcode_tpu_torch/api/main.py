@@ -53,6 +53,9 @@ from .telemetry import Telemetry
 log = get_logger("api")
 
 _OPEN_PATHS = {"/healthz", "/"}
+# seconds a shutting-down app waits for its startup warmup (a kernel build
+# takes ~12 s on the card)
+WARMUP_JOIN_S = 60.0
 
 
 def build_kernels(config: AppSettings, store) -> List[str]:
@@ -73,6 +76,20 @@ def build_kernels(config: AppSettings, store) -> List[str]:
         ivf_scan.load_library()
         built.append("ivf_scan")
     return built
+
+
+def warm_encoder(config: AppSettings, pipeline) -> bool:
+    """Load the transformer encoder the query path embeds with
+    (``tpu-encoder`` / ``tpu-hybrid``) and run it once, so the first query
+    finds its weights on the card and cuBLAS initialised; False for the
+    other providers, whose first call costs nothing to speak of (or is a
+    remote request the warmup must not make)."""
+    from ..embeddings.providers import ENCODER_PROVIDERS
+
+    if config.embedding_provider.lower() not in ENCODER_PROVIDERS:
+        return False
+    pipeline.embeddings.embed_queries(["__warmup__ encoder probe"])
+    return True
 
 
 def engine_devices(store) -> Dict[str, Any]:
@@ -154,7 +171,8 @@ def create_app(
     async def _warmup(app_):
         """Ready the serving path at startup (background, off the event
         loop). On the card the first query would otherwise pay the kernel
-        libraries' nvcc build; a restarted server over an existing
+        libraries' nvcc build and the encoder's load (``tpu-encoder`` /
+        ``tpu-hybrid``); a restarted server over an existing
         workspace also runs one default query, so the first user query
         finds the store loaded and every lazy piece built. The server
         accepts traffic immediately; a query that arrives mid-warmup waits
@@ -163,8 +181,8 @@ def create_app(
 
         Runs on a DAEMON thread, not the request executor: executor
         threads are non-daemon and joined at interpreter exit, so a
-        restart arriving mid-build would block process shutdown; a daemon
-        warmup thread dies with the process."""
+        restart arriving mid-build would block process shutdown; the app's
+        cleanup waits for the warmup at most ``WARMUP_JOIN_S``."""
         if not config.api_warmup:
             return
 
@@ -178,6 +196,8 @@ def create_app(
                 built = build_kernels(config, store)
                 if built:
                     log.info("kernels_built", kernels=",".join(built))
+                if warm_encoder(config, pipeline):
+                    log.info("encoder_warm", provider=config.embedding_provider)
                 if store.count() > 0:
                     pipeline.query("__warmup__ serving path compile probe")
                     log.info("serving_path_warm")
@@ -188,7 +208,17 @@ def create_app(
         t.start()
         app_["warmup_thread"] = t
 
+    async def _join_warmup(app_):
+        """At shutdown, give a warmup still running up to
+        ``WARMUP_JOIN_S`` to finish: torch work left on a daemon thread
+        while the interpreter exits can abort the process ("terminate
+        called without an active exception")."""
+        t = app_.get("warmup_thread")
+        if t is not None and t.is_alive():
+            await asyncio.to_thread(t.join, WARMUP_JOIN_S)
+
     app.on_startup.append(_warmup)
+    app.on_cleanup.append(_join_warmup)
 
     def _run_blocking(fn, *args):
         return asyncio.get_event_loop().run_in_executor(executor, fn, *args)

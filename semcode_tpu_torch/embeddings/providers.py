@@ -8,17 +8,20 @@ at services/indexer.py:150 and rag/pipeline.py:171-175).
 
 Counterpart of ``semcode_tpu/embeddings/providers.py``. Providers:
 - ``tpu-hash``     deterministic hashed n-gram + device random projection
-                   (default; the name is kept so one settings file drives
+                   (default; the names are kept so one settings file drives
                    both packages)
+- ``tpu-encoder``  the transformer encoder (``models/encoder.py``; the
+                   shipped encoder-mini checkpoint by default)
+- ``tpu-hybrid``   hash and encoder vectors concatenated (the recommended
+                   provider)
 - ``openai`` / ``lmstudio``  OpenAI-compatible /v1/embeddings over HTTP
 - ``jina``         Jina embeddings API over HTTP
-``tpu-encoder`` and ``tpu-hybrid`` need the transformer encoder, which is
-not ported yet: asking for them raises.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -130,6 +133,105 @@ def embedding_text(text: str, *, symbol=None, path=None) -> str:
     return " ".join(parts) + "\n" + text
 
 
+# code-identifier shapes in a query
+_IDENTIFIER_RE = re.compile(
+    r"\b[A-Za-z][A-Za-z0-9]*_[A-Za-z0-9_]+\b"   # snake_case
+    r"|\b[a-z]+[A-Z][A-Za-z0-9]*\b"              # camelCase
+    r"|\b[A-Z][a-z0-9]+[A-Z][A-Za-z0-9]*\b"      # PascalCase
+    r"|\b\w+\.\w+\("                             # obj.method(
+)
+
+
+def _query_has_identifier(text: str) -> bool:
+    """Does the query contain code-identifier shapes (snake_case,
+    camelCase, dotted paths)? Such queries are literal lookups where the
+    lexical signal is near-authoritative; pure natural-language queries
+    lean on the semantic encoder instead."""
+    return _IDENTIFIER_RE.search(text) is not None
+
+
+class HybridEmbeddings:
+    """Lexical + semantic ensemble: concatenation of the hash embedder's and
+    the trained encoder's unit vectors, each scaled so inner products add as
+    a fixed-weight score mix (``w*enc_sim + (1-w)*hash_sim``).
+
+    Both parts are unit vectors, so the concat's norm is constant
+    (sqrt(a^2+b^2) = 1) and the weighting survives normalization.
+    """
+
+    def __init__(
+        self,
+        hash_emb,
+        encoder_emb,
+        *,
+        w_encoder: float = 0.5,
+        adaptive: bool = True,
+        adaptive_shift: float = 0.15,
+    ):
+        self.w = min(max(float(w_encoder), 0.0), 1.0)
+        self.adaptive = bool(adaptive)
+        self.adaptive_shift = float(adaptive_shift)
+        self.hash = hash_emb
+        self.encoder = encoder_emb
+        self.dim = int(hash_emb.dim) + int(encoder_emb.dim)
+
+    @property
+    def signature(self) -> str:
+        # w is baked into DOC vectors (sqrt scaling), so it is part of the
+        # stored-vector definition; `adaptive` shapes only the query side
+        h = getattr(self.hash, "signature", type(self.hash).__name__)
+        e = getattr(self.encoder, "signature", type(self.encoder).__name__)
+        return f"hybrid:w{self.w:g}:[{h}]+[{e}]"
+
+    def _concat(self, h, e, w: float):
+        import numpy as np
+
+        h = np.asarray(h, dtype=np.float32) * float(np.sqrt(1.0 - w))
+        e = np.asarray(e, dtype=np.float32) * float(np.sqrt(w))
+        return np.concatenate([h, e], axis=-1)
+
+    def embed_documents(self, texts):
+        h = self.hash.embed_documents(texts)
+        e = self.encoder.embed_documents(texts)
+        return [v.tolist() for v in self._concat(h, e, self.w)]
+
+    def _query_weight(self, text: str) -> float:
+        """Per-query score mix. Documents are indexed with the static
+        weight, but the concat leaves the QUERY side free: scoring is
+        sqrt(1-w_d)*sqrt(1-w_q)*hash_sim + sqrt(w_d)*sqrt(w_q)*enc_sim, so
+        shifting w_q re-balances the mix per query without re-indexing.
+        Queries carrying literal identifiers shift toward the lexical
+        signal; prose queries shift toward the encoder."""
+        if not self.adaptive:
+            return self.w
+        if _query_has_identifier(text):
+            return max(0.0, self.w - self.adaptive_shift)
+        return min(1.0, self.w + self.adaptive_shift)
+
+    def embed_query(self, text: str):
+        return self._concat(
+            self.hash.embed_query(text),
+            self.encoder.embed_query(text),
+            self._query_weight(text),
+        ).tolist()
+
+    def embed_queries(self, texts):
+        """Batched query embedding: both parts embed as ONE batch each,
+        then every query gets its own adaptive weight — exactly matching a
+        loop over embed_query, at batch cost."""
+        import numpy as np
+
+        h = np.asarray(self.hash.embed_queries(texts), dtype=np.float32)
+        e = np.asarray(self.encoder.embed_queries(texts), dtype=np.float32)
+        return [
+            self._concat(h[i], e[i], self._query_weight(t)).tolist()
+            for i, t in enumerate(texts)
+        ]
+
+
+ENCODER_PROVIDERS = ("tpu-encoder", "encoder", "tpu-hybrid", "hybrid")
+
+
 class EmbeddingProviderFactory:
     """Create an embeddings provider from settings
     (reference providers.py:31-104 keeps the same shape)."""
@@ -146,10 +248,32 @@ class EmbeddingProviderFactory:
                 batch_size=config.embedding_batch_size,
                 device=device,
             )
-        if provider in ("tpu-encoder", "encoder", "tpu-hybrid", "hybrid"):
-            raise NotImplementedError(
-                f"Embedding provider '{config.embedding_provider}' needs the "
-                "transformer encoder, which is not ported yet"
+        if provider in ENCODER_PROVIDERS:
+            from ..models.encoder import EncoderEmbeddings
+
+            encoder = EncoderEmbeddings(
+                preset=config.encoder_preset,
+                dim=(config.embedding_dimension
+                     if provider in ("tpu-encoder", "encoder") else None),
+                weights_path=config.encoder_weights_path,
+                batch_size=config.embedding_batch_size,
+                max_tokens=config.embedding_max_tokens,
+                dtype=config.encoder_dtype,
+                device=device,
+            )
+            if provider in ("tpu-encoder", "encoder"):
+                return encoder
+            from .hash_embedder import HashEmbeddings
+
+            return HybridEmbeddings(
+                HashEmbeddings(
+                    dim=config.embedding_dimension,
+                    batch_size=config.embedding_batch_size,
+                    device=device,
+                ),
+                encoder,
+                w_encoder=config.embedding_hybrid_weight,
+                adaptive=config.embedding_hybrid_adaptive,
             )
         if provider in ("openai", "lmstudio"):
             return _OpenAICompatibleEmbeddings(

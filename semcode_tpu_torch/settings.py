@@ -62,14 +62,15 @@ class AppSettings:
     api_max_workers: int = 4
 
     # -- embedding (on the device by default; remote providers optional) ------
-    embedding_provider: str = "tpu-hash"  # tpu-hash | tpu-encoder | openai | jina
+    embedding_provider: str = "tpu-hash"  # tpu-hash | tpu-encoder | tpu-hybrid | openai | jina
     embedding_model: str = "code-hash-v1"
     embedding_dimension: int = 384
     embedding_api_base: Optional[str] = None
     embedding_api_key: Optional[str] = None
     embedding_batch_size: int = 64
     embedding_max_tokens: int = 512
-    # tpu-encoder specifics (the encoder is not ported yet)
+    # tpu-encoder / tpu-hybrid specifics (models/encoder.py; without a
+    # weights_path the mini preset reads the shipped encoder-mini checkpoint)
     encoder_preset: str = "mini"  # mini (L6/H384) | base (L12/H768) | large (L24/H1024)
     encoder_weights_path: Optional[Path] = None  # local HF-style dir (safetensors)
     encoder_dtype: str = "bfloat16"

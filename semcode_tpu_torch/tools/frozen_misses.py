@@ -1,8 +1,8 @@
 """Per-query diagnosis of the frozen hand-labelled retrieval set.
 
-Counterpart of the JAX package's ``tools/frozen_misses.py``, with the two
-helpers it takes from ``tools/eval_heldout.py`` (``corpus_dir``,
-``chunk_corpus``) copied here. Builds an in-memory store over the
+Counterpart of the JAX package's ``tools/frozen_misses.py``; it takes
+``corpus_dir`` and ``chunk_corpus`` from ``tools/eval_heldout.py``, as the
+JAX tool does. Builds an in-memory store over the
 repository's own ``semcode_tpu/`` tree (or the aiohttp package) through the
 production embedding path (``eval.build_eval_store``), runs the frozen
 queries (``tests/fixtures/frozen_queries.json``), and prints the rank of
@@ -17,74 +17,13 @@ It runs on CUDA unless ``SEMCODE_TORCH_DEVICE=cpu`` asks for the CPU.
 from __future__ import annotations
 
 import argparse
-import fnmatch
-import hashlib
-import json
 import sys
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
-
-
-def corpus_dir(name: str) -> Path:
-    """The source tree of a named corpus: ``aiohttp`` (the installed
-    package), or any directory."""
-    if name == "aiohttp":
-        import aiohttp
-
-        return Path(aiohttp.__file__).parent
-    p = Path(name)
-    if p.is_dir():
-        return p
-    raise SystemExit(f"unknown corpus {name!r} (not a directory)")
-
-
-def chunk_corpus(name: str, root: Path):
-    """-> list of (payload_id, metadata) with indexer-parity metadata."""
-    from ..chunking import CodeChunker
-    from ..cli import CHUNK_SUFFIXES
-    from ..ingestion.manager import DEFAULT_IGNORE_PATTERNS
-
-    chunker = CodeChunker()
-    files = [
-        f
-        for f in sorted(root.rglob("*"))
-        if f.is_file()
-        and f.suffix in CHUNK_SUFFIXES
-        and not any(
-            fnmatch.fnmatch(part, pat)
-            for part in f.relative_to(root).parts
-            for pat in DEFAULT_IGNORE_PATTERNS
-        )
-    ]
-    metas = []
-    span_seen: dict = {}
-    for chunk in chunker.chunk_repository(root, files):
-        rel = str(Path(chunk.path).relative_to(root))
-        span_key = f"{name}:{rel}:{chunk.start_line}:{chunk.end_line}"
-        ordinal = span_seen.get(span_key, 0)
-        span_seen[span_key] = ordinal + 1
-        cid = hashlib.md5(
-            (span_key + (f"#{ordinal}" if ordinal else "")).encode()
-        ).hexdigest()
-        metas.append(
-            (
-                cid,
-                {
-                    "repo": name,
-                    "path": rel,
-                    "language": chunk.language,
-                    "start_line": chunk.start_line,
-                    "end_line": chunk.end_line,
-                    "symbol": chunk.symbol,
-                    "text": chunk.content,
-                },
-            )
-        )
-    return metas
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -108,15 +47,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from ..eval import build_eval_store, load_frozen_queries
     from ..settings import settings
+    from .eval_heldout import chunk_corpus, corpus_dir, parse_overrides
 
-    overrides: Dict[str, object] = {}
-    for kv in args.set:
-        k, _, v = kv.partition("=")
-        try:
-            vv = json.loads(v)
-        except json.JSONDecodeError:
-            vv = v
-        overrides[k] = vv
+    overrides = parse_overrides(args.set)
 
     if args.corpus == "semcode_tpu":
         root = REPO_ROOT / "semcode_tpu"

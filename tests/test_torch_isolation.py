@@ -4,7 +4,9 @@
   ``chip_smoke.py`` finds no such import;
 - a fresh process that ingests and queries through the engine's CLI ends
   with no ``jax``/``flax``/``semcode_tpu`` module loaded, and so does one
-  that imports the API server, serves a query and runs ``cli eval``;
+  that imports the API server, serves a query and runs ``cli eval``, and
+  one that embeds with ``tpu-hybrid`` (the transformer encoder on the
+  shipped checkpoint) through ingest, query and ``eval``;
 - without a CUDA card the default device raises instead of running on the
   CPU, and ``SEMCODE_TORCH_DEVICE=cpu`` opts in to the CPU.
 """
@@ -49,7 +51,11 @@ def test_no_forbidden_imports():
     } | {
         f"semcode_tpu_torch/api/{m}.py"
         for m in ("dependencies", "telemetry", "jobs", "batcher", "main")
-    } | {"semcode_tpu_torch/frontend/webui.py", "semcode_tpu_torch/frontend/cli.py"
+    } | {
+        f"semcode_tpu_torch/models/{m}.py"
+        for m in ("encoder", "tokenizer", "train", "hf_loader")
+    } | {"semcode_tpu_torch/tools/eval_heldout.py", "semcode_tpu_torch/tools/rerank_lab.py",
+         "semcode_tpu_torch/frontend/webui.py", "semcode_tpu_torch/frontend/cli.py"
          } <= names
     bad = [
         (str(p.relative_to(ROOT)), root)
@@ -160,6 +166,50 @@ def test_api_and_eval_load_no_jax(tmp_path):
                       "paths": ["src/settings.py"], "frozen_n": 102}
 
 
+_HYBRID_SESSION = """
+import contextlib, io, json, sys
+from semcode_tpu_torch.cli import main
+from semcode_tpu_torch.embeddings import EmbeddingProviderFactory
+from semcode_tpu_torch.settings import settings
+rc = [main(["ingest", "-n", "demo", "-I", "src", "-r", sys.argv[1], "-y"])]
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc.append(main(["query", "where is parse_config defined", "--json", "-k", "3"]))
+    rc.append(main(["eval", "--provider", "tpu-hybrid", "--max-per-kind", "3"]))
+emb = EmbeddingProviderFactory.create(settings)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {roots})
+print("RESULT", json.dumps({{"rc": rc, "bad": bad, "sig": emb.signature,
+                            "dim": emb.dim, "out": buf.getvalue()}}))
+"""
+
+
+def test_hybrid_session_loads_no_jax(tmp_path):
+    src = tmp_path / "repo" / "src"
+    src.mkdir(parents=True)
+    (src / "settings.py").write_text(
+        "def parse_config(path):\n    '''Read the TOML config.'''\n"
+        "    return open(path).read()\n\n\nclass Store:\n    pass\n"
+    )
+    code = _HYBRID_SESSION.format(roots=repr(set(FORBIDDEN))).replace(
+        "sys.argv[1]", repr(str(tmp_path / "repo"))
+    )
+    proc = _run(code, {
+        "SEMCODE_TORCH_DEVICE": "cpu",
+        "SEMCODE_WORKSPACE_ROOT": str(tmp_path / "ws"),
+        "SEMCODE_EMBEDDING_PROVIDER": "tpu-hybrid",
+        "SEMCODE_INDEX_KIND": "flat",
+    }, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")][-1]
+    result = json.loads(line[len("RESULT "):])
+    assert result["rc"] == [0, 0, 0] and result["bad"] == []
+    assert result["dim"] == 768
+    assert result["sig"].startswith("hybrid:w0.4:[hash-v") and "]+[encoder:" in result["sig"]
+    assert "src/settings.py" in result["out"]
+    assert '"provider": "tpu-hybrid"' in result["out"]
+
+
 def test_default_device_refuses_cpu_fallback(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -174,6 +224,14 @@ def test_default_device_refuses_cpu_fallback(tmp_path):
     proc = _run(code, {**env, "SEMCODE_TORCH_DEVICE": "cpu"}, tmp_path)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert json.loads(proc.stdout)["device"] == "cpu"
+    # the encoder providers take the same default device: no card, a raise
+    from semcode_tpu_torch.embeddings import EmbeddingProviderFactory
+    from semcode_tpu_torch.settings import AppSettings
+
+    for provider in ("tpu-encoder", "tpu-hybrid"):
+        with pytest.raises(RuntimeError, match="no CUDA device is available"):
+            EmbeddingProviderFactory.create(
+                AppSettings(workspace_root=None, embedding_provider=provider))
 
 
 def test_resolve_device():
