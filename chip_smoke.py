@@ -104,6 +104,32 @@ Phases (any failed check exits non-zero before the final line):
    aiohttp package for tpu-hybrid and tpu-hash: chunks, queries, MRR@10,
    recall@10 and embed seconds (recorded, not compared: the JAX figures
    came from another aiohttp release).
+7. the causal decoder on the card (run after phase 6c): 7a. the seeded
+   decoder at full width, the default preset ``mini`` (hidden 384, 6 layers,
+   byte vocabulary 258, max_len 1024) and GPT-2 small's shape (hidden 768,
+   12 layers, vocabulary 50,257): teacher-forced logits on the card against
+   the port's CPU path (float32 within atol 1e-4; bfloat16 within 10% of the
+   logits' std, and no further from the float32 logits than 1.25x the CPU's
+   bf16 path), the float32 KV-cached greedy tokens equal to the argmax of a
+   teacher-forced rollout, the bfloat16 tokens of the CUDA-graph decode step
+   equal to the eager step's bit for bit; then at batch 1: the prefill's ms
+   at buckets 128, 256 and 512, and a 200-token prompt in bucket 256 with 192
+   new tokens: the decode ms a token graphed and eager (CUDA events), the
+   generate's tokens/s, the launches and device ms of a step (torch.profiler
+   by operator class), the device's busy share of a graphed generate, and the
+   bound a step (the bytes it must read over the HBM rate); 7b. tpu-lm through
+   the pipeline over phase 3's store (kernel route) with the shipped fixture
+   ``semcode_tpu_torch/assets/lm-tiny`` (written by the JAX package's
+   trainer; the grounding guard off, the answers it would replace counted):
+   8 frozen questions answered, none empty and none from the
+   fallback, top2_scan's launches read around them, the float32 tokens on the
+   card equal to the CPU path's for every answer's prompt, the bfloat16 graph
+   equal to the eager step; then the seeded mini at full width answers two
+   questions, its counters showing every token generated; 7c. phase 5a's flow
+   with tpu-lm and the fixture: HTTP ingest, the startup warmup (the decode
+   graphs of every prompt bucket), 16 frozen questions at 8 in flight through
+   ``POST /query``: 0 failed, each answer equal to the in-process one; QPS,
+   p50 and the /telemetry stage means.
 4. scale: a 1M x 384 int8 FlatIndex with its f32 rescore mirror (the JAX
    package's bench.py flagship shape, a clustered Gaussian mixture made on
    the card from a seeded torch.Generator): recall@10 against an f32
@@ -756,7 +782,7 @@ def main_path(workdir: Path):
         "launches": launches, "mrr": mrr, "recall": recall, "mrr_xla": mrr_x,
         "recall_xla": recall_x, "p50_pallas_ms": p50_pallas,
         "p50_xla_ms": p50_xla, "chunks": res.chunk_count,
-        "stages_ms": stages, "breakdown": profile,
+        "stages_ms": stages, "breakdown": profile, "pipeline": pipe,
     }
 
 
@@ -1421,6 +1447,375 @@ def heldout_phase():
         log(f"[heldout] {key} (aiohttp {aiohttp.__version__}): {r['n_chunks']} chunks, "
             f"{r['n_queries']} queries, MRR@10 {r['mrr@10']:.4f} recall@10 "
             f"{r['recall@10']:.4f}, embed {r['embed_s']:.2f} s, eval {r['eval_s']:.2f} s")
+    return out
+
+
+# -- phase 7: the causal decoder on the card ------------------------------------
+
+# a byte-level decoder written by the JAX package's LMTrainer and
+# save_lm_params on the CPU (tests/test_torch_decoder.py --write-fixture)
+LM_FIXTURE = ROOT / "semcode_tpu_torch" / "assets" / "lm-tiny"
+# the decoder at full width, seeded: the default preset (rag_preset "mini",
+# the byte vocabulary) and GPT-2 small's shape (the HF checkpoints
+# load_hf_decoder_params reads)
+DECODER_SHAPES = (("mini", 258), ("base", 50257))
+DECODE_BUCKET = 256  # the timed generation: batch 1, this bucket,
+DECODE_PROMPT = 200  # a prompt of this many tokens,
+DECODE_NEW = 192  # rag_max_new_tokens' default
+PREFILL_BUCKETS = (128, 256, 512)
+LOGITS_ATOL_F32 = 1e-4  # card vs CPU, float32 logits
+# card vs CPU, bfloat16: within this share of the logits' std, and the card
+# no further from the float32 logits than BF16_VS_CPU times the CPU's own
+# bf16 distance (two bf16 computations round apart: at GPT-2 small's depth
+# each lies ~6% of the std from the float32 logits)
+LOGITS_REL_BF16 = 0.10
+BF16_VS_CPU = 1.25
+
+
+def decode_step_bytes(model, live_slots: float) -> float:
+    """The bytes one greedy decode step must read: every block's kernels,
+    biases and layernorms as held, the final layernorm, the float32 head
+    (``wte``), one row of each embedding, and the K and V of the live cache
+    slots."""
+    cfg = model.cfg
+    params = sum(p.numel() * p.element_size() for name, p in model.named_parameters()
+                 if name not in ("wte", "wpe"))
+    head = model.wte.numel() * model.wte.element_size()
+    rows = 2 * cfg.hidden * model.wte_c.element_size()
+    cache = 2 * cfg.layers * cfg.hidden * live_slots * model.wte_c.element_size()
+    return params + head + rows + cache
+
+
+def decoder_model_phase():
+    """7a: the seeded decoder at full width (mini, GPT-2 small's shape) on
+    the card against the port's CPU path, then prefill and decode timed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from semcode_tpu_torch.models import decoder as dec
+    from semcode_tpu_torch.tools._timing import cuda_ms
+
+    rng = np.random.default_rng(10)
+    out = {}
+    for preset, vocab in DECODER_SHAPES:
+        tag = f"[decoder {preset} v{vocab}]"
+        t0 = time.perf_counter()
+        cfg = dec.DecoderConfig.preset(preset, vocab_size=vocab)
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params = dec.init_params(cfg, seed=0)
+        card, card32 = dec.build_decoder(params, cfg, "cuda"), dec.build_decoder(params, cfg32, "cuda")
+        cpu, cpu32 = dec.build_decoder(params, cfg, "cpu"), dec.build_decoder(params, cfg32, "cpu")
+        load_s = time.perf_counter() - t0
+
+        # teacher-forced logits, card vs CPU, a padded row among them
+        ids = rng.integers(2, vocab, (2, 64))
+        mask = np.ones_like(ids)
+        mask[1, 40:] = 0
+        live = mask.astype(bool)
+        got32 = dec.forward_logits(card32, ids, mask).cpu().numpy()[live]
+        want32 = dec.forward_logits(cpu32, ids, mask).numpy()[live]
+        err32 = float(np.abs(got32 - want32).max())
+        got16 = dec.forward_logits(card, ids, mask).cpu().numpy()[live]
+        want16 = dec.forward_logits(cpu, ids, mask).numpy()[live]
+        err16, spread = float(np.abs(got16 - want16).max()), float(want16.std())
+        card_off = float(np.abs(got16 - want32).max())  # each bf16 path's distance
+        cpu_off = float(np.abs(want16 - want32).max())  # to the float32 logits
+        log(f"{tag} seeded init ({cfg.layers} layers, hidden {cfg.hidden}, {cfg.heads} "
+            f"heads, MLP {cfg.mlp_dim}, max_len {cfg.max_len}) built on the card and "
+            f"the CPU in {load_s:.2f} s; teacher-forced logits card vs CPU: float32 "
+            f"max |diff| {err32:.3g} (atol {LOGITS_ATOL_F32}), bfloat16 {err16:.3g} = "
+            f"{err16 / spread:.4f} of the logits' std {spread:.4g} "
+            f"(limit {LOGITS_REL_BF16}); bfloat16 from the float32 logits: card "
+            f"{card_off:.3g}, CPU {cpu_off:.3g} (limit {BF16_VS_CPU}x the CPU's)")
+        if not err32 <= LOGITS_ATOL_F32:
+            fail(f"{tag} float32 logits differ from the CPU's by {err32}")
+        if not (err16 <= LOGITS_REL_BF16 * spread and card_off <= BF16_VS_CPU * cpu_off):
+            fail(f"{tag} bfloat16 logits differ from the CPU's by {err16} "
+                 f"(card {card_off} from float32, CPU {cpu_off})")
+
+        # float32: the KV-cached greedy tokens (graphed) are the argmax of a
+        # teacher-forced rollout
+        prompt = rng.integers(2, vocab, 40).tolist()
+        pids = np.zeros((1, 64), np.int64)
+        pmask = np.zeros_like(pids)
+        pids[0, :40], pmask[0, :40] = prompt, 1
+        cached = dec.generate_tokens(card32, pids, pmask, max_new=16)[0].tolist()
+        seq, rollout = list(prompt), []
+        for _ in range(16):
+            logits = dec.forward_logits(card32, np.asarray([seq]), np.ones((1, len(seq))))
+            rollout.append(int(logits[0, -1].argmax()))
+            seq.append(rollout[-1])
+        if cached != rollout:
+            fail(f"{tag} KV-cached tokens {cached} differ from the rollout {rollout}")
+
+        # bfloat16: the graph replays the eager step bit for bit
+        ids = np.zeros((1, DECODE_BUCKET), np.int64)
+        mask = np.zeros_like(ids)
+        ids[0, :DECODE_PROMPT] = rng.integers(2, vocab, DECODE_PROMPT)
+        mask[0, :DECODE_PROMPT] = 1
+        card.counts.update(dict.fromkeys(card.counts, 0))
+        graphed = dec.generate_tokens(card, ids, mask, max_new=DECODE_NEW)
+        eager = dec.generate_tokens(card, ids, mask, max_new=DECODE_NEW, graph=False)
+        if not torch.equal(graphed, eager):
+            fail(f"{tag} graph-replayed tokens differ from the eager step's")
+        counts = dict(card.counts)
+        if counts["graph_replays"] != DECODE_NEW - 1 or counts["graph_captures"] != 1:
+            fail(f"{tag} the graphed generation did not replay its graph: {counts}")
+        log(f"{tag} float32 KV-cached greedy = teacher-forced rollout (16 tokens); "
+            f"bfloat16 graph = eager step bit for bit ({DECODE_NEW} tokens, "
+            f"{len(set(graphed[0].tolist()))} distinct); counts {counts}")
+        del card32, cpu32, cpu
+
+        # timings at batch 1: prefill by bucket, then the decode step
+        dev_mask = torch.as_tensor(mask, device="cuda")
+        rec = {"load_s": load_s, "logits_err_f32": err32, "logits_err_bf16": err16,
+               "logits_std": spread, "bf16_from_f32": {"card": card_off, "cpu": cpu_off},
+               "prefill_ms": {}}
+        with torch.inference_mode():
+            for bucket in PREFILL_BUCKETS:
+                st = dec._DecodeState(cfg, 1, bucket, DECODE_NEW, "cuda")
+                b_ids = torch.randint(2, vocab, (1, bucket), device="cuda")
+                b_mask = torch.ones_like(b_ids)
+                rec["prefill_ms"][bucket] = cuda_ms(
+                    lambda: dec._prefill_into(card, st, b_ids, b_mask, dec._greedy), 20)
+            step = card.graphs[(1, DECODE_BUCKET, DECODE_NEW)]
+
+            def replays():
+                step.state.reset(dev_mask)
+                for _ in range(DECODE_NEW - 1):
+                    step.graph.replay()
+
+            st = dec._DecodeState(cfg, 1, DECODE_BUCKET, DECODE_NEW, "cuda")
+            dec._prefill_into(card, st, torch.as_tensor(ids, device="cuda"), dev_mask,
+                              dec._greedy)
+
+            def eager_steps():
+                st.reset(dev_mask)
+                for _ in range(DECODE_NEW - 1):
+                    dec.decode_step(card, st)
+
+            rec["graph_ms_per_token"] = cuda_ms(replays, 10) / (DECODE_NEW - 1)
+            rec["eager_ms_per_token"] = cuda_ms(eager_steps, 3, warmup=1) / (DECODE_NEW - 1)
+            st.reset(dev_mask)
+            step_prof = op_class_breakdown(lambda: dec.decode_step(card, st))
+        walls = {}
+        for mode in (True, False):
+            dec.generate_tokens(card, ids, mask, max_new=DECODE_NEW, graph=mode)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                dec.generate_tokens(card, ids, mask, max_new=DECODE_NEW, graph=mode)
+            walls[mode] = (time.perf_counter() - t0) / 5 * 1e3
+        prof = device_breakdown(
+            lambda: dec.generate_tokens(card, ids, mask, max_new=DECODE_NEW),
+            f"{preset} graphed generate, batch 1, bucket {DECODE_BUCKET}, "
+            f"{DECODE_NEW} tokens", iters=3)
+        live = DECODE_PROMPT + (DECODE_NEW - 1) / 2 + 1  # mean live slots a step
+        step_bytes = decode_step_bytes(card, live)
+        rec.update(
+            generate_ms=walls[True], generate_eager_ms=walls[False],
+            tokens_per_s=DECODE_NEW / (walls[True] / 1e3),
+            tokens_per_s_eager=DECODE_NEW / (walls[False] / 1e3),
+            step_launches=sum(step_prof["launches"].values()),
+            step_device_ms=step_prof["device_ms"], step_profile=step_prof,
+            generate_profile=prof, busy_share=prof["device_ms"] / prof["wall_ms"],
+            step_bytes=step_bytes, bound_ms_per_token=step_bytes / PEAK_HBM_BYTES * 1e3,
+            bound_by="bytes")
+        if prof["launches"] < DECODE_NEW - 1:
+            log(f"{tag} the profiler traced {prof['launches']:.0f} device launches in "
+                "a graphed generate: the graph's kernels are not in its trace, so the "
+                "busy share below counts the prefill only")
+        log(f"{tag} prefill ms by bucket (CUDA events, 20 calls): "
+            + ", ".join(f"{b}: {ms:.4f}" for b, ms in rec["prefill_ms"].items()))
+        log(f"{tag} decode a token: graphed {rec['graph_ms_per_token']:.4f} ms, eager "
+            f"{rec['eager_ms_per_token']:.4f} ms (CUDA events over {DECODE_NEW - 1} "
+            f"steps), bound {rec['bound_ms_per_token']:.4f} ms ({step_bytes / 1e6:.1f} MB "
+            f"a step at {PEAK_HBM_BYTES / 1e12:.2f} TB/s); {rec['step_launches']:.0f} "
+            f"launches and {step_prof['device_ms']:.4f} ms of device time a step "
+            f"({', '.join(f'{k} {v:.4f}' for k, v in step_prof['ms'].items())})")
+        log(f"{tag} generate {DECODE_NEW} tokens after a {DECODE_PROMPT}-token prompt "
+            f"(host clock, 5 calls): graphed {walls[True]:.2f} ms "
+            f"({rec['tokens_per_s']:.1f} tokens/s), eager {walls[False]:.2f} ms "
+            f"({rec['tokens_per_s_eager']:.1f} tokens/s); device busy "
+            f"{100 * rec['busy_share']:.1f}% of a graphed generate")
+        out[f"{preset}_v{vocab}"] = rec
+        del card, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_pipeline_phase(pipe):
+    """7b: tpu-lm through the pipeline over phase 3's store (kernel route):
+    the fixture answers 8 frozen questions (non-empty, no fallback), its
+    float32 tokens equal the CPU path's and its bfloat16 graph the eager
+    step's; then one question with the seeded mini at full width."""
+    import dataclasses
+
+    import torch
+
+    from semcode_tpu_torch.models.decoder import CodeDecoderLM, generate_tokens
+    from semcode_tpu_torch.ops.scan_top2 import top2_scan
+    from semcode_tpu_torch.rag import SemanticSearchPipeline
+
+    questions = [q for q, _ in frozen_queries()][:8]
+
+    def lm_pipe(**rag):
+        # the grounding guard off: the fixture, a 0.5M-parameter byte model,
+        # cites symbols and lines it never saw, and the guard would answer
+        # those questions with the extractive summary (counted below)
+        rag.setdefault("rag_grounding_guard", False)
+        cfg = dataclasses.replace(pipe.config, rag_provider="tpu-lm", **rag)
+        return SemanticSearchPipeline(config=cfg, vector_store=pipe.vector_store,
+                                      embeddings=pipe.embeddings, device="cuda")
+
+    fixture = lm_pipe(rag_weights_path=LM_FIXTURE)
+    top2_scan.launches = 0
+    results = [fixture.query(q, top_k=10) for q in questions]
+    launches = top2_scan.launches
+    for qtext, r in zip(questions, results):
+        if not r["answer"].strip() or r["meta"].get("fallback_used"):
+            fail(f"tpu-lm gave no answer to {qtext!r}: {r['meta']}")
+    guarded = lm_pipe(rag_weights_path=LM_FIXTURE, rag_grounding_guard=True)
+    guard_reasons = [guarded.query(q, top_k=10)["meta"].get("reason") for q in questions]
+    llm_ms = [r["meta"]["timings_ms"]["llm"] for r in results]
+    chat = fixture._get_llm()
+    prompts = [chat.qa_prompt(q, [s["snippet"] for s in r["sources"]])
+               for q, r in zip(questions, results)]
+    card32 = CodeDecoderLM(weights_path=LM_FIXTURE, dtype="float32", device="cuda")
+    cpu32 = CodeDecoderLM(weights_path=LM_FIXTURE, dtype="float32", device="cpu")
+    equal = total = 0
+    for p in prompts:
+        a = card32.generate_ids(p, max_new_tokens=chat.max_new_tokens)
+        b = cpu32.generate_ids(p, max_new_tokens=chat.max_new_tokens)
+        equal += sum(x == y for x, y in zip(a, b))
+        total += len(b)
+    graph_equal = 0
+    for p in prompts:
+        arr, msk, max_new = chat.lm.prompt_arrays(p, chat.max_new_tokens)
+        g = generate_tokens(chat.lm.model, arr, msk, max_new=max_new)
+        e = generate_tokens(chat.lm.model, arr, msk, max_new=max_new, graph=False)
+        graph_equal += bool(torch.equal(g, e))
+    log(f"[lm e2e] fixture {LM_FIXTURE.name} ({chat.lm.cfg.layers} layers, hidden "
+        f"{chat.lm.cfg.hidden}, max_len {chat.lm.cfg.max_len}) over phase 3's store: "
+        f"8 frozen questions answered, none from the fallback; top2_scan launches "
+        f"{launches}; llm stage ms {[round(x, 2) for x in llm_ms]} (the first "
+        f"captures its bucket's decode graph); float32 tokens card = CPU: {equal} of "
+        f"{total}; bfloat16 graph = eager: {graph_equal} of {len(prompts)} answers; "
+        f"with the grounding guard on: {guard_reasons}")
+    for qtext, r in list(zip(questions, results))[:3]:
+        log(f"[lm e2e]   {qtext!r} -> {r['answer'][:100]!r}")
+    if equal != total:
+        fail(f"the card's float32 tokens differ from the CPU's: {equal} of {total}")
+    if graph_equal != len(prompts):
+        fail("the fixture's graph-replayed tokens differ from the eager step's")
+    if launches < 1:
+        fail("the tpu-lm pipeline never launched the top2_scan kernel")
+
+    mini = lm_pipe(rag_weights_path=None, rag_preset="mini")
+    timed = []
+    for qtext in questions[:2]:
+        r = mini.query(qtext, top_k=10)
+        model = mini._get_llm().lm.model
+        timed.append((r, dict(model.counts)))
+    counts = timed[-1][1]
+    tokens = counts["prefills"] + counts["decode_steps"]
+    if tokens != 2 * DECODE_NEW:
+        fail(f"the seeded mini generated {tokens} tokens for 2 answers: {counts}")
+    mini_ms = [r["meta"]["timings_ms"].get("llm") for r, _ in timed]
+    log(f"[lm e2e] seeded mini at full width: 2 questions, {tokens} tokens generated "
+        f"({counts}); llm stage ms {mini_ms} (the first captures its graph); "
+        f"reasons {[r['meta'].get('reason') for r, _ in timed]}")
+    return {"launches": launches, "llm_ms": llm_ms, "tokens_equal": equal,
+            "guard_reasons": guard_reasons,
+            "tokens": total, "graph_equal": graph_equal, "mini_llm_ms": mini_ms,
+            "mini_counts": counts,
+            "answers": [r["answer"][:200] for r in results]}
+
+
+def api_lm_phase(workdir: Path):
+    """7c: phase 5a's flow with provider tpu-lm and the fixture: HTTP
+    ingest, the startup warmup's graphs, 16 frozen questions at 8 in flight
+    through POST /query, each answer equal to the in-process one."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from semcode_tpu_torch.api.main import create_app
+    from semcode_tpu_torch.ops.scan_top2 import top2_scan
+    from semcode_tpu_torch.settings import AppSettings
+
+    questions = [q for q, _ in frozen_queries()][:16]
+    cfg = AppSettings(
+        workspace_root=workdir / "api-tpu-lm", index_kind="flat",
+        index_scan_impl="pallas", rag_provider="tpu-lm", rag_weights_path=LM_FIXTURE,
+        rag_grounding_guard=False,  # as in 7b: every answer is the decoder's
+        rag_query_cache_size=0, api_key=API_KEY,
+    )
+    t0 = time.perf_counter()
+    app = create_app(config=cfg, device="cuda")
+    auth = {"X-API-Key": API_KEY}
+    out = {}
+
+    async def serve():
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            r = await client.post("/jobs/ingest", headers=auth, json={
+                "name": "semcode_tpu", "root": str(ROOT), "include": ["semcode_tpu"]})
+            job = await wait_job(client, (await r.json())["id"], auth)
+            if job["status"] != "completed":
+                fail(f"the ingest job ended {job['status']}: {job['error']}")
+            await asyncio.to_thread(app["warmup_thread"].join)
+            out["ready_s"] = time.perf_counter() - t0
+            in_flight = asyncio.Semaphore(8)
+
+            async def ask(question):
+                async with in_flight:
+                    t = time.perf_counter()
+                    r = await client.post("/query", headers=auth,
+                                          json={"question": question, "top_k": 10})
+                    body = await r.json()
+                    return r.status, body, (time.perf_counter() - t) * 1e3
+
+            top2_scan.launches = 0
+            t = time.perf_counter()
+            replies = await asyncio.gather(*(ask(q) for q in questions))
+            out["served_s"] = time.perf_counter() - t
+            out["launches"] = top2_scan.launches
+            tele = await (await client.get("/telemetry", headers=auth)).json()
+            out["stages"] = tele["query_stages"]["avg_ms_per_query"]
+            return replies
+        finally:
+            await client.close()
+
+    replies = asyncio.run(serve())
+    failed = sum(status != 200 for status, _, _ in replies)
+    if failed:
+        fail(f"{failed} of 16 tpu-lm queries failed: {[b for s, b, _ in replies if s != 200]}")
+    direct = app["pipeline"].query_batch(questions, top_k=10)
+    for qtext, (_, got, _), want in zip(questions, replies, direct):
+        if got["answer"] != want["answer"] or [s["path"] for s in got["sources"]] != [
+                s["path"] for s in want["sources"]]:
+            fail(f"/query and query_batch answer {qtext!r} differently:\n"
+                 f"{got['answer'][:200]!r}\n{want['answer'][:200]!r}")
+    lat = sorted(ms for _, _, ms in replies)
+    model = app["pipeline"]._get_llm().lm.model
+    out.update(qps=len(questions) / out["served_s"], p50_ms=statistics.median(lat),
+               failed=failed, fallbacks=sum(bool(b["meta"].get("fallback_used"))
+                                            for _, b, _ in replies),
+               captures=model.counts["graph_captures"],
+               # each answer's own llm stage (/telemetry aggregates the batch
+               # stages: "answer" there is a batch's generations, lock waits in)
+               llm_ms=statistics.mean(b["meta"]["timings_ms"]["llm"] for _, b, _ in replies))
+    log(f"[api tpu-lm] server ready (ingest + warmup joined) in {out['ready_s']:.2f} s, "
+        f"{out['captures']} decode graphs captured; 16 frozen questions, 8 in flight: "
+        f"{out['served_s'] * 1e3:.1f} ms ({out['qps']:.2f} QPS), p50 {out['p50_ms']:.1f} "
+        f"ms, 0 failed, {out['fallbacks']} fallback answers, top2_scan launches "
+        f"{out['launches']}; llm stage {out['llm_ms']:.2f} ms an answer; every answer "
+        "equals the in-process query_batch's")
+    log("[api tpu-lm] /telemetry stage means per query (ms): " + ", ".join(
+        f"{k} {v}" for k, v in out["stages"].items()))
     return out
 
 
@@ -2249,6 +2644,9 @@ def main() -> int:
         hybrid = hybrid_main_path(Path(tmp))
         hybrid_api = api_ingest_and_query(Path(tmp), hybrid["mrr"],
                                           provider="tpu-hybrid")
+        decoder = decoder_model_phase()
+        lm_e2e = lm_pipeline_phase(e2e.pop("pipeline"))
+        lm_api = api_lm_phase(Path(tmp))
     heldout = heldout_phase()
     api_legs = api_slo()
     api_kernel = api_kernel_shape()
@@ -2333,6 +2731,9 @@ def main() -> int:
         "hybrid_e2e": hybrid,
         "hybrid_api": hybrid_api,
         "heldout": heldout,
+        "decoder": decoder,
+        "lm_e2e": lm_e2e,
+        "lm_api": lm_api,
         "scale": {k: v for k, v in scale.items() if k not in ("kernel", "dot_max")},
         "dot_max": dk,
         "ivf_scale": {k: v for k, v in ivf_scale.items() if k != "kernel"},

@@ -43,6 +43,7 @@ from ..device import DeviceLike
 from ..logger import configure_logging, get_logger
 from ..protocols import IndexerLike, QueryPipelineLike
 from ..rag import SemanticSearchPipeline
+from ..rag.llm import LOCAL_LLM_PROVIDERS
 from ..services import IndexerService, IndexingCallbacks
 from ..settings import AppSettings, settings as default_settings
 from .batcher import BatcherOverloaded, QueryBatcher
@@ -90,6 +91,17 @@ def warm_encoder(config: AppSettings, pipeline) -> bool:
         return False
     pipeline.embeddings.embed_queries(["__warmup__ encoder probe"])
     return True
+
+
+def warm_decoder(config: AppSettings, pipeline) -> List[int]:
+    """Load the ``tpu-lm`` decoder and run one generation at every prompt
+    bucket a query can take, so the first answers find the weights on the
+    card and every decode graph captured; the buckets, or none for the
+    other providers. The warmup query alone would ready one bucket, and
+    only over a non-empty store."""
+    if (config.rag_provider or "").lower() not in LOCAL_LLM_PROVIDERS:
+        return []
+    return pipeline._get_llm().warm()
 
 
 def engine_devices(store) -> Dict[str, Any]:
@@ -171,8 +183,9 @@ def create_app(
     async def _warmup(app_):
         """Ready the serving path at startup (background, off the event
         loop). On the card the first query would otherwise pay the kernel
-        libraries' nvcc build and the encoder's load (``tpu-encoder`` /
-        ``tpu-hybrid``); a restarted server over an existing
+        libraries' nvcc build, the encoder's load (``tpu-encoder`` /
+        ``tpu-hybrid``) and the decoder's load and graph captures
+        (``tpu-lm``); a restarted server over an existing
         workspace also runs one default query, so the first user query
         finds the store loaded and every lazy piece built. The server
         accepts traffic immediately; a query that arrives mid-warmup waits
@@ -198,6 +211,9 @@ def create_app(
                     log.info("kernels_built", kernels=",".join(built))
                 if warm_encoder(config, pipeline):
                     log.info("encoder_warm", provider=config.embedding_provider)
+                buckets = warm_decoder(config, pipeline)
+                if buckets:
+                    log.info("decoder_warm", buckets=",".join(map(str, buckets)))
                 if store.count() > 0:
                     pipeline.query("__warmup__ serving path compile probe")
                     log.info("serving_path_warm")

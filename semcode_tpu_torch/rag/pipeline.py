@@ -5,8 +5,8 @@ pipeline.py:25-301): embed the question, retrieve top-k context from the
 vector store, assemble the prompt (template override + ``{system_prompt}``
 substitution, snippet truncation), call the LLM, and on any retrieval/LLM
 failure fall back to an extractive summary of the best sources (except a
-kernel that fails to build or launch, ``ops.build.KernelError``, which
-propagates). Response
+kernel that fails to build or launch, or the ``tpu-lm`` decoder failing on
+the card, ``ops.build.KernelError``, which propagates). Response
 shape: ``{"answer", "sources", "meta": {"fallback_used", "reason"?}}``.
 
 Counterpart of ``semcode_tpu/rag/pipeline.py``: query embedding and
@@ -283,7 +283,9 @@ class SemanticSearchPipeline:
         with self._llm_lock:
             if self._llm is _LLM_UNSET:
                 try:
-                    self._llm = create_llm(self.config)
+                    self._llm = create_llm(self.config, device=self.device)
+                except KernelError:
+                    raise  # the decoder's device failed: not an answer mode
                 except Exception as exc:
                     log.warning("llm_create_failed", error=str(exc))
                     return None
@@ -368,6 +370,8 @@ class SemanticSearchPipeline:
                 "sources": sources,
                 "meta": {"fallback_used": False, "timings_ms": timer.as_dict()},
             }
+        except KernelError:
+            raise  # a device failure of the decoder fails the request
         except Exception as exc:
             log.warning("llm_invoke_failed", error=str(exc))
             if not self.config.rag_fallback_enabled:

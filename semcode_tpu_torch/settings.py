@@ -186,7 +186,7 @@ class AppSettings:
     rag_api_base: Optional[str] = None
     rag_api_key: Optional[str] = None
     rag_temperature: float = 0.0
-    # tpu-lm provider: in-process causal LM (not ported yet)
+    # tpu-lm provider: in-process causal LM (models/decoder.py) on the card
     rag_weights_path: Optional[Path] = None  # local HF GPT-2-family dir
     rag_preset: str = "mini"  # used only when weights_path is unset
     rag_max_new_tokens: int = 192

@@ -10,6 +10,8 @@ Comparisons hold each kernel against its plain torch version on the same
 card inputs: int8 bit-identical (dot_max, an integer maximum, in both
 modes); bf16/f32 within rtol 1e-5 (f32 sums run in another order). Each
 kernel's launch geometry is also held against what its entry point accepts.
+The causal decoder's CUDA-graph decode step is held against its eager step
+(bit for bit) and its float32 tokens against the CPU path's.
 """
 
 import numpy as np
@@ -578,3 +580,31 @@ def test_hash_projection_card_equals_cpu(cuda):
     a = HashEmbeddings(384, device="cpu").projection()
     b = HashEmbeddings(384, device=cuda).projection()
     assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("max_new", [1, 2, 33])
+def test_decoder_graph_replays_the_eager_step(cuda, max_new):
+    """The causal decoder's captured decode step gives the eager step's
+    tokens bit for bit (bfloat16), replays once per token, and a float32
+    decoder on the card gives the CPU path's greedy tokens; seeded sampling
+    repeats."""
+    from pathlib import Path
+
+    from semcode_tpu_torch.models.decoder import CodeDecoderLM, generate_tokens
+
+    fixture = Path(__file__).resolve().parents[1] / "semcode_tpu_torch" / "assets" / "lm-tiny"
+    prompt = "### Context\ndef quantize_rows(x):\n\n### Question\nwhat does it do?\n\n### Answer\n"
+    lm = CodeDecoderLM(weights_path=fixture, device=cuda)
+    arr, msk, n = lm.prompt_arrays(prompt, max_new)
+    graphed = generate_tokens(lm.model, arr, msk, max_new=n)
+    eager = generate_tokens(lm.model, arr, msk, max_new=n, graph=False)
+    assert torch.equal(graphed, eager)
+    assert lm.model.counts["graph_replays"] == n - 1
+    assert lm.model.counts["graph_captures"] == (n > 1)
+    card = CodeDecoderLM(weights_path=fixture, dtype="float32", device=cuda)
+    cpu = CodeDecoderLM(weights_path=fixture, dtype="float32", device="cpu")
+    assert card.generate_ids(prompt, max_new_tokens=max_new) == cpu.generate_ids(
+        prompt, max_new_tokens=max_new)
+    # sampling runs the step eagerly from a generator seeded on every call
+    hot = dict(max_new_tokens=max_new, temperature=0.8)
+    assert lm.generate_ids(prompt, seed=3, **hot) == lm.generate_ids(prompt, seed=3, **hot)

@@ -6,7 +6,9 @@
   with no ``jax``/``flax``/``semcode_tpu`` module loaded, and so does one
   that imports the API server, serves a query and runs ``cli eval``, and
   one that embeds with ``tpu-hybrid`` (the transformer encoder on the
-  shipped checkpoint) through ingest, query and ``eval``;
+  shipped checkpoint) through ingest, query and ``eval``, and one that
+  answers with ``tpu-lm`` (the causal decoder on the shipped fixture)
+  through the CLI's query and ``tools.lm_demo``;
 - without a CUDA card the default device raises instead of running on the
   CPU, and ``SEMCODE_TORCH_DEVICE=cpu`` opts in to the CPU.
 """
@@ -53,8 +55,9 @@ def test_no_forbidden_imports():
         for m in ("dependencies", "telemetry", "jobs", "batcher", "main")
     } | {
         f"semcode_tpu_torch/models/{m}.py"
-        for m in ("encoder", "tokenizer", "train", "hf_loader")
+        for m in ("encoder", "tokenizer", "train", "hf_loader", "decoder", "train_lm")
     } | {"semcode_tpu_torch/tools/eval_heldout.py", "semcode_tpu_torch/tools/rerank_lab.py",
+         "semcode_tpu_torch/tools/lm_demo.py",
          "semcode_tpu_torch/frontend/webui.py", "semcode_tpu_torch/frontend/cli.py"
          } <= names
     bad = [
@@ -208,6 +211,63 @@ def test_hybrid_session_loads_no_jax(tmp_path):
     assert result["sig"].startswith("hybrid:w0.4:[hash-v") and "]+[encoder:" in result["sig"]
     assert "src/settings.py" in result["out"]
     assert '"provider": "tpu-hybrid"' in result["out"]
+
+
+_LM_SESSION = """
+import contextlib, io, json, sys
+from semcode_tpu_torch.cli import main
+from semcode_tpu_torch.tools import lm_demo
+rc = [main(["ingest", "-n", "demo", "-I", "src", "-r", sys.argv[1], "-y"])]
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc.append(main(["query", "what does parse_config do?", "--json", "-k", "3"]))
+query = json.loads(buf.getvalue())
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    lm_demo.main(["where is parse_config defined?"])
+demo = json.loads(buf.getvalue())
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in {roots})
+print("RESULT", json.dumps({{"rc": rc, "bad": bad, "meta": query["meta"],
+                            "paths": [s["path"] for s in query["sources"]],
+                            "demo": demo}}))
+"""
+
+
+def test_tpu_lm_session_loads_no_jax(tmp_path):
+    """The CLI's query and ``tools.lm_demo`` answer with the tpu-lm provider
+    on the shipped fixture (the decoder, its msgpack reader, the pipeline)
+    without loading JAX."""
+    src = tmp_path / "repo" / "src"
+    src.mkdir(parents=True)
+    (src / "settings.py").write_text(
+        "def parse_config(path):\n    '''Read the TOML config.'''\n"
+        "    return open(path).read()\n"
+    )
+    code = _LM_SESSION.format(roots=repr(set(FORBIDDEN))).replace(
+        "sys.argv[1]", repr(str(tmp_path / "repo"))
+    )
+    proc = _run(code, {
+        "SEMCODE_TORCH_DEVICE": "cpu",
+        "SEMCODE_WORKSPACE_ROOT": str(tmp_path / "ws"),
+        "SEMCODE_EMBEDDING_DIMENSION": "64",
+        "SEMCODE_INDEX_KIND": "flat",
+        "SEMCODE_RAG_PROVIDER": "tpu-lm",
+        "SEMCODE_RAG_WEIGHTS_PATH": str(ROOT / "semcode_tpu_torch" / "assets" / "lm-tiny"),
+        "SEMCODE_RAG_MAX_NEW_TOKENS": "48",
+    }, tmp_path)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")][-1]
+    result = json.loads(line[len("RESULT "):])
+    assert result["rc"] == [0, 0] and result["bad"] == []
+    assert result["paths"] == ["src/settings.py"]
+    # the decoder answered: an answer, or the reference's fallback for an
+    # empty or ungrounded one, never "no LLM configured"
+    assert result["meta"].get("reason") != "no_llm_configured"
+    assert "llm" in result["meta"]["timings_ms"]
+    demo = result["demo"]
+    assert demo["question"] == "where is parse_config defined?"
+    assert demo["top_source"] == "src/settings.py" and "llm" in demo["stage_ms"]
 
 
 def test_default_device_refuses_cpu_fallback(tmp_path):
