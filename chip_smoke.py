@@ -130,6 +130,28 @@ Phases (any failed check exits non-zero before the final line):
    graphs of every prompt bucket), 16 frozen questions at 8 in flight through
    ``POST /query``: 0 failed, each answer equal to the in-process one; QPS,
    p50 and the /telemetry stage means.
+8. training on the card (run after phase 7c): 8a. the contrastive trainer at
+   ``train``'s defaults (the mini encoder, hashing vocabulary 32,768,
+   sequence 128, batch 32, bf16 compute on float32 masters) from the port's
+   seeded init on PairBatcher batches of ``semcode_tpu/``'s chunks: 3 warm-up
+   steps, then 20 timed with CUDA events: ms a step, tokens/s, model FLOPs a
+   step against the bf16 dense peak, the device-busy share and launches of a
+   profiled step, peak memory, device time by operator class; the last 5
+   steps' mean loss must lie below the first 5 steps'; then one float32 step
+   on the card against the port's CPU path (same init and batch): loss
+   within 1e-4, every gradient within 1e-3 of its largest entry (+ 1e-6);
+   8b. the same for the next-token trainer at ``train-lm``'s defaults (the
+   mini decoder, byte vocabulary, sequence 512, batch 32, QA mix 0.5);
+   8c. the term reranker at the default geometry (131,072 x 32 table, batch
+   256, 64 query and 96 doc terms) for 20 steps on pairs of
+   ``semcode_tpu_torch/``, ``tools/`` and ``tests/`` (the serving repo held
+   out): ms a step and peak memory; 8d. train -> serve: 8a's checkpoint
+   (``save_params``) as ``tpu-encoder`` self-ingests ``semcode_tpu/`` into
+   an int8 kernel-route store with 8c's table in the rerank; the 102 frozen
+   questions through ``query_batch`` must all have hits and launch
+   top2_scan (launches read around them; MRR@10 printed, not a target);
+   8b's checkpoint answers one question as ``tpu-lm`` (non-empty, the
+   decoder having run).
 4. scale: a 1M x 384 int8 FlatIndex with its f32 rescore mirror (the JAX
    package's bench.py flagship shape, a clustered Gaussian mixture made on
    the card from a seeded torch.Generator): recall@10 against an f32
@@ -181,6 +203,7 @@ its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1822,6 +1845,344 @@ def api_lm_phase(workdir: Path):
 # -- phase 4: scale -----------------------------------------------------------
 
 
+# -- phase 8: training on the card ---------------------------------------------
+
+TRAIN_WARMUP = 3  # steps before the timed ones (cuBLAS handles, allocator)
+TRAIN_STEPS = 20
+# train-rerank's recipe holds the serving repo (semcode_tpu/) out; these
+# trees hold more than 256 distinct chunks, so a batch is full
+RERANK_CORPUS = ("semcode_tpu_torch", "tools", "tests")
+ENCODER_TRAIN = dict(preset="mini", seq_len=128, batch_size=32)  # `train`'s defaults
+LM_TRAIN = dict(preset="mini", seq_len=512, batch_size=32, qa_mix=0.5)  # `train-lm`'s
+RERANK_TRAIN = dict(batch_size=256, steps=20)  # `train-rerank`'s batch, geometry
+
+
+def train_chunks(dirs=("semcode_tpu",)):
+    from semcode_tpu_torch.cli import _chunk_dirs
+
+    return _chunk_dirs(",".join(str(ROOT / d) for d in dirs))
+
+
+def transformer_step_flops(layers, hidden, mlp, seq, n_seqs, extra_params=0):
+    """Model FLOPs of one training step: 6 x (the products' parameters) x
+    tokens, plus the attention products (QK^T and PV, 4 L^2 h a sequence and
+    layer forward, three times that with the backward)."""
+    params = layers * (4 * hidden * hidden + 2 * hidden * mlp) + extra_params
+    return 6 * params * seq * n_seqs + 3 * 4 * layers * seq * seq * hidden * n_seqs
+
+
+def timed_training(trainer, params, opt_state, batches, label, flops, tokens, held):
+    """TRAIN_WARMUP steps, then TRAIN_STEPS timed with CUDA events (each
+    step uploads its batch, as the CLI's loop does); the timed steps'
+    losses, peak memory above ``held`` (what the process held before the
+    trainer was made), and a profiled step (device-busy share, launches,
+    operator classes)."""
+    import torch
+
+    it = iter(batches)
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_step(params, opt_state, next(it))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    losses = []
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        losses.append(trainer.train_step(params, opt_state, next(it))[2]["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() - held
+    losses = [float(x) for x in losses]
+    batch = next(it)
+
+    def step():
+        trainer.train_step(params, opt_state, batch)
+
+    busy = device_breakdown(step, f"{label} train step", iters=3)
+    classes = op_class_breakdown(step, iters=3)
+    bound_ms = flops / PEAK_BF16_OPS * 1e3
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    rec = {"ms": ms, "tokens_per_s": tokens / (ms / 1e3), "flops": flops,
+           "bound_ms": bound_ms, "bound_by": "operations", "peak_share": bound_ms / ms,
+           "busy_share": busy["device_ms"] / busy["wall_ms"],
+           "launches": busy["launches"], "peak_bytes": peak, "losses": losses,
+           "loss_first5": first, "loss_last5": last, "classes": classes}
+    log(f"[train] {label}: {ms:.3f} ms a step (CUDA events, {TRAIN_STEPS} steps after "
+        f"{TRAIN_WARMUP}), {rec['tokens_per_s']:.4g} tokens/s, {flops:.3g} model FLOP a "
+        f"step, bound {bound_ms:.4f} ms (bf16 dense peak {PEAK_BF16_OPS / 1e12:.0f} "
+        f"TFLOP/s): {100 * rec['peak_share']:.2f}% of peak; device busy "
+        f"{100 * rec['busy_share']:.1f}% of a profiled step, {busy['launches']:.0f} "
+        f"launches a step; peak memory {peak / 2**30:.2f} GiB above earlier phases'")
+    log(f"[train]   device {classes['device_ms']:.3f} ms a step by class: "
+        + ", ".join(f"{k} {v:.3f} ms ({classes['launches'][k]:.0f} launches)"
+                    for k, v in classes["ms"].items()))
+    log(f"[train]   largest kernels: {classes['top'][:4]}")
+    log(f"[train]   loss over the timed steps: {[round(x, 4) for x in losses]}; "
+        f"first 5 mean {first:.4f}, last 5 mean {last:.4f}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"{label}: a non-finite loss {losses}")
+    if not last < first:
+        fail(f"{label}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    return rec
+
+
+def card_vs_cpu_step(make_trainer, state, batch, label):
+    """One float32 step's loss and gradients on the card against the port's
+    CPU path, same init and batch (TF32 off): the loss within 1e-4, each
+    gradient within 1e-3 of its largest entry (+ 1e-6)."""
+    import torch
+
+    card, cpu = make_trainer("cuda"), make_trainer("cpu")
+    pc, _ = card.state_from(state)
+    pp, _ = cpu.state_from(state)
+    mc, gc = card.value_and_grad(pc, batch)
+    mp, gp = cpu.value_and_grad(pp, batch)
+    loss_err = abs(float(mc["loss"]) - float(mp["loss"]))
+    worst, worst_name = 0.0, None
+    for name, g in gp.items():
+        err = (gc[name].cpu() - g).abs().max().item()
+        ratio = err / (1e-3 * g.abs().max().item() + 1e-6)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    log(f"[train] {label} float32 step card vs CPU: loss {float(mc['loss']):.6f} vs "
+        f"{float(mp['loss']):.6f} (|diff| {loss_err:.3g}); worst gradient at "
+        f"{worst:.3f} of its tolerance ({worst_name})")
+    if loss_err > 1e-4 or worst > 1.0:
+        fail(f"{label}: the card's float32 step differs from the CPU's "
+             f"(loss {loss_err:.3g}, gradient {worst:.3f} of tolerance at {worst_name})")
+    del card, cpu, pc, pp, gc, gp
+    torch.cuda.empty_cache()
+    return {"loss_abs_err": loss_err, "grad_tol_share": worst}
+
+
+def encoder_training_phase(workdir: Path, chunks):
+    """8a: the contrastive trainer at `train`'s defaults (mini encoder,
+    sequence 128, batch 32, bf16 compute on float32 masters) on PairBatcher
+    batches of semcode_tpu/'s chunks; saves the checkpoint for 8d."""
+    import dataclasses
+
+    import torch
+
+    from semcode_tpu_torch.models.data import PairBatcher
+    from semcode_tpu_torch.models.encoder import (
+        EncoderConfig,
+        encoder_state_to_jax,
+        random_state,
+    )
+    from semcode_tpu_torch.models.tokenizer import HashingTokenizer
+    from semcode_tpu_torch.models.train import ContrastiveTrainer, save_params
+
+    seq, bsz = ENCODER_TRAIN["seq_len"], ENCODER_TRAIN["batch_size"]
+    tok = HashingTokenizer(max_len=seq)
+    cfg = EncoderConfig.preset(ENCODER_TRAIN["preset"], vocab_size=tok.vocab_size,
+                               max_len=seq)
+    batcher = PairBatcher([c.content for c in chunks], tok, seq_len=seq, batch_size=bsz,
+                          symbols=[c.symbol for c in chunks],
+                          languages=[c.language for c in chunks])
+    batches = list(batcher.batches(TRAIN_WARMUP + TRAIN_STEPS + 1))
+    held = torch.cuda.memory_allocated()
+    trainer = ContrastiveTrainer(cfg, device="cuda")
+    params, opt_state = trainer.init_state(seed=0)
+    flops = transformer_step_flops(cfg.layers, cfg.hidden, cfg.mlp_dim, seq, 2 * bsz)
+    rec = timed_training(trainer, params, opt_state, batches,
+                         f"encoder ({ENCODER_TRAIN['preset']}, 2 x {bsz} x {seq})",
+                         flops, 2 * bsz * seq, held)
+    out = workdir / "trained-encoder"
+    save_params(encoder_state_to_jax(params, cfg), cfg, out)
+    del trainer, params, opt_state
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rec["card_vs_cpu"] = card_vs_cpu_step(
+        lambda dev: ContrastiveTrainer(f32, device=dev), random_state(f32, 0),
+        batches[0], "encoder")
+    rec["checkpoint"] = str(out)
+    return rec
+
+
+def lm_training_phase(workdir: Path, chunks):
+    """8b: the next-token trainer at `train-lm`'s defaults (mini decoder,
+    byte vocabulary, sequence 512, batch 32, QA mix 0.5); saves the
+    checkpoint for 8d."""
+    import dataclasses
+
+    import torch
+
+    from semcode_tpu_torch.models.decoder import (
+        DecoderConfig,
+        decoder_state_from_jax,
+        decoder_state_to_jax,
+        init_params,
+    )
+    from semcode_tpu_torch.models.tokenizer import ByteTokenizer
+    from semcode_tpu_torch.models.train_lm import (
+        LMTrainer,
+        WindowBatcher,
+        build_qa_texts,
+        save_lm_params,
+    )
+
+    seq, bsz = LM_TRAIN["seq_len"], LM_TRAIN["batch_size"]
+    tok = ByteTokenizer(max_len=seq)
+    cfg = DecoderConfig.preset(LM_TRAIN["preset"], vocab_size=tok.vocab_size,
+                               max_len=max(seq, 1024))
+    batcher = WindowBatcher([c.content for c in chunks], tok, seq_len=seq, batch_size=bsz,
+                            anchored_texts=build_qa_texts(chunks),
+                            anchored_frac=LM_TRAIN["qa_mix"])
+    batches = list(batcher.batches(TRAIN_WARMUP + TRAIN_STEPS + 1))
+    held = torch.cuda.memory_allocated()
+    trainer = LMTrainer(cfg, device="cuda")
+    params, opt_state = trainer.init_state(seed=0)
+    flops = transformer_step_flops(cfg.layers, cfg.hidden, cfg.mlp_dim, seq, bsz,
+                                   extra_params=cfg.vocab_size * cfg.hidden)
+    rec = timed_training(trainer, params, opt_state, batches,
+                         f"LM ({LM_TRAIN['preset']}, {bsz} x {seq})", flops, bsz * seq,
+                         held)
+    out = workdir / "trained-lm"
+    save_lm_params(decoder_state_to_jax(params), cfg, out)
+    del trainer, params, opt_state
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rec["card_vs_cpu"] = card_vs_cpu_step(
+        lambda dev: LMTrainer(f32, device=dev),
+        decoder_state_from_jax(init_params(f32, seed=0)), batches[0], "LM")
+    rec["checkpoint"] = str(out)
+    return rec
+
+
+def rerank_training_phase(workdir: Path):
+    """8c: the term reranker at the default geometry (131,072 x 32 table,
+    batch 256, 64 query terms, 96 doc terms) for 20 steps on pairs of the
+    held-out trees; saves the table for 8d."""
+    import torch
+
+    from semcode_tpu_torch.models.term_reranker import (
+        DEFAULT_BUCKETS,
+        DEFAULT_DIM,
+        build_pairs,
+        featurize_pairs,
+        save_table,
+        train_term_table,
+    )
+
+    chunks = train_chunks(RERANK_CORPUS)
+    metas = [(f"c{i}", {"text": c.content, "symbol": c.symbol,
+                        "path": str(getattr(c, "path", "") or ""), "language": c.language})
+             for i, c in enumerate(chunks)]
+    t0 = time.perf_counter()
+    feats = featurize_pairs(build_pairs(metas))
+    feat_s = time.perf_counter() - t0
+    steps, bsz = RERANK_TRAIN["steps"], RERANK_TRAIN["batch_size"]
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    table = train_term_table(feats, steps=steps, batch_size=bsz, log_every=1,
+                             log=lines.append, device="cuda")
+    wall_s = time.perf_counter() - t0  # ends in the table's copy to the host
+    peak = torch.cuda.max_memory_allocated() - held
+    losses = [float(s.split("loss=")[1].split()[0]) for s in lines]
+    ms = wall_s * 1e3 / steps
+    log(f"[train] term reranker ({DEFAULT_BUCKETS} x {DEFAULT_DIM}, batch {bsz}, "
+        f"{feats['q_ids'].shape[1]} x {feats['d_ids'].shape[1]} terms; {len(chunks)} "
+        f"chunks -> {feats['q_ids'].shape[0]} pairs, featurized in {feat_s:.2f} s): "
+        f"{ms:.2f} ms a step (host clock over {steps} steps, host sampling and the "
+        f"first step's set-up included), peak memory {peak / 2**30:.2f} GiB above "
+        f"earlier phases'; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if table.shape != (DEFAULT_BUCKETS, DEFAULT_DIM) or not torch.isfinite(
+            torch.from_numpy(table)).all():
+        fail(f"the term table came back {table.shape} or not finite")
+    out = workdir / "term-reranker.npz"
+    save_table(table, out)
+    return {"ms": ms, "peak_bytes": peak, "losses": losses, "pairs": int(feats["q_ids"].shape[0]),
+            "featurize_s": feat_s, "table": str(out)}
+
+
+def train_serve_phase(workdir: Path, encoder_ckpt, lm_ckpt, table):
+    """8d: 8a's encoder serves a self-ingest of semcode_tpu/ (tpu-encoder,
+    kernel route, 8c's table in the rerank); the frozen questions through
+    query_batch, top2_scan's launches read around them; 8b's LM answers one
+    question as tpu-lm."""
+    import dataclasses
+
+    from semcode_tpu_torch.ops.scan_top2 import top2_scan
+    from semcode_tpu_torch.rag import SemanticSearchPipeline
+    from semcode_tpu_torch.services import IndexerService
+    from semcode_tpu_torch.settings import AppSettings
+
+    queries = frozen_queries()
+    questions = [q for q, _ in queries]
+    cfg = AppSettings(
+        workspace_root=workdir / "train-serve",
+        embedding_provider="tpu-encoder",
+        encoder_weights_path=Path(encoder_ckpt),
+        index_kind="flat",
+        index_scan_impl="pallas",
+        search_rerank_learned=str(table),
+        rag_provider="fallback",
+        rag_query_cache_size=0,
+    )
+    svc = IndexerService(config=cfg, device="cuda")
+    res = svc.index_repository([ROOT / "semcode_tpu"], "semcode_tpu")
+    emb = svc.embeddings
+    if emb.random_init or emb.cfg.max_len != ENCODER_TRAIN["seq_len"]:
+        fail("the store's encoder is not 8a's checkpoint")
+    if svc.vector_store._learned_table() is None:
+        fail("the store did not load 8c's term table")
+    pipe = SemanticSearchPipeline(config=cfg, vector_store=svc.vector_store,
+                                  embeddings=emb, device="cuda")
+    top2_scan.launches = 0
+    results = pipe.query_batch(questions, top_k=10)
+    launches = top2_scan.launches
+    if any(not r["sources"] for r in results):
+        fail("a frozen question got no hits from the trained encoder's store")
+    if launches < 1:
+        fail("the trained encoder's store never launched top2_scan")
+    mrr, recall = rank_metrics(results, [rel for _, rel in queries])
+
+    lm_cfg = dataclasses.replace(cfg, rag_provider="tpu-lm", rag_weights_path=Path(lm_ckpt),
+                                 rag_grounding_guard=False)
+    lm_pipe = SemanticSearchPipeline(config=lm_cfg, vector_store=svc.vector_store,
+                                     embeddings=emb, device="cuda")
+    answer = lm_pipe.query(questions[0], top_k=10)
+    chat = lm_pipe._get_llm()
+    counts = dict(chat.lm.model.counts)
+    if not answer["answer"].strip():
+        fail(f"the trained LM gave an empty answer: {answer['meta']}")
+    if counts["prefills"] < 1:
+        fail(f"the trained LM never ran: {counts}")
+    # the completion itself, before the pipeline's stops and strip
+    raw = chat.lm.generate(chat.qa_prompt(questions[0], [s["snippet"] for s in
+                                                         answer["sources"]]),
+                           max_new_tokens=chat.max_new_tokens)
+    log(f"[train-serve] trained encoder: {res.chunk_count} chunks of semcode_tpu/ into "
+        f"{svc.vector_store.dim}-d rows, 102 frozen questions all with hits; top2_scan "
+        f"launches {launches}; MRR@10 {mrr:.4f} recall@10 {recall:.4f} (20 steps from a "
+        f"random init: not a target)")
+    log(f"[train-serve] trained LM as tpu-lm: {questions[0]!r} -> "
+        f"{answer['answer'][:100]!r} (fallback {answer['meta'].get('fallback_used')}, "
+        f"reason {answer['meta'].get('reason')}; decoder counts {counts}); its raw "
+        f"completion: {raw[:80]!r}")
+    return {"launches": launches, "mrr": mrr, "recall": recall, "chunks": res.chunk_count,
+            "lm_fallback": bool(answer["meta"].get("fallback_used")), "lm_counts": counts,
+            "lm_raw": raw[:200]}
+
+
+def training_phase(workdir: Path):
+    """8: the three trainers on the card, then their outputs served (8d)."""
+    t0 = time.perf_counter()
+    chunks = train_chunks()
+    encoder = encoder_training_phase(workdir, chunks)
+    lm = lm_training_phase(workdir, chunks)
+    rerank = rerank_training_phase(workdir)
+    serve = train_serve_phase(workdir, encoder["checkpoint"], lm["checkpoint"],
+                              rerank["table"])
+    log(f"[train] phase 8 took {time.perf_counter() - t0:.1f} s")
+    return {"encoder": encoder, "lm": lm, "rerank": rerank, "serve": serve}
+
+
 def recall_at_10(ids, truth) -> float:
     hits = (ids[:, :, None] == truth[:, None, :]).any(dim=2).sum().item()
     return hits / truth.numel()
@@ -2647,6 +3008,7 @@ def main() -> int:
         decoder = decoder_model_phase()
         lm_e2e = lm_pipeline_phase(e2e.pop("pipeline"))
         lm_api = api_lm_phase(Path(tmp))
+        training = training_phase(Path(tmp))
     heldout = heldout_phase()
     api_legs = api_slo()
     api_kernel = api_kernel_shape()
@@ -2680,6 +3042,8 @@ def main() -> int:
         # phase 6: the 768-d tpu-hybrid store in process and behind /query
         "hybrid_launches": hybrid["launches"],
         "hybrid_api_launches": hybrid_api["launches"],
+        # phase 8d: the store of the encoder trained in 8a
+        "train_serve_launches": training["serve"]["launches"],
         **{f"api_{key}": api_kernel[key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }
@@ -2734,6 +3098,7 @@ def main() -> int:
         "decoder": decoder,
         "lm_e2e": lm_e2e,
         "lm_api": lm_api,
+        "training": training,
         "scale": {k: v for k, v in scale.items() if k not in ("kernel", "dot_max")},
         "dot_max": dk,
         "ivf_scale": {k: v for k, v in ivf_scale.items() if k != "kernel"},

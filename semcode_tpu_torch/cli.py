@@ -3,10 +3,11 @@
 Counterpart of ``semcode_tpu/cli.py``: ``ingest`` (tree preview,
 confirmation, 4-bar rich progress over copy/chunk/embed/upsert), ``query``,
 ``list``, ``remove``, ``chunks``, ``compact``, ``workspace``, ``stats``,
-``serve`` (the API server), ``eval`` (retrieval quality) and ``version``, on
-argparse + rich. The engine runs on CUDA; set ``SEMCODE_TORCH_DEVICE=cpu`` to
-run it on the CPU. ``train``, ``train-rerank`` and ``train-lm`` are not
-ported yet and say so.
+``serve`` (the API server), ``eval`` (retrieval quality), ``train`` (the
+encoder's contrastive trainer), ``train-rerank`` (the term reranker's table),
+``train-lm`` (the answer decoder) and ``version``, on argparse + rich. The
+engine and the trainers run on CUDA; set ``SEMCODE_TORCH_DEVICE=cpu`` to run
+them on the CPU.
 
 Run as ``python -m semcode_tpu_torch.cli`` or the ``semcode-tpu-torch``
 console script.
@@ -373,24 +374,218 @@ def cmd_eval(args) -> int:
     return 0
 
 
-# subcommands of the JAX package's CLI that need modules not ported yet
-_NOT_PORTED = {
-    "train": "Contrastive-train the encoder",
-    "train-rerank": "Train the learned term-embedding rerank channel",
-    "train-lm": "Train the answer decoder",
-}
+def _chunk_dirs(from_dirs: str) -> list:
+    """Chunk arbitrary source trees directly (no workspace ingestion):
+    training corpora are throwaway reads, and the held-out serving repo
+    must never enter this list."""
+    from .chunking import CodeChunker
+
+    chunks: list = []
+    chunker = CodeChunker()
+    for d in from_dirs.split(","):
+        root = Path(d.strip()).resolve()
+        files = [
+            f
+            for f in sorted(root.rglob("*"))
+            if f.is_file()
+            and f.suffix in CHUNK_SUFFIXES
+            and not any(
+                fnmatch.fnmatch(part, pat)
+                for part in f.relative_to(root).parts
+                for pat in DEFAULT_IGNORE_PATTERNS
+            )
+        ]
+        before = len(chunks)
+        chunks.extend(chunker.chunk_repository(root, files))
+        print(f"  {root}: {len(files)} files, {len(chunks)-before} chunks")
+    return chunks
 
 
-def _not_ported(name: str, what: str):
-    def run(_args) -> int:
+def _workspace_chunks(repo: str):
+    """Chunks of one ingested repository, or of all (``repo == "all"``);
+    None when ``repo`` is not in the workspace."""
+    from .ingestion import RepositoryIngestionManager
+
+    manager = RepositoryIngestionManager()
+    repos = {r.name: r for r in manager.list_ingested()}
+    if repo != "all" and repo not in repos:
+        print(f"[ERROR] repository '{repo}' not in workspace", file=sys.stderr)
+        return None
+    chunks = []
+    for name, record in sorted(repos.items()):
+        if repo in ("all", name):
+            chunks.extend(manager.chunk_repository(record))
+    return chunks
+
+
+def _print_step(step: int, steps: int, metrics) -> None:
+    if step % max(1, steps // 20) == 0 or step == steps:
         print(
-            f"[ERROR] '{name}' ({what}) is not ported to the PyTorch engine "
-            "yet; use the JAX package's CLI (python -m semcode_tpu.cli)",
-            file=sys.stderr,
+            f"step {step}/{steps} "
+            f"loss={float(metrics['loss']):.4f} "
+            f"acc={float(metrics['accuracy']):.3f}"
         )
-        return 2
 
-    return run
+
+def cmd_train(args) -> int:
+    """Contrastive-train the encoder on an ingested repository's chunks
+    (or on source trees, ``--from``)."""
+    configure_logging()
+    from .device import resolve_device
+    from .models.data import PairBatcher
+    from .models.encoder import EncoderConfig, encoder_state_to_jax
+    from .models.tokenizer import HashingTokenizer
+    from .models.train import (
+        ContrastiveTrainer,
+        save_params,
+        warmup_cosine_decay_schedule,
+    )
+    from .settings import settings
+
+    if args.from_dirs:
+        chunks = _chunk_dirs(args.from_dirs)
+        source = args.from_dirs
+    elif args.repo:
+        chunks = _workspace_chunks(args.repo)
+        if chunks is None:
+            return 2
+        source = args.repo
+    else:
+        print("[ERROR] pass --repo or --from", file=sys.stderr)
+        return 2
+    if args.max_chunks and len(chunks) > args.max_chunks:
+        import random
+
+        random.Random(0).shuffle(chunks)
+        chunks = chunks[: args.max_chunks]
+    texts = [c.content for c in chunks]
+    print(f"training on {len(texts)} chunks from '{source}'")
+
+    tokenizer = HashingTokenizer(max_len=args.seq_len)
+    cfg = EncoderConfig.preset(
+        args.preset, vocab_size=tokenizer.vocab_size, max_len=args.seq_len
+    )
+    lr = args.lr
+    if args.warmup > 0:
+        lr = warmup_cosine_decay_schedule(
+            0.0, args.lr, args.warmup, max(args.steps, args.warmup + 1)
+        )
+    trainer = ContrastiveTrainer(cfg, learning_rate=lr, device=resolve_device())
+    params, opt_state = trainer.init_state(seed=0)
+    batcher = PairBatcher(
+        texts,
+        tokenizer,
+        seq_len=args.seq_len,
+        batch_size=args.batch_size,
+        symbols=[c.symbol for c in chunks],
+        languages=[c.language for c in chunks],
+    )
+    for step, batch in enumerate(batcher.batches(args.steps), 1):
+        params, opt_state, metrics = trainer.train_step(params, opt_state, batch)
+        _print_step(step, args.steps, metrics)
+    out = Path(args.out or Path(settings.workspace_root) / "encoder")
+    save_params(encoder_state_to_jax(params, cfg), cfg, out)
+    print(f"saved encoder checkpoint to {out}")
+    print(
+        "use it with: [embedding] provider='tpu-encoder' and "
+        f"[encoder] weights_path='{out}'"
+    )
+    return 0
+
+
+def cmd_train_rerank(args) -> int:
+    """Train the learned term-embedding MaxSim rerank channel
+    (models/term_reranker.py) on external corpora chunks."""
+    configure_logging()
+    from .device import resolve_device
+    from .models.term_reranker import (
+        DEFAULT_DIM,
+        build_pairs,
+        featurize_pairs,
+        save_table,
+        train_term_table,
+    )
+    from .settings import settings
+
+    if not args.from_dirs:
+        print("[ERROR] pass --from <dirs>", file=sys.stderr)
+        return 2
+    device = resolve_device()
+    chunks = _chunk_dirs(args.from_dirs)
+    metas = [
+        (
+            f"c{i}",
+            {
+                "text": c.content,
+                "symbol": c.symbol,
+                "path": str(getattr(c, "path", "") or ""),
+                "language": c.language,
+            },
+        )
+        for i, c in enumerate(chunks)
+    ]
+    pairs = build_pairs(metas, max_per_kind=args.max_per_kind)
+    print(f"{len(chunks)} chunks -> {len(pairs)} (query, chunk) pairs")
+    feats = featurize_pairs(pairs)
+    table = train_term_table(
+        feats,
+        dim=args.dim or DEFAULT_DIM,
+        steps=args.steps,
+        batch_size=args.batch_size,
+        lr=args.lr,
+        seed=args.seed,
+        device=device,
+    )
+    out = Path(args.out or Path(settings.workspace_root) / "term-reranker.npz")
+    save_table(table, out)
+    print(f"saved term-reranker table to {out}")
+    return 0
+
+
+def cmd_train_lm(args) -> int:
+    """Next-token-train the tpu-lm answer decoder on ingested chunks."""
+    configure_logging()
+    from .device import resolve_device
+    from .models.decoder import DecoderConfig, decoder_state_to_jax
+    from .models.tokenizer import ByteTokenizer
+    from .models.train_lm import (
+        LMTrainer,
+        WindowBatcher,
+        build_qa_texts,
+        save_lm_params,
+    )
+    from .settings import settings
+
+    chunks = _workspace_chunks(args.repo)
+    if chunks is None:
+        return 2
+    texts = [c.content for c in chunks]
+    print(f"training LM on {len(texts)} chunks from '{args.repo}'")
+
+    tokenizer = ByteTokenizer(max_len=args.seq_len)
+    cfg = DecoderConfig.preset(
+        args.preset, vocab_size=tokenizer.vocab_size, max_len=max(args.seq_len, 1024)
+    )
+    trainer = LMTrainer(cfg, learning_rate=args.lr, device=resolve_device())
+    params, opt_state = trainer.init_state(seed=0)
+    # QA-grammar examples derived from the corpus: the fraction of training
+    # that makes chat decoding produce answers instead of code continuation
+    # noise (models/train_lm.build_qa_texts)
+    qa_texts = build_qa_texts(chunks) if args.qa_mix > 0 else []
+    if qa_texts:
+        print(f"QA mix: {len(qa_texts)} examples at {args.qa_mix:.0%}")
+    batcher = WindowBatcher(
+        texts, tokenizer, seq_len=args.seq_len, batch_size=args.batch_size,
+        anchored_texts=qa_texts, anchored_frac=args.qa_mix,
+    )
+    for step, batch in enumerate(batcher.batches(args.steps), 1):
+        params, opt_state, metrics = trainer.train_step(params, opt_state, batch)
+        _print_step(step, args.steps, metrics)
+    out = Path(args.out or Path(settings.workspace_root) / "lm")
+    save_lm_params(decoder_state_to_jax(params), cfg, out)
+    print(f"saved LM checkpoint to {out}")
+    print(f"use it with: [rag] provider='tpu-lm', weights_path='{out}'")
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -478,10 +673,77 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.set_defaults(func=cmd_eval)
 
-    for name, what in _NOT_PORTED.items():
-        p = sub.add_parser(name, help=f"{what} (not ported yet)")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
-        p.set_defaults(func=_not_ported(name, what))
+    p = sub.add_parser(
+        "train", help="Contrastive-train the encoder on an ingested repo"
+    )
+    p.add_argument(
+        "--repo", default=None, help="Repo name, or 'all' (workspace chunks)"
+    )
+    p.add_argument(
+        "--from",
+        dest="from_dirs",
+        default=None,
+        help=(
+            "Comma-separated source directories to chunk directly for "
+            "training (no workspace ingestion; the generalization recipe "
+            "trains on several OTHER codebases and holds the serving repo "
+            "out entirely)"
+        ),
+    )
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--preset", default="mini")
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--warmup", type=int, default=0, help="LR warmup steps")
+    p.add_argument("--out", default=None)
+    p.add_argument(
+        "--max-chunks", type=int, default=0, help="Cap training chunks (0 = all)"
+    )
+    p.set_defaults(func=cmd_train)
+
+    p = sub.add_parser(
+        "train-rerank",
+        help="Train the learned term-embedding rerank channel on "
+        "external corpora",
+    )
+    p.add_argument(
+        "--from", dest="from_dirs", required=True,
+        help="Comma-separated source directories (hold the serving repo out)",
+    )
+    p.add_argument("--steps", type=int, default=2000)
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--lr", type=float, default=3e-3)
+    p.add_argument("--dim", type=int, default=0, help="0 = library default")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument(
+        "--max-per-kind", type=int, default=4000,
+        help="Query-generator cap per kind per run (pairs pool size)",
+    )
+    p.add_argument("--out", default=None)
+    p.set_defaults(func=cmd_train_rerank)
+
+    p = sub.add_parser(
+        "train-lm", help="Train the tpu-lm answer decoder on an ingested repo"
+    )
+    p.add_argument("--repo", required=True, help="Repo name, or 'all'")
+    p.add_argument("--steps", type=int, default=400)
+    p.add_argument("--batch-size", type=int, default=32)
+    # 512 covers a full QA-grammar example (ctx 200 + question + answer);
+    # shorter windows truncate the ANSWER region out of training and chat
+    # decoding degenerates (see decoder.QA_CTX_CHARS)
+    p.add_argument("--seq-len", type=int, default=512)
+    p.add_argument("--preset", default="mini")
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--out", default=None)
+    p.add_argument(
+        "--qa-mix",
+        type=float,
+        default=0.5,
+        help="Fraction of batches drawn from corpus-derived QA-grammar "
+        "examples (0 disables; required for coherent chat answers)",
+    )
+    p.set_defaults(func=cmd_train_lm)
 
     p = sub.add_parser("version", help="Show version")
     p.set_defaults(func=cmd_version)

@@ -183,6 +183,33 @@ def jax_normal_bf16(
     return out.reshape(tuple(shape))
 
 
+def jax_normal_f32(
+    seed: int, shape, device: torch.device, chunk: int = 1 << 22
+) -> torch.Tensor:
+    """``jax.random.normal(jax.random.PRNGKey(seed), shape, float32)``:
+    the same 32-bit draws (``b1 ^ b2`` of the counter's Threefry block),
+    read as a uniform on ``[nextafter(-1, 0), 1)`` as jax does it, then
+    ``sqrt(2) * erfinv(u)``. torch's erfinv is not XLA's polynomial, so a
+    value may differ from jax's in its last bits (relative ~1e-6)."""
+    n = int(np.prod(shape))
+    if n >= 1 << 31:
+        raise ValueError("draw too large for 32-bit counters")
+    lo_val = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
+    span = np.float32(1.0) - lo_val  # rounds to 2.0 in float32, as in jax
+    sqrt2 = np.float32(np.sqrt(2.0))
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    k2 = int(seed) & _MASK32
+    for lo in range(0, n, chunk):
+        cnt = torch.arange(lo, min(lo + chunk, n), dtype=torch.int32, device=device)
+        b1, b2 = _threefry2x32(0, k2, torch.zeros_like(cnt), cnt)
+        # logical shift of the uint32 bits: mask what the arithmetic shift drags in
+        mant = ((b1 ^ b2) >> 9) & 0x7FFFFF
+        u = (mant | 0x3F800000).view(torch.float32) - 1.0
+        u = torch.clamp_min(u * float(span) + float(lo_val), float(lo_val))
+        out[lo : lo + cnt.numel()] = float(sqrt2) * torch.erfinv(u)
+    return out.reshape(tuple(shape))
+
+
 @functools.lru_cache(maxsize=4)
 def _projection(seed: int, n_buckets: int, dim: int, device: str) -> torch.Tensor:
     """The fixed projection ``normal_bf16 * f32(1/sqrt(dim))``. Cached per

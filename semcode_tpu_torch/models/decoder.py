@@ -224,6 +224,35 @@ def decoder_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
+def decoder_state_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``decoder_state_from_jax``: a ``CodeDecoder`` state
+    (any device and float dtype; the ``wte_c`` / ``wpe_c`` casts are not
+    part of it) -> the param tree with float32 numpy leaves, which
+    ``train_lm.save_lm_params`` writes."""
+
+    def n(name) -> np.ndarray:
+        return state[name].detach().to("cpu", torch.float32).numpy().copy()
+
+    def ln(pre: str) -> dict:
+        return {"scale": n(pre + ".weight"), "bias": n(pre + ".bias")}
+
+    def dense(pre: str) -> dict:
+        return {"kernel": n(pre + ".kernel"), "bias": n(pre + ".bias")}
+
+    params: dict = {"wte": n("wte"), "wpe": n("wpe"), "ln_f": ln("ln_f"), "blocks": []}
+    i = 0
+    while f"blocks.{i}.c_attn.kernel" in state:
+        p = f"blocks.{i}."
+        params["blocks"].append({
+            "ln_1": ln(p + "ln_1"),
+            "attn": {"c_attn": dense(p + "c_attn"), "c_proj": dense(p + "c_proj")},
+            "ln_2": ln(p + "ln_2"),
+            "mlp": {"c_fc": dense(p + "c_fc"), "c_proj": dense(p + "mlp_proj")},
+        })
+        i += 1
+    return params
+
+
 # ---------------------------------------------------------------------------
 # the module
 

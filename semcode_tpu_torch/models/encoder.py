@@ -224,6 +224,55 @@ def encoder_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
+def encoder_state_to_jax(state: Dict[str, torch.Tensor], cfg: EncoderConfig
+                         ) -> Dict[str, Any]:
+    """The inverse of ``encoder_state_from_jax``: a ``CodeEncoder`` state
+    (any device and float dtype) -> flax's tree ``{"params": {...}}`` with
+    float32 numpy leaves, which ``train.save_params`` writes and the JAX
+    package's ``load_params`` reads. ``cfg.heads`` splits the fused q/k/v
+    rows back into ``(hidden, heads, head_dim)`` kernels."""
+    heads, hd = cfg.heads, cfg.hidden // cfg.heads
+
+    def n(name) -> np.ndarray:
+        return state[name].detach().to("cpu", torch.float32).numpy().copy()
+
+    def ln(pre: str) -> Dict[str, np.ndarray]:
+        return {"scale": n(pre + ".weight"), "bias": n(pre + ".bias")}
+
+    p: Dict[str, Any] = {"tok_emb": {"embedding": n("tok_emb.weight")},
+                         "pos_emb": n("pos_emb")}
+    if "type_emb" in state:
+        p["type_emb"] = n("type_emb")
+    for name in ("emb_ln", "ln_f"):
+        if f"{name}.weight" in state:
+            p[name] = ln(name)
+    i = 0
+    while f"blocks.{i}.attn.qkv.weight" in state:
+        pre = f"blocks.{i}."
+        qkv_w = n(pre + "attn.qkv.weight").reshape(3, cfg.hidden, cfg.hidden)
+        qkv_b = n(pre + "attn.qkv.bias").reshape(3, heads, hd)
+        attn = {
+            name: {"kernel": np.ascontiguousarray(qkv_w[j].T).reshape(cfg.hidden, heads, hd),
+                   "bias": qkv_b[j].copy()}
+            for j, name in enumerate(("query", "key", "value"))
+        }
+        attn["out"] = {
+            "kernel": np.ascontiguousarray(n(pre + "attn.out.weight").T).reshape(heads, hd, -1),
+            "bias": n(pre + "attn.out.bias"),
+        }
+        p[f"block_{i}"] = {
+            "attn": attn,
+            "mlp_in": {"kernel": np.ascontiguousarray(n(pre + "mlp_in.weight").T),
+                       "bias": n(pre + "mlp_in.bias")},
+            "mlp_out": {"kernel": np.ascontiguousarray(n(pre + "mlp_out.weight").T),
+                        "bias": n(pre + "mlp_out.bias")},
+            "ln1": ln(pre + "ln1"),
+            "ln2": ln(pre + "ln2"),
+        }
+        i += 1
+    return {"params": p}
+
+
 def random_state(cfg: EncoderConfig, seed: int) -> Dict[str, torch.Tensor]:
     """A seeded random init (float32, drawn on the CPU so every device gets
     the same weights): N(0, 0.02) embeddings, N(0, 1/fan_in) products,

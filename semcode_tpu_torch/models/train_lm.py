@@ -1,9 +1,20 @@
-"""Decoder checkpoints: ``save_lm_params`` / ``load_lm_params``.
+"""Next-token training of the answer decoder, and its checkpoints.
 
-Counterpart of the checkpoint half of ``semcode_tpu/models/train_lm.py``
-(273-304). The next-token trainer itself (``LMTrainer``, ``WindowBatcher``,
-``build_qa_texts``) is not ported yet; a later slice adds it here. The files
-are the JAX package's, read and written without flax:
+Counterpart of ``semcode_tpu/models/train_lm.py``: ``LMTrainer`` (masked
+next-token cross entropy under ``adamw(3e-4, weight_decay=0.01)``),
+``build_qa_texts`` (the QA-grammar examples, equal strings) and
+``WindowBatcher`` (random fixed-length windows; the same seed gives the
+same batches, bit for bit, the anchored QA mix included). One device: the
+reference's tensor-parallel rules (``param_spec_lm``) have no one-card
+counterpart and are left out. As in ``train.ContrastiveTrainer``, the
+weights are float32 masters and the forward runs ``CodeDecoder`` on their
+casts (``functional_call``); the embeddings' compute-dtype buffers
+``wte_c`` / ``wpe_c`` are fed casts of the masters, so ``wte`` gets its
+gradient from both the embedding and the tied head and ``wpe`` gets one at
+all, as in the reference's ``forward_logits``. ``init_state`` starts from
+``decoder.init_params``, whose values are the JAX package's.
+
+The files are the JAX package's, read and written without flax:
 
 - ``semcode_lm.msgpack``: flax's msgpack serialization of the decoder's
   param tree (``decoder.init_params``' layout), through
@@ -20,17 +31,207 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
 
-from .decoder import DTYPES, DecoderConfig
+from ..device import DeviceLike
+from .decoder import (
+    DTYPES,
+    QA_ANSWER,
+    QA_CONTEXT,
+    QA_CTX_CHARS,
+    QA_QUESTION,
+    CodeDecoder,
+    DecoderConfig,
+    decoder_state_from_jax,
+    init_params,
+)
 from .encoder import DTYPE_NAMES
-from .train import params_from_bytes, params_to_bytes
+from .train import (
+    MasterTrainer,
+    Schedule,
+    compute_params,
+    params_from_bytes,
+    params_to_bytes,
+)
 
 PARAMS_FILE = "semcode_lm.msgpack"
 CONFIG_FILE = "semcode_lm.json"
+
+
+class LMTrainer(MasterTrainer):
+    """Masked next-token steps of the decoder; ``init_state`` starts from
+    ``decoder.init_params``. ``decoder.decoder_state_to_jax(params)`` is
+    the JAX tree of the masters."""
+
+    def __init__(
+        self,
+        cfg: DecoderConfig,
+        *,
+        learning_rate: Union[float, Schedule] = 3e-4,
+        weight_decay: float = 0.01,
+        device: DeviceLike = None,
+    ):
+        super().__init__(CodeDecoder(cfg), learning_rate, weight_decay, device)
+        self.cfg = cfg
+
+    def init_state(self, seed: int = 0):
+        return self.state_from(decoder_state_from_jax(init_params(self.cfg, seed=seed)))
+
+    def forward_logits(self, params, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced float32 logits (B, T, vocab) of the masters."""
+        cast = compute_params(self.model, params)
+        cast["wte_c"] = params["wte"].to(self.cfg.dtype)
+        cast["wpe_c"] = params["wpe"].to(self.cfg.dtype)
+        return functional_call(self.model, cast, (ids, mask))
+
+    def loss_fn(self, params, batch: Mapping[str, torch.Tensor]):
+        ids, mask = batch["ids"], batch["mask"]
+        logits = self.forward_logits(params, ids, mask)[:, :-1]
+        targets = ids[:, 1:]
+        valid = mask[:, 1:].float()
+        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+                             reduction="none").view(targets.shape)
+        denom = valid.sum().clamp_min(1.0)
+        loss = (ce * valid).sum() / denom
+        acc = ((logits.argmax(dim=-1) == targets).float() * valid).sum() / denom
+        return loss, {"loss": loss.detach(), "accuracy": acc}
+
+
+def build_qa_texts(chunks, *, ctx_chars: Optional[int] = None) -> list:
+    """Question-answer training texts derived from the corpus itself.
+
+    The ``tpu-lm`` provider serves RAG answers in the QA_* prompt grammar
+    (models/decoder.py): ``### Context <snippet> ### Question <q>
+    ### Answer <a>###``. A corpus-fitted model must SEE that grammar in
+    training or chat decoding emits noise regardless of next-token
+    accuracy. For every chunk with a defining symbol this builds
+    question variants ("what does X do?", "where is X defined?", the
+    docstring as a natural-language question) whose answer cites the
+    symbol, its file/lines, and its leading docstring — the synthesis a
+    code-search answer actually needs. ``chunks``: CodeChunk-likes with
+    .content/.symbol/.path/.start_line/.end_line.
+    """
+    if ctx_chars is None:
+        ctx_chars = QA_CTX_CHARS
+    doc_re = re.compile(r'(?s)(?:"""|\'\'\')(.+?)(?:"""|\'\'\')')
+    out = []
+    for c in chunks:
+        symbol = getattr(c, "symbol", None)
+        if not symbol:
+            continue
+        path = str(getattr(c, "path", "") or "")
+        ctx = (c.content or "")[:ctx_chars]
+        m = doc_re.search(c.content or "")
+        doc = ""
+        if m:
+            doc = re.sub(r"\s+", " ", m.group(1)).strip()
+            doc = doc.split(". ")[0][:140]
+        lines = (
+            f" (lines {c.start_line}-{c.end_line})"
+            if getattr(c, "start_line", None)
+            else ""
+        )
+        answer = f"`{symbol}` is defined in {path}{lines}."
+        if doc:
+            answer += f" {doc}."
+        for q in (
+            f"what does {symbol} do?",
+            f"where is {symbol} defined?",
+        ):
+            out.append(
+                f"{QA_CONTEXT}{ctx}{QA_QUESTION}{q}{QA_ANSWER}{answer}\n###"
+            )
+        if doc and len(doc.split()) >= 4:
+            out.append(
+                f"{QA_CONTEXT}{ctx}{QA_QUESTION}{doc[:160]}"
+                f"{QA_ANSWER}{answer}\n###"
+            )
+    return out
+
+
+class WindowBatcher:
+    """Random fixed-length token windows over the corpus chunks.
+
+    Each sample is a window from one chunk's byte tokens, EOS-terminated when
+    the window reaches the chunk's end; every batch has the shape
+    (batch_size, seq_len).
+
+    ``anchored_texts`` (the QA mix) sample differently: always from position
+    0, so the model learns the prompt grammar from its start marker —
+    a random mid-window crop of a QA example teaches the wrong conditional.
+    ``anchored_frac`` of each batch comes from the anchored pool.
+    """
+
+    def __init__(
+        self,
+        texts: Sequence[str],
+        tokenizer,
+        *,
+        seq_len: int = 256,
+        batch_size: int = 32,
+        seed: int = 0,
+        anchored_texts: Sequence[str] = (),
+        anchored_frac: float = 0.0,
+    ):
+        self.docs = [
+            tokenizer.encode(t) + [getattr(tokenizer, "EOS_ID", 1)]
+            for t in texts
+            if t.strip()
+        ]
+        self.anchored = [
+            tokenizer.encode(t) + [getattr(tokenizer, "EOS_ID", 1)]
+            for t in anchored_texts
+            if t.strip()
+        ]
+        if not self.docs and not self.anchored:
+            raise ValueError("no non-empty chunks to train on")
+        self.seq_len = int(seq_len)
+        self.batch_size = int(batch_size)
+        self.anchored_frac = float(anchored_frac) if self.anchored else 0.0
+        self.rng = np.random.default_rng(seed)
+        # sample documents proportionally to their length
+        docs = self.docs or self.anchored
+        if not self.docs:
+            self.docs = self.anchored
+        lens = np.array([len(d) for d in docs], dtype=np.float64)
+        self.doc_p = lens / lens.sum()
+
+    def _sample(self) -> Tuple[np.ndarray, np.ndarray]:
+        ids = np.zeros(self.seq_len, dtype=np.int32)
+        mask = np.zeros(self.seq_len, dtype=np.int32)
+        if self.anchored and self.rng.random() < self.anchored_frac:
+            doc = self.anchored[int(self.rng.integers(len(self.anchored)))]
+            doc = doc[: self.seq_len]  # anchored: always from position 0
+            ids[: len(doc)] = doc
+            mask[: len(doc)] = 1
+            return ids, mask
+        doc = self.docs[int(self.rng.choice(len(self.docs), p=self.doc_p))]
+        if len(doc) <= self.seq_len:
+            ids[: len(doc)] = doc
+            mask[: len(doc)] = 1
+        else:
+            start = int(self.rng.integers(0, len(doc) - self.seq_len + 1))
+            ids[:] = doc[start : start + self.seq_len]
+            mask[:] = 1
+        return ids, mask
+
+    def batches(self, steps: int) -> Iterator[Dict[str, np.ndarray]]:
+        for _ in range(steps):
+            rows = [self._sample() for _ in range(self.batch_size)]
+            yield {
+                "ids": np.stack([r[0] for r in rows]),
+                "mask": np.stack([r[1] for r in rows]),
+            }
+
+
+# -- checkpointing ---------------------------------------------------------------
 
 
 def save_lm_params(params: Dict[str, Any], cfg: DecoderConfig, path) -> None:

@@ -11,7 +11,9 @@ card inputs: int8 bit-identical (dot_max, an integer maximum, in both
 modes); bf16/f32 within rtol 1e-5 (f32 sums run in another order). Each
 kernel's launch geometry is also held against what its entry point accepts.
 The causal decoder's CUDA-graph decode step is held against its eager step
-(bit for bit) and its float32 tokens against the CPU path's.
+(bit for bit) and its float32 tokens against the CPU path's. One float32
+step of each trainer (the encoder's, the LM's, the term table's) is held
+against its CPU path.
 """
 
 import numpy as np
@@ -608,3 +610,81 @@ def test_decoder_graph_replays_the_eager_step(cuda, max_new):
     # sampling runs the step eagerly from a generator seeded on every call
     hot = dict(max_new_tokens=max_new, temperature=0.8)
     assert lm.generate_ids(prompt, seed=3, **hot) == lm.generate_ids(prompt, seed=3, **hot)
+
+
+def _trainer_batches(kind, n, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        lens = rng.integers(3, 33, size=(2, 8))
+        masks = (np.arange(32)[None, None] < lens[..., None]).astype(np.int32)
+        ids = np.where(masks > 0, rng.integers(2, 512, size=(2, 8, 32)), 0).astype(np.int32)
+        if kind == "encoder":
+            ids[:, :, 0] = 1
+            out.append({"anchor_ids": ids[0], "anchor_mask": masks[0],
+                        "pos_ids": ids[1], "pos_mask": masks[1]})
+        else:
+            out.append({"ids": ids[0], "mask": masks[0]})
+    return out
+
+
+@pytest.mark.parametrize("kind", ["encoder", "lm"])
+def test_trainer_step_card_matches_cpu(cuda, kind):
+    """One float32 train step of each trainer on the card against its CPU
+    path (same init, same batch): the loss and accuracy within 1e-5, every
+    gradient entry within 1e-4 of its tensor's largest entry (+ 1e-6: an
+    entry summed from cancelling terms keeps the larger terms' rounding,
+    which cuBLAS and the CPU make in their own orders), and the next step's
+    loss within 1e-4 relative."""
+    from semcode_tpu_torch.models import decoder, encoder, train, train_lm
+
+    small = dict(vocab_size=512, hidden=64, layers=2, heads=4, mlp_dim=128, max_len=32)
+    if kind == "encoder":
+        cfg = encoder.EncoderConfig(dtype=torch.float32, **small)
+        state = encoder.random_state(cfg, 0)
+        trainer_cls = train.ContrastiveTrainer
+    else:
+        cfg = decoder.DecoderConfig(dtype=torch.float32, **small)
+        state = decoder.decoder_state_from_jax(decoder.init_params(cfg, seed=0))
+        trainer_cls = train_lm.LMTrainer
+    b1, b2 = _trainer_batches(kind, 2)
+    out = {}
+    for dev in ("cpu", cuda):
+        trainer = trainer_cls(cfg, learning_rate=1e-3, device=dev)
+        params, opt = trainer.state_from(state)
+        metrics, grads = trainer.value_and_grad(params, b1)
+        grads = {k: g.detach().cpu().clone() for k, g in grads.items()}
+        opt.step()
+        nxt, _ = trainer.value_and_grad(params, b2)
+        out[str(dev)] = (metrics, grads, float(nxt["loss"]))
+    (mc, gc, lc), (mp, gp, lp) = out["cuda"], out["cpu"]
+    assert abs(float(mc["loss"]) - float(mp["loss"])) <= 1e-5
+    assert abs(float(mc["accuracy"]) - float(mp["accuracy"])) <= 1e-5
+    for name, g in gp.items():
+        tol = 1e-4 * g.abs().max().item() + 1e-6
+        assert (gc[name] - g).abs().max().item() <= tol, name
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+
+
+def test_term_table_training_card_matches_cpu(cuda):
+    """Five steps of the term reranker's training at a small geometry on the
+    card and on the CPU, same features: logged losses within 1e-4 relative,
+    the tables' rows at cosine >= 0.9999."""
+    from semcode_tpu_torch.models import term_reranker as tr
+
+    rng = np.random.default_rng(2)
+    q_ids = np.where(rng.random((64, 16)) < 0.5, rng.integers(0, 4096, (64, 16)), -1)
+    d_ids = np.where(rng.random((64, 24)) < 0.7, rng.integers(0, 4096, (64, 24)), -1)
+    q_ids[:, 0] = rng.integers(0, 4096, 64)
+    feats = {"q_ids": q_ids.astype(np.int32), "d_ids": d_ids.astype(np.int32)}
+    tables, losses = {}, {}
+    for dev in ("cpu", cuda):
+        lines = []
+        tables[str(dev)] = tr.train_term_table(feats, n_buckets=4096, dim=16, steps=5,
+                                               batch_size=16, log_every=1, log=lines.append,
+                                               device=dev)
+        losses[str(dev)] = [float(s.split("loss=")[1].split()[0]) for s in lines]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    a, b = tables["cuda"], tables["cpu"]
+    cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+    assert cos.min() >= 0.9999

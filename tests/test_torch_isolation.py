@@ -55,7 +55,8 @@ def test_no_forbidden_imports():
         for m in ("dependencies", "telemetry", "jobs", "batcher", "main")
     } | {
         f"semcode_tpu_torch/models/{m}.py"
-        for m in ("encoder", "tokenizer", "train", "hf_loader", "decoder", "train_lm")
+        for m in ("encoder", "tokenizer", "train", "hf_loader", "decoder", "train_lm",
+                  "data", "term_reranker")
     } | {"semcode_tpu_torch/tools/eval_heldout.py", "semcode_tpu_torch/tools/rerank_lab.py",
          "semcode_tpu_torch/tools/lm_demo.py",
          "semcode_tpu_torch/frontend/webui.py", "semcode_tpu_torch/frontend/cli.py"
