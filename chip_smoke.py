@@ -196,6 +196,28 @@ Phases (any failed check exits non-zero before the final line):
    default 1M x 384 x 512 shape with a short SECS (the kernel's launch
    counts, by mode, are read around this run).
 
+9. the row-sharded engine on the one card (run after phase 4b; shards placed
+   with ``make_mesh((4,), devices=[cuda:0] * 4)``): 9a. phase 3's
+   self-ingest into a 4-shard int8 kernel-route store, the 102 frozen
+   questions through ``query_batch`` (top2_scan launches read around the
+   batch: at least one per shard; MRR@10 printed beside phase 3's one-shard
+   figure), every top-10 equal to the same engine's on a 4-shard CPU mesh
+   (plain versions), then 16 of them through ``create_app``'s ``POST
+   /query`` with the store injected, equal to the in-process answers; 9d.
+   the ``("dcn", "data")`` path across two processes (``chip_smoke.py
+   --dcn-worker``, each with a timeout), each holding 2 shards over Gloo
+   (NCCL on a host of two cards): both processes' answers equal 9a's store;
+   9b. phase 4's 1M x 384 int8 flat index with its f32 mirror over 4 shards:
+   recall@10 (>= 0.99), one top2_scan launch per shard a search, batch-512
+   and batch-8 search times, launches and device-busy share beside phase
+   4's, and shard 1's kernel call (rows from 250,016, off the 128-row grid)
+   against its plain version bit for bit; 9c. phase 4b's IVF (nlist 1024,
+   256 clusters a shard, nprobe 32) over 4 shards: recall@10 (>= 0.95), one
+   ivf_scan launch per shard a search, times beside phase 4b's, every
+   shard's kernel call with the probes it does not own set to -1 against
+   its plain version bit for bit, and the kernel route against the
+   gather-scan route.
+
 Prints the ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
 """
@@ -2955,6 +2977,442 @@ def ivf_float_leg(storage, x, q, truth):
                        "phases": phases, "producer_wait": producer_wait}}
 
 
+# -- phase 9: the row-sharded engine on the one card ------------------------------
+
+SHARDS = 4  # shards of phase 9's mesh, all on the one card
+DCN_TIMEOUT_S = 300  # each 9d worker: start, self-ingest, 102 questions
+
+
+def shard_mesh(n: int = SHARDS, device: str = "cuda:0"):
+    """A 1-D mesh of ``n`` shards on one device: the counterpart of XLA's
+    forced host device count, here on the card."""
+    from semcode_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh((n,), ("data",), devices=[device] * n)
+
+
+def sharded_ingest(workdir: Path, device: str, mesh, tag: str, **extra):
+    """Phase 3's self-ingest (int8 rows, kernel route, fallback answers)
+    into a store on ``mesh``; returns (config, result, service, pipeline)."""
+    from semcode_tpu_torch.index.store import VectorStore
+    from semcode_tpu_torch.rag import SemanticSearchPipeline
+    from semcode_tpu_torch.services import IndexerService
+    from semcode_tpu_torch.settings import AppSettings
+
+    cfg = AppSettings(workspace_root=workdir / f"sharded-{tag}", index_kind="flat",
+                      index_scan_impl="pallas", rag_provider="fallback",
+                      rag_query_cache_size=0, **extra)
+    store = VectorStore(cfg, mesh=mesh)
+    svc = IndexerService(config=cfg, vector_store=store, device=device)
+    res = svc.index_repository([ROOT / "semcode_tpu"], "semcode_tpu")
+    pipe = SemanticSearchPipeline(config=cfg, vector_store=store,
+                                  embeddings=svc.embeddings, device=device)
+    return cfg, res, svc, pipe
+
+
+def result_paths(results):
+    return [[s["path"] for s in r["sources"]] for r in results]
+
+
+def sharded_store_phase(workdir: Path, mrr_one_shard: float):
+    """9a: phase 3's self-ingest into a 4-shard int8 kernel-route store on
+    the card; the 102 frozen questions through query_batch (top2_scan
+    launches read around the batch: at least one per shard), every top-10
+    equal to the same engine's on a 4-shard CPU mesh (plain versions); 16 of
+    the questions through create_app's POST /query with the store
+    injected, each answer equal to the in-process one."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from semcode_tpu_torch.api.main import create_app
+    from semcode_tpu_torch.ops.scan_top2 import top2_scan
+
+    queries = frozen_queries()
+    questions = [q for q, _ in queries]
+    labels = [rel for _, rel in queries]
+    cfg, res, svc, pipe = sharded_ingest(workdir, "cuda", shard_mesh(), "cuda")
+    index = svc.vector_store._index
+    if index.n_shards != SHARDS or index.mesh.home.type != "cuda":
+        fail(f"the phase 9a store is not on {SHARDS} shards of the card")
+    top2_scan.launches = 0
+    t0 = time.perf_counter()
+    results = pipe.query_batch(questions, top_k=10)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = top2_scan.launches
+    if launches < SHARDS:
+        fail(f"the 4-shard batch launched top2_scan {launches} times, fewer than "
+             "one per shard")
+    mrr, recall = rank_metrics(results, labels)
+    paths = result_paths(results)
+    if not all(paths):
+        fail("a frozen question has no hits on the 4-shard store")
+    shard_rows = index.capacity // SHARDS
+    log(f"[shard] 9a: {res.chunk_count} chunks over {SHARDS} shards of "
+        f"{shard_rows} rows on one card; 102 questions in {batch_ms:.1f} ms; "
+        f"top2_scan launches {launches}; MRR@10 {mrr:.4f} recall@10 {recall:.4f} "
+        f"(one shard, phase 3: MRR@10 {mrr_one_shard:.4f}; the kernel route "
+        "keeps 2 rows a 128-row block of each shard)")
+
+    from semcode_tpu_torch.parallel.mesh import make_mesh
+
+    _, _, _, pipe_cpu = sharded_ingest(
+        workdir, "cpu", make_mesh((SHARDS,), ("data",), devices=["cpu"] * SHARDS),
+        "cpu")
+    cpu_paths = result_paths(pipe_cpu.query_batch(questions, top_k=10))
+    for qtext, got, want in zip(questions, paths, cpu_paths):
+        if got != want:
+            fail(f"the 4-shard card store and the 4-shard CPU engine disagree "
+                 f"on {qtext!r}:\n{got}\n{want}")
+    log("[shard] 9a: all 102 top-10 paths equal the 4-shard CPU engine's")
+
+    app = create_app(config=cfg, indexer=svc, pipeline=pipe)
+    served = questions[:16]
+
+    async def serve():
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            out = []
+            for question in served:
+                r = await client.post("/query", json={"question": question,
+                                                      "top_k": 10})
+                if r.status != 200:
+                    fail(f"/query answered {r.status}: {await r.text()}")
+                out.append(await r.json())
+            return out
+        finally:
+            await client.close()
+
+    top2_scan.launches = 0
+    answers = asyncio.run(serve())
+    http_launches = top2_scan.launches
+    if result_paths(answers) != paths[:16]:
+        fail("the 4-shard store's /query answers differ from query_batch's")
+    if http_launches < SHARDS:
+        fail(f"/query on the 4-shard store launched top2_scan {http_launches} "
+             "times")
+    log(f"[shard] 9a: 16 questions through POST /query equal the in-process "
+        f"answers; top2_scan launches {http_launches}")
+    return {"launches": launches, "http_launches": http_launches, "mrr": mrr,
+            "recall": recall, "mrr_one_shard": mrr_one_shard,
+            "chunks": res.chunk_count, "shards": index.n_shards,
+            "shard_rows": shard_rows, "batch_ms": batch_ms, "paths": paths}
+
+
+def sharded_scale_phase(one_shard: dict):
+    """9b: phase 4's 1M x 384 int8 FlatIndex with its f32 mirror over 4
+    shards of the card: recall@10 against the f32 oracle, batch-512 and
+    batch-8 search times, launches and the device-busy share beside phase
+    4's one-shard figures; one shard's top2_scan at its own rows (a range
+    that starts off the 128-row grid) against its plain version."""
+    import gc
+
+    import torch
+
+    from semcode_tpu_torch.index.flat import FlatIndex
+    from semcode_tpu_torch.index.scan import quantize_queries_device
+    from semcode_tpu_torch.ops.scan_top2 import NEG, top2_scan, top2_scan_reference
+    from semcode_tpu_torch.tools._corpus import mixture, oracle_topk, queries_near
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(42)  # phase 4's corpus
+    x = mixture(gen, N_ROWS, DIM)
+    q = queries_near(gen, x, BATCH)
+    truth = oracle_topk(x, q, 10)
+    x_host = x.cpu().numpy()
+    del x
+    t0 = time.perf_counter()
+    index = FlatIndex(DIM, metric="ip", dtype="int8", scan_impl="pallas",
+                      mesh=shard_mesh())
+    index.add(x_host)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if index.n_shards != SHARDS:
+        fail(f"the phase 9b index is on {index.n_shards} shards")
+    shard_rows = index.capacity // SHARDS
+    top2_scan.launches = 0
+    _, ids = index.search_device(q, 10)
+    launches = top2_scan.launches
+    if launches != SHARDS:
+        fail(f"one 4-shard search launched top2_scan {launches} times, not "
+             "once per shard")
+    rec = recall_at_10(ids, truth)
+    qps, p50 = timed_search(lambda qb: index.search_device(qb, 10), q)
+    ms512 = 1e3 * BATCH / qps
+    breakdown = device_breakdown(lambda: index.search_device(q, 10),
+                                 f"batch-{BATCH} search over {SHARDS} shards")
+    base = one_shard["breakdown"]
+    busy = breakdown["device_ms"] / breakdown["wall_ms"]
+    busy1 = base["device_ms"] / base["wall_ms"]
+    log(f"[shard] 9b: {N_ROWS} x {DIM} int8 + f32 mirror over {SHARDS} shards "
+        f"of {shard_rows} rows built in {build_s:.1f} s; recall@10 {rec:.4f}; "
+        f"batch {BATCH} {ms512:.3f} ms ({qps:.0f} QPS), batch {SERVE_BATCH} p50 "
+        f"{p50:.3f} ms; {breakdown['launches']:.0f} device launches a search, "
+        f"device busy {100 * busy:.1f}%; one shard (phase 4): batch {BATCH} "
+        f"{1e3 * BATCH / one_shard['pallas']['qps']:.3f} ms, batch {SERVE_BATCH} "
+        f"p50 {one_shard['pallas']['p50_b8_ms']:.3f} ms, "
+        f"{base['launches']:.0f} launches, busy {100 * busy1:.1f}%")
+    if rec < 0.99:
+        fail(f"4-shard recall@10 {rec:.4f} < 0.99")
+
+    # shard 1's rows start at row 250,016, off the 128-row grid: its
+    # kernel call at the main path's shape against the plain version
+    vecs, _, valid, scales, _, _ = index._ensure_device()
+    lo, hi = shard_rows, 2 * shard_rows
+    add = torch.where(valid[lo:hi], 0.0, NEG).float()
+    qq, qsc = quantize_queries_device(q)
+    args = (vecs[lo:hi], scales[lo:hi].contiguous(), add, qq, qsc)
+    bm, br = top2_scan(*args)
+    rm, rr = top2_scan_reference(*args)
+    if not torch.equal(bm, rm) or not torch.equal(br, rr):
+        fail("top2_scan on shard 1's rows differs from its plain version")
+    log(f"[shard] 9b: top2_scan on shard 1 (rows {lo}-{hi - 1}, Q {BATCH}) "
+        "equals its plain version bit for bit")
+    index_shards = index.n_shards
+    del index, vecs, valid, scales, add
+    return {"launches": launches, "recall": rec, "ms_b512": ms512,
+            "p50_b8_ms": p50, "qps": qps, "build_s": build_s,
+            "shards": index_shards, "shard_rows": shard_rows, "breakdown": breakdown, "busy": busy,
+            "one_shard": {"ms_b512": 1e3 * BATCH / one_shard["pallas"]["qps"],
+                          "p50_b8_ms": one_shard["pallas"]["p50_b8_ms"],
+                          "launches": base["launches"], "busy": busy1}}
+
+
+def sharded_ivf_phase(one_shard: dict):
+    """9c: phase 4b's 1M x 384 int8 IVF (nlist 1024, 256 clusters a shard,
+    nprobe 32) over 4 shards of the card: recall@10, ivf_scan launched once
+    per shard in a search, ms beside phase 4b's; each shard's kernel call
+    with the probes it does not own out of range against the plain
+    version, and the kernel route against the gather-scan route."""
+    import gc
+
+    import torch
+
+    from semcode_tpu_torch.device import f32_matmul
+    from semcode_tpu_torch.index.ivf import IVFIndex
+    from semcode_tpu_torch.index.scan import stable_topk
+    from semcode_tpu_torch.ops.ivf_scan import ivf_scan, ivf_scan_reference
+    from semcode_tpu_torch.tools._corpus import mixture, oracle_topk, queries_near
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(42)  # phase 4's corpus
+    x = mixture(gen, N_ROWS, DIM)
+    q = queries_near(gen, x, BATCH)
+    truth = oracle_topk(x, q, 10)
+    t0 = time.perf_counter()
+    index = IVFIndex(DIM, nlist=NLIST, nprobe=32, metric="ip", dtype="int8",
+                     kmeans_iters=KMEANS_ITERS, mesh=shard_mesh())
+    with index.bulk(expected_rows=N_ROWS):
+        for lo in range(0, N_ROWS, 131072):
+            index.add(x[lo:lo + 131072])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del x
+    index_shards = index.n_shards
+    nlist_s = index.nlist // SHARDS
+    if index_shards != SHARDS or index.nlist != NLIST or nlist_s != 256:
+        fail(f"the 4-shard IVF holds nlist {index.nlist} on {index_shards} shards")
+
+    def search(qb):
+        return index.search_device(qb, 10, nprobe=32, mode="ivf")
+
+    ivf_scan.launches = 0
+    s, ids = search(q)
+    launches = ivf_scan.launches
+    if launches != SHARDS:
+        fail(f"one 4-shard probe search launched ivf_scan {launches} times, "
+             "not once per shard")
+    rec = recall_at_10(ids, truth)
+    qps, p50 = timed_search(search, q)
+    breakdown = device_breakdown(lambda: search(q),
+                                 f"batch-{BATCH} IVF probe search over {SHARDS} shards")
+    busy = breakdown["device_ms"] / breakdown["wall_ms"]
+    qps1 = one_shard["nprobe32"]["qps"]
+    p501 = one_shard["nprobe32"]["p50_b8_ms"]
+    base = one_shard["breakdown"]
+    log(f"[shard] 9c: {N_ROWS} x {DIM} int8 IVF, nlist {NLIST} = {SHARDS} x "
+        f"{nlist_s}, built in {build_s:.1f} s (cmax {index.cmax}); nprobe 32: "
+        f"recall@10 {rec:.4f}; batch {BATCH} {1e3 * BATCH / qps:.3f} ms ({qps:.0f} "
+        f"QPS), batch {SERVE_BATCH} p50 {p50:.3f} ms; ivf_scan launches a search "
+        f"{launches}; {breakdown['launches']:.0f} device launches, device busy "
+        f"{100 * busy:.1f}%; one shard (phase 4b): batch {BATCH} "
+        + " / ".join(f"{1e3 * BATCH / v:.3f}" for v in qps1)
+        + f" ms, batch {SERVE_BATCH} p50 " + " / ".join(f"{v:.3f}" for v in p501)
+        + f" ms, {base['launches']:.0f} launches, busy "
+        f"{100 * base['device_ms'] / base['wall_ms']:.1f}%")
+    if rec < 0.95:
+        fail(f"4-shard IVF recall@10 {rec:.4f} < 0.95 at nprobe 32")
+    # the same layout through the gather-scan route
+    index.use_pallas = "never"
+    s_g, ids_g = search(q)
+    index.use_pallas = "auto"
+    if not untied_ids_equal(s_g, ids_g, ids, 1e-5):
+        fail("4-shard IVF: the kernel route and the gather-scan route disagree")
+
+    # each shard's call at the main path's shape: the probes _ivf_search
+    # picks, those another shard owns out of range (-1)
+    dev = index._ensure_device()
+    _, probes = stable_topk(f32_matmul(q, dev.centroids.T), 32)
+    owned_total = 0
+    for rank in range(SHARDS):
+        lo, hi = rank * nlist_s, (rank + 1) * nlist_s
+        owned = (probes // nlist_s) == rank
+        owned_total += int(owned.sum())
+        local = torch.where(owned, probes - lo, -1)
+        args = (dev.data[lo:hi], dev.ids[lo:hi], q, local, 64, dev.scales[lo:hi])
+        ks, ki = ivf_scan(*args)
+        rs, ri = ivf_scan_reference(*args)
+        if not torch.equal(ks, rs) or not torch.equal(ki, ri):
+            fail(f"ivf_scan on shard {rank} differs from its plain version")
+    if owned_total != probes.numel():
+        fail("the shards do not own every probe once")
+    log(f"[shard] 9c: each shard's ivf_scan (probes it does not own set to -1, "
+        f"{owned_total} owned probes in all) equals its plain version bit for "
+        "bit; kernel-route ids equal the gather-scan route's (untied positions)")
+    del index, dev
+    return {"launches": launches, "recall": rec, "ms_b512": 1e3 * BATCH / qps,
+            "p50_b8_ms": p50, "qps": qps, "build_s": build_s,
+            "shards": index_shards, "breakdown": breakdown, "busy": busy,
+            "one_shard": {"ms_b512": [1e3 * BATCH / v for v in qps1],
+                          "p50_b8_ms": p501, "launches": base["launches"],
+                          "busy": base["device_ms"] / base["wall_ms"]}}
+
+
+def dcn_port(rank: int, out_path: str) -> int:
+    """The coordinator port of 9d's group: worker 0 takes a free one just
+    before its group binds it and announces it in ``<out>.port``; worker 1
+    waits for that file."""
+    import socket
+
+    port_file = Path(out_path + ".port")
+    if rank == 0:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        tmp = port_file.with_suffix(".tmp")
+        tmp.write_text(str(port))
+        tmp.rename(port_file)
+        return port
+    deadline = time.monotonic() + DCN_TIMEOUT_S
+    while not port_file.exists():
+        if time.monotonic() > deadline:
+            raise RuntimeError("9d worker 0 never announced its port")
+        time.sleep(0.05)
+    return int(port_file.read_text())
+
+
+def dcn_worker(rank: int, out_path: str, backend: str) -> int:
+    """One process of 9d: joins the two-process group, holds 2 of the 4
+    shards (a ("dcn", "data") = (2, 2) mesh), self-ingests like 9a and
+    answers the 102 frozen questions; rank 0 writes the answers."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from semcode_tpu_torch.ops import scan_top2
+    from semcode_tpu_torch.ops.build import BUILD_DIR
+    from semcode_tpu_torch.parallel import distributed
+    from semcode_tpu_torch.parallel.mesh import make_mesh
+    from semcode_tpu_torch.settings import AppSettings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the parent built the kernel library: load it instead of rebuilding
+    scan_top2._library.get(BUILD_DIR / "libsemcode_top2_scan.so")
+    device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    torch.cuda.set_device(torch.device(device))
+    port = dcn_port(rank, out_path)
+    cfg = AppSettings(mesh_num_processes=2, mesh_coordinator=f"127.0.0.1:{port}",
+                      mesh_process_id=rank)
+    distributed.maybe_init_distributed(cfg, device=device, backend=backend)
+    try:
+        mesh = make_mesh((2, 2), ("dcn", "data"), devices=[device] * 2)
+        with tempfile.TemporaryDirectory(prefix="semcode_dcn_") as tmp:
+            _, res, svc, pipe = sharded_ingest(Path(tmp), device, mesh, f"dcn{rank}")
+            questions = [qq for qq, _ in frozen_queries()]
+            scan_top2.top2_scan.launches = 0
+            results = pipe.query_batch(questions, top_k=10)
+            out = {"paths": result_paths(results), "chunks": res.chunk_count,
+                   "launches": scan_top2.top2_scan.launches,
+                   "backend": backend, "device": device}
+        if rank == 0:
+            Path(out_path).write_text(json.dumps(out))
+        else:
+            Path(out_path + ".1").write_text(json.dumps(out))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def dcn_phase(workdir: Path, want: dict):
+    """9d: the ("dcn", "data") path across two processes on the card, each
+    holding 2 shards: Gloo (NCCL refuses two ranks on one device), the
+    (Q, k) candidates staged through the host; one process per card over
+    NCCL on a host with two cards. Both processes' answers must equal 9a's
+    single-process 4-shard store's; a worker that fails or outlives its
+    timeout fails the run."""
+    import torch
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    for attempt in range(2):
+        out_path = workdir / f"dcn{attempt}.json"
+        t0 = time.perf_counter()
+        outs = [open(workdir / f"dcn{attempt}.{rank}.log", "w+") for rank in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dcn-worker", str(rank),
+             str(out_path), backend],
+            stdout=outs[rank], stderr=subprocess.STDOUT, text=True)
+            for rank in range(2)]
+        try:
+            # until both end, or one fails (its peer would wait for it)
+            deadline = time.monotonic() + DCN_TIMEOUT_S
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                if time.monotonic() > deadline:
+                    fail(f"a 9d worker outlived its {DCN_TIMEOUT_S} s timeout")
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        logs = []
+        for f in outs:
+            f.seek(0)
+            logs.append(f.read())
+            f.close()
+        if all(p.returncode == 0 for p in procs):
+            break
+        # another process took the port between worker 0's probe and its
+        # group's bind: try once more on a fresh port
+        if attempt == 0 and any("address already in use" in text.lower()
+                                for text in logs):
+            log("[shard] 9d: the coordinator port was taken; retrying once")
+            continue
+        fail("9d failed:\n" + "\n".join(
+            f"worker {rank} (rc {p.returncode}):\n{text[-3000:]}"
+            for rank, (p, text) in enumerate(zip(procs, logs)) if p.returncode != 0))
+    wall_s = time.perf_counter() - t0
+    got = [json.loads(out_path.read_text()),
+           json.loads(Path(str(out_path) + ".1").read_text())]
+    for rank, g in enumerate(got):
+        if g["paths"] != want["paths"]:
+            bad = next(i for i, (a, b) in enumerate(zip(g["paths"], want["paths"]))
+                       if a != b)
+            fail(f"9d process {rank} answers question {bad} otherwise than 9a's "
+                 f"store:\n{g['paths'][bad]}\n{want['paths'][bad]}")
+        if g["launches"] < 2:
+            fail(f"9d process {rank} launched top2_scan {g['launches']} times")
+    log(f"[shard] 9d: two processes ({backend}, {got[0]['device']} and "
+        f"{got[1]['device']}), 2 shards each: all 102 top-10 paths equal 9a's "
+        f"4-shard store in both; top2_scan launches {got[0]['launches']} and "
+        f"{got[1]['launches']}; {wall_s:.1f} s for both workers")
+    return {"backend": backend, "launches": [g["launches"] for g in got],
+            "wall_s": wall_s}
+
+
 def main() -> int:
     import torch
 
@@ -3014,6 +3472,12 @@ def main() -> int:
     api_kernel = api_kernel_shape()
     scale = scale_phase()
     ivf_scale = ivf_scale_phase()
+    with tempfile.TemporaryDirectory(prefix="semcode_shard_") as tmp:
+        sharded = sharded_store_phase(Path(tmp), e2e["mrr"])
+        dcn = dcn_phase(Path(tmp), sharded)
+    sharded_scale = sharded_scale_phase(scale)
+    sharded_ivf = sharded_ivf_phase(ivf_scale)
+    sharded.pop("paths")
 
     def kernel_record(name, source, replaces, launches, kern, worst_err=0.0, **extra):
         rec = {"name": name, "route": "cuda", "source": source,
@@ -3044,6 +3508,15 @@ def main() -> int:
         "hybrid_api_launches": hybrid_api["launches"],
         # phase 8d: the store of the encoder trained in 8a
         "train_serve_launches": training["serve"]["launches"],
+        # phase 9: launched once per shard of a 4-shard store, in process
+        # (9a, its /query, 9b) and across two processes (9d); the shard
+        # counts the stores report
+        "shards": sharded["shards"],
+        "sharded_scale_shards": sharded_scale["shards"],
+        "sharded_launches": sharded["launches"],
+        "sharded_api_launches": sharded["http_launches"],
+        "sharded_scale_launches": sharded_scale["launches"],
+        "dcn_launches": dcn["launches"],
         **{f"api_{key}": api_kernel[key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }
@@ -3070,7 +3543,9 @@ def main() -> int:
         kernel_ms=ik["kernel_ms"], prep_ms=ik["prep_ms"],
         scatter_ms=ik["scatter_ms"], merge_ms=ik["merge_ms"],
         products_ms=ik["products_ms"], selection_ms=ik["selection_ms"],
-        producer_wait=ik["producer_wait"]))
+        producer_wait=ik["producer_wait"],
+        # phase 9c: one probe search over 4 shards, once per shard
+        shards=sharded_ivf["shards"], sharded_launches=sharded_ivf["launches"]))
     for storage in ("bfloat16", "float32"):
         leg = ivf_scale[storage]
         lk = leg["kernel"]
@@ -3102,6 +3577,10 @@ def main() -> int:
         "scale": {k: v for k, v in scale.items() if k not in ("kernel", "dot_max")},
         "dot_max": dk,
         "ivf_scale": {k: v for k, v in ivf_scale.items() if k != "kernel"},
+        "sharded": sharded,
+        "dcn": dcn,
+        "sharded_scale": sharded_scale,
+        "sharded_ivf": sharded_ivf,
     }
     log(f"[summary] {json.dumps(summary)}")
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s after the "
@@ -3120,4 +3599,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dcn-worker"]:
+        raise SystemExit(dcn_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     raise SystemExit(main())

@@ -1,13 +1,10 @@
 """Device selection and shape helpers for the PyTorch engine.
 
-The JAX package shards the corpus over a device mesh
-(``semcode_tpu/parallel/mesh.py``); this engine targets ONE CUDA device, so
-there is no mesh and no shard_map: every per-shard merge of the reference
-reduces to the identity. What remains is device choice (CUDA unless the
-caller asks for the CPU, never a silent CPU fallback), ``round_up`` and the
-storage dtype maps. The reference's ``pad_bucket`` bounded jit recompiles
-by bucketing batch sizes; eager PyTorch has no compile per shape, so it is
-not carried over.
+Device choice: CUDA unless the caller asks for the CPU, never a silent CPU
+fallback. The mesh the engine shards the corpus over, and the reference's
+``pad_bucket``, live in ``parallel/mesh.py``; here are ``round_up``, the
+storage dtype maps, the true-f32 matmul and the card's multiprocessor
+count.
 """
 
 from __future__ import annotations

@@ -1,10 +1,9 @@
 """Frontend launcher.
 
 Counterpart of ``semcode_tpu/frontend/cli.py``: shells out to ``streamlit
-run`` on the client app when streamlit is installed; otherwise points the
-user at the dependency-free built-in web UI served by the API. The
-Streamlit client itself (``semcode_tpu/frontend/app.py``) is not ported
-yet, and the launcher says so when streamlit is present.
+run`` on the client app (``frontend/app.py``) when streamlit is installed;
+otherwise points the user at the dependency-free built-in web UI served by
+the API.
 """
 
 from __future__ import annotations
@@ -28,15 +27,6 @@ def main() -> int:
         )
         return 1
     app_path = Path(__file__).with_name("app.py")
-    if not app_path.exists():
-        print(
-            "the Streamlit client is not ported to the PyTorch package yet. "
-            f"The built-in web UI is served by the API at "
-            f"{settings.frontend_api_root}/ — start it with "
-            "`semcode-tpu-torch serve`.",
-            file=sys.stderr,
-        )
-        return 1
     cmd = [
         sys.executable,
         "-m",

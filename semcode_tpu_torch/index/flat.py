@@ -1,10 +1,13 @@
-"""Flat (exact) vector index on one device.
+"""Flat (exact) vector index, row-sharded over a device mesh.
 
 Counterpart of ``semcode_tpu/index/flat.py``: the corpus lives in device
-memory as a ``(capacity, dim)`` matrix in the storage dtype; a query batch
-is one exact scan (``scan.exact_scan``) with a fused f32 rescore. The host
-keeps the authoritative f32 buffer, so snapshots and growth never read back
-from the device.
+memory as a ``(capacity, dim)`` matrix in the storage dtype, split by rows
+over the mesh's row axes (``parallel/mesh.py``; capacity stays a multiple
+of ``lcm(n_shards * 8, 128)`` so every shard holds the same rows). A query
+batch is one sharded exact scan (``scan.exact_scan``: each shard scans its
+rows with a fused f32 rescore, then the shards' candidates merge). The
+host keeps the authoritative f32 buffer, so snapshots and growth never read
+back from the device.
 
 Device state is one tuple of tensors swapped as a whole, and writers build
 new tensors (out-of-place scatters) rather than editing the ones a reader
@@ -21,7 +24,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device, round_up, storage_dtype, storage_name
+from ..device import DeviceLike, round_up, storage_dtype, storage_name
+from ..parallel.mesh import Mesh, n_shards, resolve_mesh
 from .scan import exact_scan, exact_scan_batched, resolve_rescore_width
 
 _NEG_INF = np.float32(-3.0e38)
@@ -94,10 +98,13 @@ def _set_rows(arr: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor):
 
 
 class FlatIndex:
-    """Exact-scan index over a device-resident matrix.
+    """Exact-scan index over a row-sharded device matrix.
 
-    Host-authoritative storage: a float32 numpy buffer (amortized growth)
-    mirrors the device tensors. Selection is always exact: the reference's
+    ``mesh`` (default: ``get_mesh`` over ``device``) decides the shards;
+    the tensors live on its first local device in global row order and each
+    shard reads its own range. Host-authoritative storage: a float32 numpy
+    buffer (amortized growth) mirrors the device tensors. Selection is
+    always exact: the reference's
     approximate selection (``approx_topk``, ``approx_recall_target``)
     exists only on a TPU, so those options have no counterpart here."""
 
@@ -116,6 +123,7 @@ class FlatIndex:
         scan_impl: str = "auto",  # auto | xla | pallas (exact-scan kernel)
         rescore_mode: str = "auto",  # auto | f32 | residual | off
         rescore_width: int = 0,  # top-W gather slice; 0 = auto, -1 = full fetch
+        mesh: Optional[Mesh] = None,
         device: DeviceLike = None,
     ):
         if metric not in ("ip", "cosine", "l2"):
@@ -128,7 +136,9 @@ class FlatIndex:
             raise ValueError(f"unknown rescore_mode: {rescore_mode}")
         self.dim = int(dim)
         self.metric = metric
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(mesh, device)
+        self.device = self.mesh.home
+        self.n_shards = n_shards(self.mesh)
         self._dtype = storage_dtype(dtype)
         self._device_rescore = device_rescore
         self.rescore_mode = rescore_mode
@@ -136,9 +146,9 @@ class FlatIndex:
         self.fetch_width = int(fetch_width)
         self.rescore_width = int(rescore_width)
         self.scan_impl = scan_impl
-        # the reference's lcm(n_shards * 8, 128) with one shard: rows stay
-        # 128-aligned, so the kernel's block layout matches its tiling
-        self._row_multiple = math.lcm(8, 128)
+        # rows split evenly across shards (8-row multiples, the int8 GEMM's
+        # rule) and the whole stays 128-aligned, as the reference's
+        self._row_multiple = math.lcm(self.n_shards * 8, 128)
         self.capacity = round_up(max(capacity, self._row_multiple), self._row_multiple)
         self.size = 0  # rows allocated (including tombstones)
         self.n_live = 0  # rows alive
@@ -375,18 +385,24 @@ class FlatIndex:
         return torch.from_numpy(pad_allow(allow_tags)).to(self.device)
 
     def _scan(self, dev, q_dev, k, k_out, allow_tags, batched=False):
+        """The sharded scan: ``k`` (the caller's width) is capped per shard
+        by the shard's rows; the merged pool holds n_shards * k_shard
+        candidates, so ``k_out`` up to that is servable."""
         vecs, norms, valid, scales, rescore, tags = dev
+        shard_rows = vecs.shape[0] // self.n_shards
+        k_shard = min(k, shard_rows)
         resc_f32, resid, rscl = split_rescore(rescore)
         fn = exact_scan_batched if batched else exact_scan
         return fn(
+            self.mesh,
             vecs,
             norms,
             valid,
             scales if scales is not None else norms,
             resc_f32,
             q_dev,
-            k,
-            self._fetch_width(k, vecs.shape[0], rescore),
+            k_shard,
+            self._fetch_width(k, shard_rows, rescore),
             self.metric,
             self._storage_name(),
             k_out=k_out,
@@ -418,10 +434,11 @@ class FlatIndex:
         if self.metric == "cosine":
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
         dev = self._ensure_device()
-        n_rows = dev[0].shape[0]
-        k_eff = min(k, n_rows)
+        # shapes come from the snapshot, not live attributes (lock-free reads)
+        shard_rows = dev[0].shape[0] // self.n_shards
+        k_eff = min(k, min(k, shard_rows) * self.n_shards)
         scores, ids = self._scan(
-            dev, torch.from_numpy(q).to(self.device), k_eff, k_eff, allow_tags
+            dev, torch.from_numpy(q).to(self.device), k, k_eff, allow_tags
         )
         scores = scores.cpu().numpy().astype(np.float32)
         ids = ids.cpu().numpy().astype(np.int64)
@@ -437,16 +454,17 @@ class FlatIndex:
         """Device-to-device search: no host transfers or syncs.
 
         ``q_dev``: (Q, dim) tensor on this index's device, already
-        metric-normalized. Returns device tensors (scores, ids)."""
+        metric-normalized. Returns device tensors (scores, ids) with
+        min(k, shard rows) columns, as the reference's."""
         dev = self._ensure_device()
-        k = min(k, dev[0].shape[0])
+        k = min(k, dev[0].shape[0] // self.n_shards)
         return self._scan(dev, q_dev, k, None, allow_tags)
 
     def search_device_batched(self, qs_dev: torch.Tensor, k: int, allow_tags=None):
         """``search_device`` over B batches: qs_dev (B, Q, dim); returns
         (scores (B, Q, k), ids (B, Q, k)) device tensors."""
         dev = self._ensure_device()
-        k = min(k, dev[0].shape[0])
+        k = min(k, dev[0].shape[0] // self.n_shards)
         return self._scan(dev, qs_dev, k, None, allow_tags, batched=True)
 
     # -- maintenance ---------------------------------------------------------------
@@ -463,7 +481,7 @@ class FlatIndex:
             scan_impl=self.scan_impl,
             rescore_mode=self.rescore_mode,
             rescore_width=self.rescore_width,
-            device=self.device,
+            mesh=self.mesh,
         )
 
     def compacted(self) -> Tuple["FlatIndex", np.ndarray]:

@@ -1,8 +1,13 @@
-"""IVF_FLAT-equivalent ANN index on one device.
+"""IVF_FLAT-equivalent ANN index, sharded over a device mesh.
 
-Counterpart of ``semcode_tpu/index/ivf.py``; the reference shards the
-cluster lists over a device mesh, this engine holds them on one device, so
-every per-shard merge reduces to a top-k over the one shard's candidates.
+Counterpart of ``semcode_tpu/index/ivf.py``. The cluster lists are split
+over the mesh's row axes (``parallel/mesh.py``) in contiguous blocks of
+``nlist // n_shards`` clusters (``nlist`` rounds up to a multiple of the
+shard count), and the flat mirror by rows as the flat index is; centroids,
+probe selection and k-means are replicated on the first local device. Each
+query probes ``nprobe`` clusters; every shard scans the probed clusters it
+owns and contributes a local top-k, and the ``(Q, k)`` candidate sets merge
+innermost axis first (``hierarchical_topk_merge``).
 
 - **Device-authoritative storage**: the row-major flat mirror on the device
   (storage-dtype vectors + scales + norms + optional f32 or two-level int8
@@ -13,11 +18,15 @@ every per-shard merge reduces to a top-k over the one shard's candidates.
 - **Build**: k-means coarse quantizer trained on the device
   (``ops/kmeans.py``), capacity-balanced assignment, then the vectors are
   laid out in capacity-padded cluster blocks ``data[nlist, cmax, dim]``.
-- **Scan**: centroid scores pick ``nprobe`` clusters per query; the probing
-  kernel (``ops/ivf_scan.py``, the Hopper counterpart of the Pallas
-  ``ivf_scan_shard``) or the reference's gather-scan route scores their
-  rows; an exact f32 rescore re-orders the merged candidates.
-- **Exact mode** scans the flat mirror through ``scan.exact_scan``.
+- **Scan**: centroid scores pick ``nprobe`` clusters per query; per shard,
+  the probing kernel (``ops/ivf_scan.py``, the Hopper counterpart of the
+  Pallas ``ivf_scan_shard``, launched once per shard with the probes that
+  shard does not own out of range) or the reference's gather-scan route
+  scores the shard's probed rows; after the merge an exact f32 rescore
+  (each shard gathering the candidates its mirror range holds) re-orders
+  the merged candidates.
+- **Exact mode** scans the flat mirror through the sharded
+  ``scan.exact_scan``.
 - **Streaming inserts**: nearest cluster with a free slot; layout rebuilds
   (cluster overflow / retrain) are amortized; past a device-memory
   threshold inserts land in a small exact-scanned pending tail.
@@ -40,10 +49,18 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, f32_matmul, resolve_device, round_up, storage_dtype, storage_name
+from ..device import DeviceLike, f32_matmul, round_up, storage_dtype, storage_name
 from ..logger import get_logger
 from ..ops import ivf_scan as ivf_ops
 from ..ops.kmeans import TRAIN_POINTS_PER_CENTROID, balanced_assign, kmeans_fit_dev, topm_step
+from ..parallel.mesh import (
+    Mesh,
+    hierarchical_topk_merge,
+    local_shards,
+    n_shards as mesh_shards,
+    pad_bucket,
+    resolve_mesh,
+)
 from .flat import (
     DEVICE_RESCORE_MAX_BYTES,
     RESIDUAL_RESCORE_MAX_BYTES,
@@ -101,15 +118,6 @@ _NEG = -3.0e38
 _CHUNK_ROWS = 131072
 
 
-def _cost_bucket(n: int, floor: int = 8) -> int:
-    """The query count the reference's cost model sees: it pads every batch
-    to a power-of-two bucket (>= 8) before choosing a mode."""
-    b = floor
-    while b < n:
-        b *= 2
-    return b
-
-
 def _set(arr: torch.Tensor, idx, vals: torch.Tensor, inplace: bool):
     """Row scatter ``arr[idx] = vals``: in place only on tensors no reader
     holds; otherwise out of place (readers keep the previous tensor)."""
@@ -140,7 +148,8 @@ def _row_norms(x: torch.Tensor) -> torch.Tensor:
 
 
 class IVFIndex:
-    """Inverted-file index with capacity-padded cluster blocks on one device.
+    """Inverted-file index with capacity-padded cluster blocks, sharded by
+    cluster over ``mesh`` (default: ``get_mesh`` over ``device``).
 
     The reference's approximate full-scan selection (``approx_topk``,
     ``approx_recall_target``) exists only on a TPU, so those options have no
@@ -166,6 +175,7 @@ class IVFIndex:
         rescore_width: int = 0,  # top-W gather slice; 0 = auto, -1 = full fetch
         scan_impl: str = "auto",  # auto | xla | pallas (exact-scan kernel)
         rescore_mode: str = "auto",  # auto | f32 | residual | off
+        mesh: Optional[Mesh] = None,
         device: DeviceLike = None,
     ):
         if metric not in ("ip", "cosine", "l2"):
@@ -180,8 +190,11 @@ class IVFIndex:
             raise ValueError(f"unknown use_pallas: {use_pallas}")
         self.dim = int(dim)
         self.metric = metric
-        self.device = resolve_device(device)
-        self.nlist = int(nlist)
+        self.mesh = resolve_mesh(mesh, device)
+        self.device = self.mesh.home
+        self.n_shards = mesh_shards(self.mesh)
+        # every shard owns the same number of clusters
+        self.nlist = round_up(int(nlist), self.n_shards)
         self.nprobe = min(int(nprobe), self.nlist)
         self.kmeans_iters = kmeans_iters
         self.seed = seed
@@ -194,8 +207,8 @@ class IVFIndex:
         self.fetch_width = int(fetch_width)
         self.rescore_width = int(rescore_width)
         self.scan_impl = scan_impl
-        # the reference's lcm(n_shards * 8, 128) with one shard
-        self._row_multiple = math.lcm(8, 128)
+        # mirror rows split evenly across shards and stay 128-aligned
+        self._row_multiple = math.lcm(self.n_shards * 8, 128)
         self._mirror_cap = 0  # flat-mirror rows currently materialized
 
         # host metadata (O(N), amortized-growth buffers; NO vector payloads)
@@ -1018,13 +1031,16 @@ class IVFIndex:
         return "ivf"
 
     def _exact(self, dev, q_dev, k, k_out, allow_tags, batched=False):
-        rows = dev.fvecs.shape[0]
-        k = min(k, rows)
+        """The sharded exact scan over the flat mirror; ``k`` is capped per
+        shard by the shard's rows."""
+        shard_rows = dev.fvecs.shape[0] // self.n_shards
+        k_shard = min(k, shard_rows)
         resc_f32, resid, rscl = split_rescore(dev.frescore)
         fn = exact_scan_batched if batched else exact_scan
         return fn(
-            dev.fvecs, dev.fnorms, dev.fvalid, dev.fscales, resc_f32, q_dev,
-            k, self._fetch_width(k, rows, dev.frescore), self.metric,
+            self.mesh, dev.fvecs, dev.fnorms, dev.fvalid, dev.fscales,
+            resc_f32, q_dev, k_shard,
+            self._fetch_width(k, shard_rows, dev.frescore), self.metric,
             self._storage_name(),
             k_out=k_out,
             score_dtype=self._score_dtype(dev.frescore),
@@ -1043,14 +1059,17 @@ class IVFIndex:
         # with a rescore mirror, over-fetch candidates so the exact rescore
         # can recover int8-ranking misses (64 keeps the kernel eligible)
         fetch = max(4 * k, 64) if dev.frescore is not None else k
-        k_shard = min(fetch, dev.data.shape[1] * np_probe, rows_total)
-        k_eff = min(k, k_shard)
+        # the per-shard width is capped by a shard's rows; the merged pool
+        # holds n_shards * k_shard candidates
+        k_shard = min(fetch, dev.data.shape[1] * np_probe,
+                      rows_total // self.n_shards)
+        k_eff = min(k, k_shard * self.n_shards)
         scores, ids = _ivf_search(
-            dev.data, dev.ids, dev.sqnorms,
+            self.mesh, dev.data, dev.ids, dev.sqnorms,
             dev.scales if dev.scales is not None else dev.sqnorms,
             dev.centroids, q_dev, k_shard, np_probe, self.metric,
             self._pallas_mode(), self._dtype == torch.int8,
-            min(fetch, k_shard),
+            min(fetch, k_shard * self.n_shards),
         )
         scores, ids = self._rescore_merged(dev, q_dev, scores, ids)
         return scores[:, :k_eff], ids[:, :k_eff]
@@ -1088,10 +1107,11 @@ class IVFIndex:
             # exact path
             mode = "exact"
         if mode == "auto":
-            mode = self._pick_mode(_cost_bucket(n_q), np_probe, k)
+            mode = self._pick_mode(pad_bucket(n_q), np_probe, k)
         if mode == "exact":
-            k_eff = min(k, dev.fvecs.shape[0])
-            scores, ids = self._exact(dev, q_dev, k_eff, k_eff, allow_tags)
+            shard_rows = dev.fvecs.shape[0] // self.n_shards
+            k_eff = min(k, min(k, shard_rows) * self.n_shards)
+            scores, ids = self._exact(dev, q_dev, k, k_eff, allow_tags)
         else:
             scores, ids = self._probe(dev, q_dev, k, np_probe)
             k_eff = scores.shape[1]
@@ -1114,12 +1134,12 @@ class IVFIndex:
             return scores, ids
         if isinstance(dev.frescore, tuple):
             exact = rescore_global_residual(
-                dev.fvecs, dev.fscales, dev.frescore[0], dev.frescore[1],
-                dev.fnorms, q_dev, ids, self.metric,
+                self.mesh, dev.fvecs, dev.fscales, dev.frescore[0],
+                dev.frescore[1], dev.fnorms, q_dev, ids, self.metric,
             )
         else:
-            exact = rescore_global(dev.frescore, dev.fnorms, q_dev, ids,
-                                   self.metric)
+            exact = rescore_global(self.mesh, dev.frescore, dev.fnorms,
+                                   q_dev, ids, self.metric)
         return _resort(exact, ids)
 
     def search_device(
@@ -1134,8 +1154,9 @@ class IVFIndex:
         if allow_tags is not None:
             mode = "exact"  # see search(): tag masking rides the flat mirror
         if mode == "auto":
-            mode = self._pick_mode(_cost_bucket(q_dev.shape[0]), np_probe, k)
+            mode = self._pick_mode(pad_bucket(q_dev.shape[0]), np_probe, k)
         if mode == "exact":
+            k = min(k, dev.fvecs.shape[0] // self.n_shards)
             scores, ids = self._exact(dev, q_dev, k, None, allow_tags)
         else:
             scores, ids = self._probe(dev, q_dev, k, np_probe)
@@ -1159,6 +1180,7 @@ class IVFIndex:
         if allow_tags is not None:
             mode = "exact"  # tag masking rides the flat mirror (see search())
         if mode == "exact":
+            k = min(k, dev.fvecs.shape[0] // self.n_shards)
             scores, ids = self._exact(dev, qs_dev, k, None, allow_tags,
                                       batched=True)
         else:
@@ -1194,7 +1216,7 @@ class IVFIndex:
             scan_impl=self.scan_impl,
             rescore_mode=self.rescore_mode,
             rescore_width=self.rescore_width,
-            device=self.device,
+            mesh=self.mesh,
         )
 
     def compacted(self) -> Tuple["IVFIndex", np.ndarray]:
@@ -1357,14 +1379,17 @@ def _pending_merge(scores, ids, q, pvecs, pids, ptags, metric, allow):
     return s, torch.gather(all_i, 1, pos)
 
 
-def _ivf_search(data, ids, sqnorms, scales, centroids, q, k, nprobe, metric,
-                pallas_mode="off", quantized=False, k_out=None):
-    """IVF query step (ivf.py:1849-2009): probe selection, the probed
-    clusters' scan, and the merge (on one device, a top-k over the one
-    shard's candidates). ``k`` is the scan's top-k width; the result has
-    ``k_out`` (default k) columns, ids int64. For l2, scores are
-    -||q - x||^2."""
-    k_out = k if k_out is None else min(k_out, k)
+def _ivf_search(mesh, data, ids, sqnorms, scales, centroids, q, k, nprobe,
+                metric, pallas_mode="off", quantized=False, k_out=None):
+    """Sharded IVF query step (ivf.py:1849-2009): probe selection
+    (replicated), each shard's scan of the probed clusters it owns, and the
+    merge. ``k`` is the per-shard top-k width; the merge over the
+    n_shards * k candidate pool returns ``k_out`` (default k) columns, ids
+    int64. For l2, scores are -||q - x||^2."""
+    n_shards = mesh_shards(mesh)
+    k_out = k if k_out is None else k_out
+    k_out = min(k_out, k * n_shards)
+    nlist_s = data.shape[0] // n_shards
     q = q.to(torch.float32)
     qc = f32_matmul(q, centroids.T)  # (Q, nlist)
     if metric == "l2":
@@ -1372,24 +1397,50 @@ def _ivf_search(data, ids, sqnorms, scales, centroids, q, k, nprobe, metric,
     else:
         probe_scores = qc
     _, probes = stable_topk(probe_scores, nprobe)
-    if pallas_mode != "off" and k <= ivf_ops.MAX_K and nprobe <= ivf_ops.MAX_PROBE:
-        top_s, top_i = ivf_ops.ivf_scan(data, ids, q, probes, k,
-                                        scales if quantized else None)
-    else:
-        top_s, top_i = _gather_scan(data, ids, sqnorms, scales, q, probes, k,
-                                    metric, quantized)
-    # the results are sorted: the one-shard merge keeps the first k_out
-    top_s, top_i = top_s[:, :k_out], top_i[:, :k_out].to(torch.int64)
+    kernel = (pallas_mode != "off" and k <= ivf_ops.MAX_K
+              and nprobe <= ivf_ops.MAX_PROBE)
+    parts = []
+    for rank, dev in local_shards(mesh):
+        base = rank * nlist_s
+
+        def clusters(t):
+            return mesh.place(t, base, base + nlist_s, dev)
+
+        pr = probes.to(dev)
+        q_s = q.to(dev)
+        # one shard owns every probe: no mask
+        owned = (pr // nlist_s) == rank if n_shards > 1 else None
+        if kernel:
+            # probes another shard owns go in out of range: the kernel's
+            # probe table skips them, so they add nothing, ties included
+            local = pr if owned is None else torch.where(owned, pr - base, -1)
+            s_loc, i_loc = ivf_ops.ivf_scan(
+                clusters(data), clusters(ids), q_s, local, k,
+                clusters(scales) if quantized else None,
+            )
+        else:
+            local = pr if owned is None else torch.clamp(pr - base, 0, nlist_s - 1)
+            s_loc, i_loc = _gather_scan(
+                clusters(data), clusters(ids), clusters(sqnorms),
+                clusters(scales), q_s, local, owned, k, metric, quantized,
+            )
+        parts.append((s_loc, i_loc.to(torch.int64)))
+    # local shards first, then across processes
+    top_s, top_i = hierarchical_topk_merge(parts, k_out, mesh)
     if metric == "l2":
         top_s = top_s - torch.sum(q * q, dim=1, keepdim=True)
     return top_s, top_i
 
 
-def _gather_scan(data, ids, sqnorms, scales, q, probes, k, metric, quantized):
-    """The reference's gather-scan route (ivf.py:1932-1987): for each probe
-    rank, gather every query's cluster block, score it and merge it into a
-    running top-k (ties to the earlier probe rank, then the lower slot).
-    int8 rows score with exact integer products, as the kernel does."""
+def _gather_scan(data, ids, sqnorms, scales, q, probes, owned, k, metric,
+                 quantized):
+    """The reference's gather-scan route over one shard's clusters
+    (ivf.py:1932-1987): for each probe rank, gather every query's cluster
+    block (``probes`` shard-local, clipped), score it and merge it into a
+    running top-k (ties to the earlier probe rank, then the lower slot);
+    probes the shard does not own (``owned`` False; None: it owns them
+    all) score nothing. int8 rows score with exact integer products, as
+    the kernel does."""
     n_q = q.shape[0]
     if quantized:
         q_int, q_scl = quantize_queries_device(q)
@@ -1408,7 +1459,10 @@ def _gather_scan(data, ids, sqnorms, scales, q, probes, k, metric, quantized):
         ids_blk = ids[pl]
         if metric == "l2":
             scores = 2.0 * scores - sqnorms[pl]
-        scores = torch.where(ids_blk >= 0, scores, _NEG)
+        keep = ids_blk >= 0
+        if owned is not None:
+            keep = keep & owned[:, j:j + 1]
+        scores = torch.where(keep, scores, _NEG)
         merged_s = torch.cat([best_s, scores], dim=1)
         merged_i = torch.cat([best_i, ids_blk], dim=1)
         best_s, pos = stable_topk(merged_s, k)

@@ -5,8 +5,9 @@ of the reference (host featurization of identifier-aware, field-boosted
 term statistics into a fixed-width fingerprint per row: the top ``kterms``
 terms by selection weight as crc32 ids with f16 tf weights, plus the doc's
 total term mass and its whole-symbol hash). The query side runs on the
-device: gather the candidate window's fingerprints by row id (one device,
-so the reference's psum ownership gather is a plain index), window-level
+device: gather the candidate window's fingerprints by global row id from
+the row-sharded fingerprint table (each shard gathers the rows in its
+range and the parts are summed, the reference's psum), window-level
 BM25 with the exact-symbol bonus and the gated learned MaxSim channel, the
 min-max blend with the dense scores, and the stable two-key sort — the
 math of ``bm25_blend`` (lexical.py:269-377), chunked by query so the
@@ -22,7 +23,14 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike
+from ..parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    local_shards,
+    n_shards,
+    resolve_mesh,
+)
 from ..embeddings.hash_embedder import STOP_TOKENS as _STOP_TOKENS
 from .rerank import (
     DEFAULT_SYM_BONUS,
@@ -187,17 +195,38 @@ def featurize_query_symbols(
 _BLEND_CHUNK = 8
 
 
-def gather_fingerprints(fp_ids, fp_w, fp_len, fp_sym, ids):
-    """Gather candidate fingerprint rows by row id (-1 / out-of-range ids
-    give an empty fingerprint: ids -1, weights 0, length 0, symbol -1)."""
-    n_rows = fp_ids.shape[0]
+def gather_fingerprints(mesh: Mesh, fp_ids, fp_w, fp_len, fp_sym, ids):
+    """Gather candidate fingerprint rows by GLOBAL row id from row-sharded
+    tables (``scan.rescore_global``'s ownership pattern,
+    lexical.py:206-250): each shard gives the rows in its range and the
+    empty fingerprint (ids -1, weights 0, length 0, symbol -1) for every
+    other id, and the parts are summed, across processes too; the -1 that
+    each of the shards but the owner adds to ids and symbols is then added
+    back. -1 / unowned ids give the empty fingerprint."""
+    n = n_shards(mesh)
+    shard_rows = fp_ids.shape[0] // n
+    home = mesh.home
     ids = ids.to(torch.int64)
-    mine = (ids >= 0) & (ids < n_rows)
-    li = torch.clamp(ids, 0, n_rows - 1)
-    g_ids = torch.where(mine[..., None], fp_ids[li], -1)
-    g_w = torch.where(mine[..., None], fp_w[li].to(torch.float32), 0.0)
-    g_len = torch.where(mine, fp_len[li], 0.0)
-    g_sym = torch.where(mine, fp_sym[li], -1)
+    total = None
+    for rank, dev in local_shards(mesh):
+        lo, hi = rank * shard_rows, (rank + 1) * shard_rows
+        ids_d = ids.to(dev)
+        mine = (ids_d >= lo) & (ids_d < hi)
+        li = torch.clamp(ids_d - lo if lo else ids_d, 0, shard_rows - 1)
+        g_ids, g_w, g_len, g_sym = (mesh.place(t, lo, hi, dev)[li]
+                                    for t in (fp_ids, fp_w, fp_len, fp_sym))
+        parts = (
+            torch.where(mine[..., None], g_ids, -1),
+            torch.where(mine[..., None], g_w.to(torch.float32), 0.0),
+            torch.where(mine, g_len, 0.0),
+            torch.where(mine, g_sym, -1),
+        )
+        parts = tuple(p.to(home) for p in parts)
+        total = parts if total is None else tuple(
+            a + b for a, b in zip(total, parts))
+    g_ids, g_w, g_len, g_sym = (all_reduce_sum(t, mesh) for t in total)
+    if n > 1:
+        g_ids, g_sym = g_ids + (n - 1), g_sym + (n - 1)
     return g_ids, g_w, g_len, g_sym
 
 
@@ -318,18 +347,21 @@ def rerank_device(
     sym_bonus: float = DEFAULT_SYM_BONUS,
     table=None,  # (B, D) unit-row f32 device tensor: learned MaxSim channel
     learned_weight: float = 0.0,
+    mesh: Optional[Mesh] = None,  # the fingerprints' mesh (default: one shard)
 ):
-    """Full device rerank step: gather + BM25 + blend + reorder.
+    """Full device rerank step: sharded gather + BM25 + blend + reorder, on
+    the mesh's first local device.
 
     Returns (scores, ids) reordered by the blended ranking, as device
     tensors. Scores returned are the ORIGINAL dense scores in the new order
     (the blend only decides order, as the host rerank_hits)."""
     fp_ids, fp_w, fp_len, fp_sym = fingerprints
-    device = fp_ids.device
+    mesh = resolve_mesh(mesh, fp_ids.device) if mesh is None else mesh
+    device = mesh.home
     ids_dev = torch.as_tensor(ids, device=device).to(torch.int64)
     scores_dev = torch.as_tensor(scores, device=device).to(torch.float32)
     g_ids, g_w, g_len, g_sym = gather_fingerprints(
-        fp_ids, fp_w, fp_len, fp_sym, ids_dev
+        mesh, fp_ids, fp_w, fp_len, fp_sym, ids_dev
     )
     _, order = bm25_blend(
         g_ids, g_w, g_len, g_sym, scores_dev,
@@ -358,8 +390,12 @@ class LexicalFingerprints:
     arrays of two generations, nor installs a mirror older than a write."""
 
     def __init__(self, row_multiple: int, kterms: int = DEFAULT_KTERMS,
-                 device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
+        # the table is row-sharded over ``mesh`` as the index is; its row
+        # multiple (the store passes lcm(n_shards * 8, 128)) keeps the
+        # shards equal
+        self.mesh = resolve_mesh(mesh, device)
+        self.device = self.mesh.home
         self.kterms = int(kterms)
         self._row_multiple = int(row_multiple)
         cap = self._row_multiple
@@ -444,8 +480,9 @@ class LexicalFingerprints:
     # -- device snapshot ----------------------------------------------------
 
     def device_arrays(self, min_rows: int) -> tuple:
-        """Device mirror, padded to cover ``min_rows`` (the index's
-        allocated rows) and the row multiple."""
+        """Device mirror in global row order (each shard reads its range),
+        padded to cover ``min_rows`` (the index's allocated rows) and the
+        row multiple."""
         dev = self._dev
         if dev is not None and dev[0].shape[0] >= max(min_rows, 1):
             return dev  # the common case: no lock on the read path

@@ -1,26 +1,31 @@
-"""Exact-scan step for the flat index, on one device.
+"""Sharded exact-scan step for the flat index and the IVF exact path.
 
 Counterpart of ``semcode_tpu/index/scan.py`` (``_exact_scan_impl``,
-125-361). The JAX step runs per shard under shard_map and merges the shards'
-candidates hierarchically; here there is one device, so the per-shard merge
-is a final top-k over the one shard's candidates.
+125-361). The corpus rows are split over the mesh's row axes
+(``parallel/mesh.py``): shard ``s`` owns rows ``[s * shard_rows, (s + 1) *
+shard_rows)``. Each of this process's shards runs the step below on its own
+rows, on its own device, and the shards' ``(Q, k)`` candidates merge
+innermost axis first (``hierarchical_topk_merge``), as the reference's
+shard_map body does.
 
 Routes, with the JAX meanings of ``scan_impl``:
 
 - ``pallas``: the fused top-2 kernel (``ops/scan_top2.top2_scan``, the
-  Hopper counterpart of the Pallas ``top2_scan_shard``), then an exact top-
-  ``fetch`` over the reduced (Q, 2*nb) matrix, padded to ``k``.
-- ``xla`` (also what ``auto`` resolves to): the full (Q, R) score matrix
-  (``_score_block``) and an exact top-``fetch``, in query chunks so the
-  matrix stays bounded. int8 storage uses ``torch._int_mm`` on the card and
-  an exact float64 product on the CPU.
+  Hopper counterpart of the Pallas ``top2_scan_shard``), launched once per
+  shard on the shard's rows, then an exact top-``fetch`` over the reduced
+  (Q, 2*nb) matrix, padded to ``k``.
+- ``xla`` (also what ``auto`` resolves to): the full (Q, shard_rows) score
+  matrix (``_score_block``) and an exact top-``fetch``, in query chunks so
+  the matrix stays bounded. int8 storage uses ``torch._int_mm`` on the card
+  and an exact float64 product on the CPU.
 
-Then, shared: the top-W gather slice, the fused rescore in true f32 (f32
-mirror, or the two-level int8 residual reconstruction) and the final top-k.
-Every selection goes through ``stable_topk``, whose ties go to the lowest
-index like ``jax.lax.top_k`` (corpora with duplicated chunks tie exactly).
-The JAX step's ``approx_max_k`` selection exists only on a TPU and the
-reference runs exact ``top_k`` everywhere else; this step is always exact.
+Then, per shard: the top-W gather slice, the fused rescore in true f32 (f32
+mirror, or the two-level int8 residual reconstruction) and the shard's
+top-k. Every selection goes through ``stable_topk``, whose ties go to the
+lowest index like ``jax.lax.top_k`` (corpora with duplicated chunks tie
+exactly). The JAX step's ``approx_max_k`` selection exists only on a TPU
+and the reference runs exact ``top_k`` everywhere else; this step is always
+exact.
 """
 
 from __future__ import annotations
@@ -30,6 +35,13 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.scan_top2 import NEG, top2_scan
+from ..parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    hierarchical_topk_merge,
+    local_shards,
+    n_shards as mesh_shards,
+)
 
 _NEG_F16 = -6.0e4
 # bound on the (query chunk x rows) score matrix of the xla route
@@ -155,17 +167,18 @@ def _select_pallas(qq, q_scales, vecs, nrm, vld, scl, storage, metric,
 
 
 def exact_scan(
-    vecs: torch.Tensor,        # (R, d) storage dtype
+    mesh: Mesh,
+    vecs: torch.Tensor,        # (R, d) storage dtype, global row layout
     norms: torch.Tensor,       # (R,) f32 row sqnorms (l2)
     valid: torch.Tensor,       # (R,) bool liveness
     scales: torch.Tensor,      # (R,) f32 int8 row scales (or placeholder)
     rescore: Optional[torch.Tensor],  # (R, d) f32 mirror, or None
     q: torch.Tensor,           # (Q, d) f32, metric-normalized
-    k: int,                    # result width
-    fetch: int,                # candidate width before rescore (>= k)
+    k: int,                    # per-shard result width
+    fetch: int,                # per-shard candidate width before rescore
     metric: str,               # ip | cosine | l2
     storage: str,              # int8 | bfloat16 | float32
-    k_out: Optional[int] = None,
+    k_out: Optional[int] = None,  # merged width (default k)
     score_dtype: str = "float32",
     tags: Optional[torch.Tensor] = None,   # (R,) int32 row tags
     allow: Optional[torch.Tensor] = None,  # (A,) int32 allowed tags (-1 pad)
@@ -174,16 +187,18 @@ def exact_scan(
     rscales: Optional[torch.Tensor] = None,  # (R,) f32 residual scales
     rescore_width: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scan + select + (rescore) + final top-k; returns (scores (Q, k_out)
-    f32, ids (Q, k_out) int64). For l2, scores are -||q - x||^2."""
+    """Scan + select + (rescore) per shard, then the merge; returns
+    (scores (Q, k_out) f32, ids (Q, k_out) int64 global rows) on the mesh's
+    first local device. For l2, scores are -||q - x||^2."""
     if k_out is None:
         k_out = k
-    n_rows = vecs.shape[0]
-    fetch = min(fetch, n_rows)
+    n_shards = mesh_shards(mesh)
+    shard_rows = vecs.shape[0] // n_shards
+    fetch = min(fetch, shard_rows)
     k = min(k, fetch)
     w = int(rescore_width)
     w = max(w, k) if 0 < w < fetch else 0  # 0 = gather the whole fetch
-    k_out = min(k_out, k)
+    k_out = min(k_out, k * n_shards)
     f16 = score_dtype == "float16" and scan_impl == "xla"
     neg = _NEG_F16 if f16 else NEG
     if resid is not None and (rescore is not None or storage != "int8"):
@@ -198,88 +213,129 @@ def exact_scan(
         qq, q_scales = quantize_queries_device(q)
     else:
         qq, q_scales = q, None
-    vld = valid
-    if tags is not None:
-        vld = vld & (tags[:, None] == allow[None, :]).any(dim=1)
 
-    if scan_impl == "pallas":
-        s, pos = _select_pallas(qq, q_scales, vecs, norms, vld, scales,
-                                storage, metric, fetch, k)
-    else:
-        s, pos = _select_xla(qq, q_scales, vecs, norms, vld, scales,
-                             storage, metric, fetch, f16)
-    s = s.to(torch.float32)
-    if (rescore is not None or resid is not None) and w:
-        # top-W gather slice: selection output is sorted by prefilter score
-        s = s[:, :w]
-        pos = pos[:, :w]
-    if rescore is not None or resid is not None:
-        # fused exact rescore in true f32: an elementwise product and sum,
-        # which no TF32 setting can lower (the reference's HIGHEST einsum)
-        if rescore is not None:
-            cand = rescore[pos]  # (Q, W, d)
+    parts = []
+    for rank, dev in local_shards(mesh):
+        lo = rank * shard_rows
+
+        def rows(t):
+            return None if t is None else mesh.place(t, lo, lo + shard_rows, dev)
+
+        v, nrm, vld, scl = rows(vecs), rows(norms), rows(valid), rows(scales)
+        if tags is not None:
+            vld = vld & (rows(tags)[:, None] == allow.to(dev)[None, :]).any(dim=1)
+        qq_s = qq.to(dev)
+        qs_s = q_scales.to(dev) if q_scales is not None else None
+        if scan_impl == "pallas":
+            s, pos = _select_pallas(qq_s, qs_s, v, nrm, vld, scl, storage,
+                                    metric, fetch, k)
         else:
-            cand = (
-                vecs[pos].to(torch.float32) * scales[pos][:, :, None]
-                + resid[pos].to(torch.float32) * rscales[pos][:, :, None]
-            )
-        exact = (cand * q[:, None, :]).sum(dim=2)
-        if metric == "l2":
-            exact = 2.0 * exact - norms[pos]
-        s = torch.where(s > neg / 2, exact, NEG)
-    else:
-        s = torch.where(s > neg / 2, s, NEG)
-    # final top-k (the reference's per-shard top-k and its one-shard merge)
-    s, sel = stable_topk(s, min(k, k_out, s.shape[1]))
-    pos = torch.gather(pos, 1, sel)
+            s, pos = _select_xla(qq_s, qs_s, v, nrm, vld, scl, storage,
+                                 metric, fetch, f16)
+        s = s.to(torch.float32)
+        resc, rsd = rows(rescore), rows(resid)
+        if (resc is not None or rsd is not None) and w:
+            # top-W gather slice: selection output is sorted by prefilter score
+            s = s[:, :w]
+            pos = pos[:, :w]
+        if resc is not None or rsd is not None:
+            # fused exact rescore in true f32: an elementwise product and
+            # sum, which no TF32 setting can lower (the reference's HIGHEST
+            # einsum)
+            if resc is not None:
+                cand = resc[pos]  # (Q, W, d)
+            else:
+                cand = (
+                    v[pos].to(torch.float32) * scl[pos][:, :, None]
+                    + rsd[pos].to(torch.float32) * rows(rscales)[pos][:, :, None]
+                )
+            exact = (cand * q.to(dev)[:, None, :]).sum(dim=2)
+            if metric == "l2":
+                exact = 2.0 * exact - nrm[pos]
+            s = torch.where(s > neg / 2, exact, NEG)
+        else:
+            s = torch.where(s > neg / 2, s, NEG)
+        # the shard's top-k, sorted (the merge takes sorted parts; the
+        # reference sorts in its merge, to the same order)
+        s, sel = stable_topk(s, min(k, s.shape[1]))
+        pos = torch.gather(pos, 1, sel)
+        parts.append((s, pos + lo if lo else pos))
+    # hierarchical merge: the local shards first, then across processes
+    s, ids = hierarchical_topk_merge(parts, k_out, mesh)
     if metric == "l2":
-        qnorm = torch.sum(q * q, dim=1, keepdim=True)
-        s = s - qnorm
-    return s, pos
+        s = s - torch.sum(q * q, dim=1, keepdim=True)
+    return s, ids
 
 
-def _rescore_candidates(cand, nrm, q, ids, metric):
-    """Exact f32 scores of gathered candidate rows (Q, K, d) against the
-    queries: an elementwise product and sum, which no TF32 setting lowers
-    (the reference's HIGHEST-precision einsum). -3e38 where ids < 0."""
+def _rescore_parts(mesh: Mesh, n_rows: int, q, ids, metric, gather):
+    """Exact f32 scores of merged candidates by global row id: each shard
+    gathers the candidates in its row range (``gather(lo, hi, dev, li)`` ->
+    (Q, K, d) rows and (Q, K) norms), scores them, and the shards' parts
+    (zero where another shard owns the row) are summed, across processes
+    too: the reference's psum. Aligned with ``ids``, not re-sorted; -3e38
+    where ids < 0; l2 scores follow -||q-x||^2."""
+    n_shards = mesh_shards(mesh)
+    shard_rows = n_rows // n_shards
     q = q.to(torch.float32)
-    exact = (cand * q[:, None, :]).sum(dim=2)
+    total = None
+    for rank, dev in local_shards(mesh):
+        lo, hi = rank * shard_rows, (rank + 1) * shard_rows
+        ids_d = ids.to(dev).to(torch.int64)
+        li = (ids_d - lo if lo else ids_d).clamp(0, shard_rows - 1)
+        cand, nrm = gather(lo, hi, dev, li)
+        exact = (cand * q.to(dev)[:, None, :]).sum(dim=2)
+        if metric == "l2":
+            exact = 2.0 * exact - nrm
+        # zero where another shard owns the row; a lone shard owns them
+        # all (ids < 0 are masked below)
+        if n_shards > 1:
+            exact = torch.where((ids_d >= lo) & (ids_d < hi), exact, 0.0)
+        part = exact.to(mesh.home)
+        total = part if total is None else total + part
+    total = all_reduce_sum(total, mesh)
     if metric == "l2":
-        exact = 2.0 * exact - nrm
-        exact = exact - torch.sum(q * q, dim=1, keepdim=True)
-    return torch.where(ids >= 0, exact, NEG)
+        total = total - torch.sum(q * q, dim=1, keepdim=True)
+    return torch.where(ids >= 0, total, NEG)
 
 
-def rescore_global(frescore, fnorms, q, ids, metric):
-    """Exact f32 re-scoring of merged candidates identified by global row id
-    (scan.py:418-467), aligned with ``ids`` and NOT re-sorted. The reference
-    gathers each candidate on the shard whose mirror range holds it and sums
-    the shards' parts; on one device that is a plain gather. For l2 the
-    scores follow the -||q-x||^2 convention."""
-    li = ids.to(torch.int64).clamp(0, frescore.shape[0] - 1)
-    return _rescore_candidates(frescore[li], fnorms[li], q, ids, metric)
+def rescore_global(mesh: Mesh, frescore, fnorms, q, ids, metric):
+    """Exact f32 re-scoring of MERGED candidates identified by global row id
+    (scan.py:418-467): the probing path's candidates are owned by cluster,
+    not by mirror row range, so each shard gathers the candidates its f32
+    mirror range holds and the parts are summed (``_rescore_parts``)."""
+
+    def gather(lo, hi, dev, li):
+        return (mesh.place(frescore, lo, hi, dev)[li],
+                mesh.place(fnorms, lo, hi, dev)[li])
+
+    return _rescore_parts(mesh, frescore.shape[0], q, ids, metric, gather)
 
 
-def rescore_global_residual(fvecs, fscales, fresid, frscales, fnorms, q, ids,
-                            metric):
+def rescore_global_residual(mesh: Mesh, fvecs, fscales, fresid, frscales,
+                            fnorms, q, ids, metric):
     """``rescore_global`` for the two-level int8 mirror (scan.py:469-517):
-    candidates are rebuilt from the int8 corpus plus the int8 residual
-    (~16-bit precision) and re-scored in f32."""
-    li = ids.to(torch.int64).clamp(0, fvecs.shape[0] - 1)
-    cand = (
-        fvecs[li].to(torch.float32) * fscales[li][:, :, None]
-        + fresid[li].to(torch.float32) * frscales[li][:, :, None]
-    )
-    return _rescore_candidates(cand, fnorms[li], q, ids, metric)
+    each shard rebuilds its candidates from the int8 corpus plus the int8
+    residual (~16-bit precision) and re-scores them in f32."""
+
+    def gather(lo, hi, dev, li):
+        cand = (
+            mesh.place(fvecs, lo, hi, dev)[li].to(torch.float32)
+            * mesh.place(fscales, lo, hi, dev)[li][:, :, None]
+            + mesh.place(fresid, lo, hi, dev)[li].to(torch.float32)
+            * mesh.place(frscales, lo, hi, dev)[li][:, :, None]
+        )
+        return cand, mesh.place(fnorms, lo, hi, dev)[li]
+
+    return _rescore_parts(mesh, fvecs.shape[0], q, ids, metric, gather)
 
 
-def exact_scan_batched(vecs, norms, valid, scales, rescore, qs, k, fetch,
-                       metric, storage, **kwargs):
+def exact_scan_batched(mesh, vecs, norms, valid, scales, rescore, qs, k,
+                       fetch, metric, storage, **kwargs):
     """``exact_scan`` over B query batches (qs: (B, Q, d)); returns
     (scores (B, Q, k), ids (B, Q, k)). The reference folds the batches into
     one dispatch to amortize a per-dispatch fee; here it is a loop."""
     outs = [
-        exact_scan(vecs, norms, valid, scales, rescore, qs[b], k, fetch,
+        exact_scan(mesh, vecs, norms, valid, scales, rescore, qs[b], k, fetch,
                    metric, storage, **kwargs)
         for b in range(qs.shape[0])
     ]

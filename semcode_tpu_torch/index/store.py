@@ -16,6 +16,7 @@ live rows, then promoted to IVF in one view swap.
 from __future__ import annotations
 
 import json
+import math
 import threading
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import Mesh, get_mesh, local_devices, make_mesh, n_shards
 from ..logger import get_logger
 from ..settings import AppSettings, settings as default_settings
 from ..utils.tracing import StageTimer
@@ -86,19 +88,28 @@ class SearchHit:
 
 
 class VectorStore:
-    """In-process device vector store with upsert/search/delete + snapshots."""
+    """In-process device vector store with upsert/search/delete + snapshots.
+
+    ``mesh`` shards the index (``parallel/mesh.py``); without one the store
+    builds it from the settings on first use (``_ensure_mesh``): the
+    process group when ``[mesh] num_processes > 1``, then the ``("dcn",
+    "data")`` mesh over the processes, or ``get_mesh(mesh_shape)`` over
+    ``device``'s local devices."""
 
     def __init__(
         self,
         config: Optional[AppSettings] = None,
         *,
         dim: Optional[int] = None,
+        mesh: Optional[Mesh] = None,
         device: DeviceLike = None,
     ):
         self.config = config or default_settings
         self.dim = int(dim or self.config.embedding_dimension)
         self.metric = self.config.index_metric
-        self.device = resolve_device(device)
+        self._mesh = mesh
+        self._device_arg = device
+        self.device = mesh.home if mesh is not None else resolve_device(device)
         # Reader-visible state is ONE atomically-swapped tuple
         # (index, row_to_id, row_meta, id_to_row) — mirroring the device-tuple
         # pattern inside the indexes. Row-stable mutations (appends, metadata
@@ -163,6 +174,7 @@ class VectorStore:
         """Initialize the engine; loads a snapshot if one exists."""
         if self._connected:
             return
+        mesh = self._ensure_mesh()
         snap = self.snapshot_dir()
         if snap is not None and (snap / "store.json").exists():
             self.load(snap)
@@ -172,8 +184,34 @@ class VectorStore:
             dim=self.dim,
             metric=self.metric,
             device=str(self.device),
+            shards=n_shards(mesh),
             rows=self.count(),
         )
+
+    def _ensure_mesh(self) -> Mesh:
+        """The store's mesh, built once from the settings (store.py:160-176):
+        the process group first, then the ``("dcn", "data")`` mesh of a
+        multi-process run unless ``mesh_shape`` names one, else
+        ``get_mesh(mesh_shape, mesh_axis_names)``."""
+        if self._mesh is None:
+            from ..parallel.distributed import (
+                maybe_init_distributed,
+                multihost_mesh_shape,
+            )
+
+            cfg = self.config
+            maybe_init_distributed(cfg, device=self._device_arg)
+            multi = multihost_mesh_shape(cfg, device=self._device_arg)
+            if multi is not None and not cfg.mesh_shape:
+                mesh = make_mesh(*multi,
+                                 devices=local_devices(self._device_arg))
+            else:
+                mesh = get_mesh(cfg.mesh_shape,
+                                tuple(cfg.mesh_axis_names.split(",")),
+                                device=self._device_arg)
+            self._mesh = mesh
+            self.device = mesh.home
+        return self._mesh
 
     def snapshot_dir(self) -> Optional[Path]:
         if self.config.index_snapshot_dir is not None:
@@ -213,7 +251,7 @@ class VectorStore:
             fetch_width=cfg.index_fetch_width,
             scan_impl=cfg.index_scan_impl,
             rescore_width=cfg.index_rescore_width,
-            device=self.device,
+            mesh=self._ensure_mesh(),
         )
 
     def _ivf_options(self) -> Dict[str, Any]:
@@ -382,10 +420,12 @@ class VectorStore:
         if self._lex is None:
             from .lexical import DEFAULT_KTERMS
 
+            mesh = self._ensure_mesh()
             lex = LexicalFingerprints(
-                128,  # the index's row multiple
+                # the index's row multiple: shards stay equal and aligned
+                math.lcm(n_shards(mesh) * 8, 128),
                 kterms=self.config.search_rerank_terms or DEFAULT_KTERMS,
-                device=self.device,
+                mesh=mesh,
             )
             if self._row_meta:
                 lex.rebuild(self._row_meta)
@@ -959,6 +999,7 @@ class VectorStore:
             learned_weight=max(
                 getattr(self.config, "search_rerank_learned_weight", 0.0), 0.0
             ),
+            mesh=self._lex.mesh,
         )
 
     def _device_rerank_np(self, scores, ids, query_texts):

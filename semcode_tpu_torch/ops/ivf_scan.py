@@ -1,7 +1,9 @@
 """IVF probing kernel: masked top-k of each query over its probed clusters.
 
 Replaces ``semcode_tpu/ops/kernels.py::ivf_scan_shard`` (the Pallas TPU
-kernel, ``pallas_call`` at line 374) on one device. The function:
+kernel, ``pallas_call`` at line 374). A sharded index calls it once per
+shard on that shard's clusters, with the probes it does not own out of
+range (the probe table skips them). The function:
 
     for query q and every slot s of every cluster c it probes:
         int8:       score = (float(raw) * q_scale[q]) * scales[c, s]

@@ -1,4 +1,4 @@
-"""Batched Lloyd's k-means on one device.
+"""Batched Lloyd's k-means on one device (replicated, as the reference's).
 
 Counterpart of ``semcode_tpu/ops/kmeans.py``: the IVF coarse quantizer is
 trained on the device — k-means++ (D^2 sampling) init, then a fixed number

@@ -173,7 +173,8 @@ class AppSettings:
     index_scan_impl: str = "auto"  # auto | xla | pallas
 
     # -- mesh / parallelism ----------------------------------------------------
-    # read by the JAX package only: this engine runs on one device
+    # the store's mesh (parallel/mesh.get_mesh, parallel/distributed): corpus
+    # rows shard over it; the CPU holds as many shards as the shape asks for
     mesh_shape: str = ""  # e.g. "8" or "4x2"; empty = all local devices, 1-D
     mesh_axis_names: str = "data"
     mesh_coordinator: Optional[str] = None
