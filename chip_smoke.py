@@ -217,6 +217,20 @@ Phases (any failed check exits non-zero before the final line):
    shard's kernel call with the probes it does not own set to -1 against
    its plain version bit for bit, and the kernel route against the
    gather-scan route.
+10. DP x TP training on the one card (run after phase 8; a ``(2, 2)``
+   ``("data", "model")`` mesh of ``[cuda:0] * 4``): 10a. 8a's contrastive
+   step (mini, 32 pairs x 128, the same PairBatcher batches) on the mesh:
+   20 timed bf16 steps (the loss must fall) with ms a step, launches,
+   device-busy share and peak memory printed beside 8a's one-device
+   figures of the same run; then one float32 step on the mesh against the
+   one-device step on the card: the loss and accuracy within 1e-5, every
+   gathered gradient within rtol 1e-4 / atol 1e-6; 10b. the same for 8b's
+   next-token step (mini decoder, 32 x 512); 10c. the fixture LM at float32
+   as the mesh trainer's sharded state: 8 QA prompts, 64 greedy tokens
+   each decoded over the 2 model shards (eager) equal to the one-device
+   eager path's, every token; 10d. ``entry.dryrun_multichip(8)`` on
+   ``[cuda:0] * 8`` with the kernel launches of its index half (its
+   indexes' default routes, as the reference's dry run) read around it.
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -2205,6 +2219,229 @@ def training_phase(workdir: Path):
     return {"encoder": encoder, "lm": lm, "rerank": rerank, "serve": serve}
 
 
+# -- phase 10: DP x TP sharded training and the multi-device entry -----------------
+
+TRAIN_MESH = (2, 2)  # ("data", "model"): 2 replicas x 2 model shards, all on cuda:0
+TP_DECODE_ROWS, TP_DECODE_BUCKET, TP_DECODE_NEW = 8, 256, 64  # 10c
+
+
+def train_mesh():
+    """Phase 10's (data, model) mesh on the one card: the counterpart of
+    XLA's forced host device count."""
+    from semcode_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(TRAIN_MESH, ("data", "model"),
+                     devices=["cuda:0"] * int(math.prod(TRAIN_MESH)))
+
+
+def sharded_vs_one_device(make_trainer, state, batch, label):
+    """One float32 step on the (2, 2) mesh against the one-device step on
+    the card, same init and batch: the loss and accuracy within 1e-5 and
+    every gathered gradient within rtol 1e-4 / atol 1e-6 (the CPU tests'
+    tolerances, tests/test_torch_train_sharded.py)."""
+    import torch
+
+    one, sharded = make_trainer(None), make_trainer(train_mesh())
+    p1, _ = one.state_from(state)
+    p2, _ = sharded.state_from(state)
+    m1, g1 = one.value_and_grad(p1, batch)
+    m2, g2 = sharded.value_and_grad(p2, batch)
+    g2 = sharded.gather(g2)
+    loss_err = abs(float(m2["loss"]) - float(m1["loss"]))
+    acc_err = abs(float(m2["accuracy"]) - float(m1["accuracy"]))
+    worst, worst_name = 0.0, None
+    for name, g in g1.items():
+        ratio = ((g2[name] - g).abs() / (1e-6 + 1e-4 * g.abs())).max().item()
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    log(f"[sharded-train] {label} float32 step on the {TRAIN_MESH} mesh vs one device: "
+        f"loss {float(m2['loss']):.6f} vs {float(m1['loss']):.6f} (|diff| {loss_err:.3g}), "
+        f"accuracy |diff| {acc_err:.3g}; worst gradient at {worst:.3f} of its tolerance "
+        f"({worst_name})")
+    if loss_err > 1e-5 or acc_err > 1e-5 or worst > 1.0:
+        fail(f"{label}: the sharded float32 step differs from the one-device step "
+             f"(loss {loss_err:.3g}, gradient {worst:.3f} of tolerance at {worst_name})")
+    del one, sharded, p1, p2, g1, g2
+    torch.cuda.empty_cache()
+    return {"loss_abs_err": loss_err, "grad_tol_share": worst}
+
+
+def beside(label, rec, one):
+    log(f"[sharded-train] {label} on the {TRAIN_MESH} mesh: {rec['ms']:.3f} ms a step, "
+        f"{rec['launches']:.0f} launches, busy {100 * rec['busy_share']:.1f}%, peak "
+        f"{rec['peak_bytes'] / 2**30:.2f} GiB; one device (phase 8, this run): "
+        f"{one['ms']:.3f} ms, {one['launches']:.0f} launches, busy "
+        f"{100 * one['busy_share']:.1f}%, peak {one['peak_bytes'] / 2**30:.2f} GiB "
+        f"({rec['ms'] / one['ms']:.2f}x the time)")
+
+
+def sharded_encoder_phase(chunks, one):
+    """10a: 8a's contrastive step (mini, hashing vocabulary, 32 pairs of
+    128, PairBatcher pairs of semcode_tpu/) on the (2, 2) mesh: 20 timed bf16
+    steps beside 8a's figures (``one``); the float32 step against one
+    device."""
+    import dataclasses
+
+    import torch
+
+    from semcode_tpu_torch.models.data import PairBatcher
+    from semcode_tpu_torch.models.encoder import EncoderConfig, random_state
+    from semcode_tpu_torch.models.tokenizer import HashingTokenizer
+    from semcode_tpu_torch.models.train import ContrastiveTrainer
+
+    seq, bsz = ENCODER_TRAIN["seq_len"], ENCODER_TRAIN["batch_size"]
+    tok = HashingTokenizer(max_len=seq)
+    cfg = EncoderConfig.preset(ENCODER_TRAIN["preset"], vocab_size=tok.vocab_size,
+                               max_len=seq)
+    batcher = PairBatcher([c.content for c in chunks], tok, seq_len=seq, batch_size=bsz,
+                          symbols=[c.symbol for c in chunks],
+                          languages=[c.language for c in chunks])
+    batches = list(batcher.batches(TRAIN_WARMUP + TRAIN_STEPS + 1))
+    held = torch.cuda.memory_allocated()
+    trainer = ContrastiveTrainer(cfg, train_mesh())
+    params, opt_state = trainer.init_state(seed=0)
+    flops = transformer_step_flops(cfg.layers, cfg.hidden, cfg.mlp_dim, seq, 2 * bsz)
+    label = f"sharded encoder ({ENCODER_TRAIN['preset']}, 2 x {bsz} x {seq})"
+    rec = timed_training(trainer, params, opt_state, batches, label, flops,
+                         2 * bsz * seq, held)
+    beside("encoder", rec, one)
+    del trainer, params, opt_state
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rec["vs_one_device"] = sharded_vs_one_device(
+        lambda mesh: ContrastiveTrainer(f32, mesh),
+        random_state(f32, 0), batches[0], "encoder")
+    return rec
+
+
+def sharded_lm_phase(chunks, one):
+    """10b: 8b's next-token step (mini decoder, 32 x 512 bytes, QA mix 0.5)
+    on the (2, 2) mesh, as 10a."""
+    import dataclasses
+
+    import torch
+
+    from semcode_tpu_torch.models.decoder import (
+        DecoderConfig,
+        decoder_state_from_jax,
+        init_params,
+    )
+    from semcode_tpu_torch.models.tokenizer import ByteTokenizer
+    from semcode_tpu_torch.models.train_lm import LMTrainer, WindowBatcher, build_qa_texts
+
+    seq, bsz = LM_TRAIN["seq_len"], LM_TRAIN["batch_size"]
+    tok = ByteTokenizer(max_len=seq)
+    cfg = DecoderConfig.preset(LM_TRAIN["preset"], vocab_size=tok.vocab_size,
+                               max_len=max(seq, 1024))
+    batcher = WindowBatcher([c.content for c in chunks], tok, seq_len=seq, batch_size=bsz,
+                            anchored_texts=build_qa_texts(chunks),
+                            anchored_frac=LM_TRAIN["qa_mix"])
+    batches = list(batcher.batches(TRAIN_WARMUP + TRAIN_STEPS + 1))
+    held = torch.cuda.memory_allocated()
+    trainer = LMTrainer(cfg, train_mesh())
+    params, opt_state = trainer.init_state(seed=0)
+    flops = transformer_step_flops(cfg.layers, cfg.hidden, cfg.mlp_dim, seq, bsz,
+                                   extra_params=cfg.vocab_size * cfg.hidden)
+    rec = timed_training(trainer, params, opt_state, batches,
+                         f"sharded LM ({LM_TRAIN['preset']}, {bsz} x {seq})", flops,
+                         bsz * seq, held)
+    beside("LM", rec, one)
+    del trainer, params, opt_state
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rec["vs_one_device"] = sharded_vs_one_device(
+        lambda mesh: LMTrainer(f32, mesh),
+        decoder_state_from_jax(init_params(f32, seed=0)), batches[0], "LM")
+    return rec
+
+
+def sharded_decode_phase(chunks):
+    """10c: the fixture LM at float32 as the (2, 2) trainer's sharded state;
+    8 QA prompts of semcode_tpu/'s chunks and frozen questions (bucket 256),
+    64 greedy tokens each through ``generate_tokens`` over the 2 model
+    shards (eager) against the one-device eager path on the gathered state:
+    every token equal."""
+    import torch
+
+    from semcode_tpu_torch.models.decoder import (
+        QA_ANSWER,
+        QA_CONTEXT,
+        QA_CTX_CHARS,
+        QA_QUESTION,
+        build_decoder,
+        decoder_state_from_jax,
+        decoder_state_to_jax,
+        generate_tokens,
+    )
+    from semcode_tpu_torch.models.tokenizer import ByteTokenizer
+    from semcode_tpu_torch.models.train_lm import LMTrainer, load_lm_params
+
+    params, cfg = load_lm_params(LM_FIXTURE, dtype=torch.float32)
+    trainer = LMTrainer(cfg, train_mesh())
+    state, _ = trainer.state_from(decoder_state_from_jax(params))
+    sharded = trainer.decoder(state)
+    one = build_decoder(decoder_state_to_jax(trainer.gather(state)), cfg, "cuda")
+    tok = ByteTokenizer()
+    budget = TP_DECODE_BUCKET * 3 // 4
+    ids = torch.zeros(TP_DECODE_ROWS, TP_DECODE_BUCKET, dtype=torch.long)
+    mask = torch.zeros_like(ids)
+    for i, ((question, _), chunk) in enumerate(zip(frozen_queries(), chunks[::7])):
+        row = tok.encode(f"{QA_CONTEXT}{chunk.content[:QA_CTX_CHARS]}{QA_QUESTION}"
+                         f"{question}{QA_ANSWER}")[-budget:]
+        ids[i, :len(row)] = torch.tensor(row)
+        mask[i, :len(row)] = 1
+        if i + 1 == TP_DECODE_ROWS:
+            break
+    out, ms = {}, {}
+    for name, model in (("sharded", sharded), ("one", one), ("sharded", sharded)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kwargs = {} if name == "sharded" else {"graph": False}
+        out[name] = generate_tokens(model, ids, mask, max_new=TP_DECODE_NEW, **kwargs).cpu()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / TP_DECODE_NEW
+    equal = int((out["sharded"] == out["one"]).sum())
+    total = out["one"].numel()
+    log(f"[sharded-decode] fixture {LM_FIXTURE.name} at float32 on {len(sharded.devices)} "
+        f"model shards: {equal} of {total} tokens equal to the one-device eager path "
+        f"({TP_DECODE_ROWS} prompts in bucket {TP_DECODE_BUCKET}, {TP_DECODE_NEW} new each); "
+        f"{ms['sharded']:.2f} ms a token sharded, {ms['one']:.2f} one device (host "
+        f"clock, eager, the second sharded call)")
+    if equal != total:
+        fail(f"the sharded decode's tokens differ from one device's ({equal} of {total})")
+    return {"equal": equal, "total": total, "ms_token": ms["sharded"],
+            "one_ms_token": ms["one"]}
+
+
+def dryrun_phase():
+    """10d: ``entry.dryrun_multichip(8)`` on [cuda:0] * 8, the launch counts of
+    its index half read around it."""
+    from semcode_tpu_torch.entry import dryrun_multichip
+    from semcode_tpu_torch.ops.ivf_scan import ivf_scan
+    from semcode_tpu_torch.ops.scan_top2 import top2_scan
+
+    top2_scan.launches = ivf_scan.launches = 0
+    t0 = time.perf_counter()
+    line = dryrun_multichip(8)
+    secs = time.perf_counter() - t0
+    launches = {"top2_scan": top2_scan.launches, "ivf_scan": ivf_scan.launches}
+    log(f"[dryrun] {line} in {secs:.1f} s; kernel launches of its index half "
+        f"(the indexes' default routes): {launches}")
+    return {"line": line, "s": secs, "launches": launches}
+
+
+def sharded_training_phase(training):
+    """10: DP x TP training on the one card beside phase 8 (``training``),
+    the sharded decode and the multi-device dry run."""
+    t0 = time.perf_counter()
+    chunks = train_chunks()
+    encoder = sharded_encoder_phase(chunks, training["encoder"])
+    lm = sharded_lm_phase(chunks, training["lm"])
+    decode = sharded_decode_phase(chunks)
+    dryrun = dryrun_phase()
+    log(f"[sharded-train] phase 10 took {time.perf_counter() - t0:.1f} s")
+    return {"encoder": encoder, "lm": lm, "decode": decode, "dryrun": dryrun}
+
+
 def recall_at_10(ids, truth) -> float:
     hits = (ids[:, :, None] == truth[:, None, :]).any(dim=2).sum().item()
     return hits / truth.numel()
@@ -3467,6 +3704,7 @@ def main() -> int:
         lm_e2e = lm_pipeline_phase(e2e.pop("pipeline"))
         lm_api = api_lm_phase(Path(tmp))
         training = training_phase(Path(tmp))
+        sharded_training = sharded_training_phase(training)
     heldout = heldout_phase()
     api_legs = api_slo()
     api_kernel = api_kernel_shape()
@@ -3517,6 +3755,8 @@ def main() -> int:
         "sharded_api_launches": sharded["http_launches"],
         "sharded_scale_launches": sharded_scale["launches"],
         "dcn_launches": dcn["launches"],
+        # phase 10d: the dry run's index half (its indexes' default routes)
+        "dryrun_launches": sharded_training["dryrun"]["launches"]["top2_scan"],
         **{f"api_{key}": api_kernel[key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }
@@ -3545,7 +3785,8 @@ def main() -> int:
         products_ms=ik["products_ms"], selection_ms=ik["selection_ms"],
         producer_wait=ik["producer_wait"],
         # phase 9c: one probe search over 4 shards, once per shard
-        shards=sharded_ivf["shards"], sharded_launches=sharded_ivf["launches"]))
+        shards=sharded_ivf["shards"], sharded_launches=sharded_ivf["launches"],
+        dryrun_launches=sharded_training["dryrun"]["launches"]["ivf_scan"]))
     for storage in ("bfloat16", "float32"):
         leg = ivf_scale[storage]
         lk = leg["kernel"]
@@ -3574,6 +3815,8 @@ def main() -> int:
         "lm_e2e": lm_e2e,
         "lm_api": lm_api,
         "training": training,
+        "sharded_training": {k: v for k, v in sharded_training.items() if k != "dryrun"},
+        "dryrun": sharded_training["dryrun"],
         "scale": {k: v for k, v in scale.items() if k not in ("kernel", "dot_max")},
         "dot_max": dk,
         "ivf_scale": {k: v for k, v in ivf_scale.items() if k != "kernel"},

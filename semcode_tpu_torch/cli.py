@@ -427,11 +427,22 @@ def _print_step(step: int, steps: int, metrics) -> None:
         )
 
 
+def _train_mesh(settings):
+    """The trainers' mesh, as the JAX CLI builds it: data-parallel over
+    every local device (``[mesh] shape`` overrides; on the CPU it is the
+    shard count, default one)."""
+    from .device import resolve_device
+    from .parallel.mesh import get_mesh, local_devices
+
+    device = resolve_device()
+    shape = settings.mesh_shape or str(len(local_devices(device)))
+    return get_mesh(shape, ("data",), device=device)
+
+
 def cmd_train(args) -> int:
     """Contrastive-train the encoder on an ingested repository's chunks
     (or on source trees, ``--from``)."""
     configure_logging()
-    from .device import resolve_device
     from .models.data import PairBatcher
     from .models.encoder import EncoderConfig, encoder_state_to_jax
     from .models.tokenizer import HashingTokenizer
@@ -470,7 +481,7 @@ def cmd_train(args) -> int:
         lr = warmup_cosine_decay_schedule(
             0.0, args.lr, args.warmup, max(args.steps, args.warmup + 1)
         )
-    trainer = ContrastiveTrainer(cfg, learning_rate=lr, device=resolve_device())
+    trainer = ContrastiveTrainer(cfg, _train_mesh(settings), learning_rate=lr)
     params, opt_state = trainer.init_state(seed=0)
     batcher = PairBatcher(
         texts,
@@ -484,7 +495,7 @@ def cmd_train(args) -> int:
         params, opt_state, metrics = trainer.train_step(params, opt_state, batch)
         _print_step(step, args.steps, metrics)
     out = Path(args.out or Path(settings.workspace_root) / "encoder")
-    save_params(encoder_state_to_jax(params, cfg), cfg, out)
+    save_params(encoder_state_to_jax(trainer.gather(params), cfg), cfg, out)
     print(f"saved encoder checkpoint to {out}")
     print(
         "use it with: [embedding] provider='tpu-encoder' and "
@@ -545,7 +556,6 @@ def cmd_train_rerank(args) -> int:
 def cmd_train_lm(args) -> int:
     """Next-token-train the tpu-lm answer decoder on ingested chunks."""
     configure_logging()
-    from .device import resolve_device
     from .models.decoder import DecoderConfig, decoder_state_to_jax
     from .models.tokenizer import ByteTokenizer
     from .models.train_lm import (
@@ -566,7 +576,7 @@ def cmd_train_lm(args) -> int:
     cfg = DecoderConfig.preset(
         args.preset, vocab_size=tokenizer.vocab_size, max_len=max(args.seq_len, 1024)
     )
-    trainer = LMTrainer(cfg, learning_rate=args.lr, device=resolve_device())
+    trainer = LMTrainer(cfg, _train_mesh(settings), learning_rate=args.lr)
     params, opt_state = trainer.init_state(seed=0)
     # QA-grammar examples derived from the corpus: the fraction of training
     # that makes chat decoding produce answers instead of code continuation
@@ -582,7 +592,7 @@ def cmd_train_lm(args) -> int:
         params, opt_state, metrics = trainer.train_step(params, opt_state, batch)
         _print_step(step, args.steps, metrics)
     out = Path(args.out or Path(settings.workspace_root) / "lm")
-    save_lm_params(decoder_state_to_jax(params), cfg, out)
+    save_lm_params(decoder_state_to_jax(trainer.gather(params)), cfg, out)
     print(f"saved LM checkpoint to {out}")
     print(f"use it with: [rag] provider='tpu-lm', weights_path='{out}'")
     return 0

@@ -31,6 +31,10 @@ the same step runs eagerly. Sampled decoding (temperature > 0) runs the
 step eagerly on every device: its generator is not registered with a
 graph.
 
+``TPDecoder`` is the same model with its weights split over model shards
+(the LM trainer's tensor parallelism): its forward, and ``generate_tokens``
+from it, run eagerly over the shards.
+
 Weights come from the JAX package's files (``train_lm.load_lm_params``, a
 local HF GPT-2 checkpoint) or from the seeded init, whose numpy draws are
 the JAX package's, so the parameters are bit-identical; ``decoder_state_
@@ -41,6 +45,7 @@ Pallas kernel.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import threading
@@ -56,7 +61,7 @@ from torch import nn
 from ..device import DeviceLike, f32_matmul, resolve_device
 from ..logger import get_logger
 from ..ops.build import KernelError
-from .encoder import DTYPE_NAMES
+from .encoder import DTYPE_NAMES, gather_last, partial_product, row_parallel
 
 log = get_logger("models.decoder")
 
@@ -298,13 +303,20 @@ class _Block(nn.Module):
     def attend(self, x, q, k, v, keep):
         """Attention of q over (k, v) where ``keep`` (broadcast to the
         scores' (B, heads, Tq, Tk)) is true, then the block's tail."""
-        scores = (q @ k.transpose(-1, -2)).float() * self.scale
-        scores = torch.where(keep, scores, MASKED)
-        probs = torch.softmax(scores, dim=-1).to(self.dtype)
-        out = (probs @ v).transpose(1, 2).reshape(x.shape)
-        x = x + self.c_proj(out)
+        x = x + self.c_proj(_attention(q, k, v, keep, self.scale, self.dtype))
         h = self.ln_2(x.float()).to(self.dtype)
         return x + self.mlp_proj(F.gelu(self.c_fc(h), approximate="tanh"))
+
+
+def _attention(q, k, v, keep, scale: float, dtype) -> torch.Tensor:
+    """float32 scores of compute-dtype products, masked with -1e30, a
+    float32 softmax rounded to ``dtype``, its product with v -> (B, Tq,
+    heads * head_dim)."""
+    b, _, t, _ = q.shape
+    scores = (q @ k.transpose(-1, -2)).float() * scale
+    scores = torch.where(keep, scores, MASKED)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return (probs @ v).transpose(1, 2).reshape(b, t, -1)
 
 
 class CodeDecoder(nn.Module):
@@ -373,6 +385,102 @@ def build_decoder(params: Dict[str, Any], cfg: DecoderConfig,
     model = CodeDecoder(cfg)
     model.load_state_dict(decoder_state_from_jax(params))
     return model.to(dev).eval().requires_grad_(False)
+
+
+class TPDecoder:
+    """``CodeDecoder``'s function with its blocks split over model shards
+    (``train_lm.param_spec_lm``), run eagerly: the LM trainer's forward on
+    a mesh with a ``"model"`` axis, and ``generate_tokens`` from its
+    sharded state (``LMTrainer.decoder``).
+
+    ``weights`` holds each ``state_dict`` name in the module's dtype, and
+    ``wte_c`` / ``wpe_c`` (the embeddings' compute-dtype casts): a
+    replicated one as a tensor on ``devices[0]``, a split one as its
+    pieces, piece ``m`` on ``devices[m]``. Megatron's layout: ``c_attn``
+    and ``c_fc`` are column-parallel (``c_attn`` by heads, its q, k and v
+    columns of each shard's heads side by side), both ``c_proj`` are
+    row-parallel, their float32 partial products summed on ``devices[0]``
+    (``encoder.row_parallel``: the all-reduce), rounded and then given the
+    bias, the two roundings of the one-device ``_Dense``; the token
+    embedding's hidden slices are concatenated (the all-gather) and the
+    tied float32 head sums the partial products of ``wte``'s hidden slices.
+    The reference shards ``c_attn`` by contiguous output columns
+    (``P(None, "model")``); GSPMD computes the same function from either
+    layout, so the logits are the one-device forward's up to the order of
+    the float sums. Layernorms and the residual stream run on
+    ``devices[0]`` with the one-device roundings."""
+
+    def __init__(self, cfg: DecoderConfig, devices, weights: Dict[str, Any]):
+        self.cfg = cfg
+        self.devices = list(devices)
+        self.home = self.devices[0]
+        self.w = weights
+        self.heads = cfg.heads // len(self.devices)
+        self.head_dim = cfg.hidden // cfg.heads
+        self.scale = 1.0 / math.sqrt(self.head_dim)
+
+    def _ln(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), x.shape[-1:], self.w[name + ".weight"],
+                            self.w[name + ".bias"], LN_EPS)
+
+    def embed(self, ids: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        parts = [wte[ids.to(dev)] for wte, dev in zip(self.w["wte_c"], self.devices)]
+        return gather_last(parts, self.home) + self.w["wpe_c"][pos]
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        h = self._ln("ln_f", x).chunk(len(self.devices), dim=-1)
+        return row_parallel([f32_matmul(hs.to(dev), wte.t())
+                             for hs, wte, dev in zip(h, self.w["wte"], self.devices)],
+                            self.home)
+
+    def qkv(self, i: int, x: torch.Tensor):
+        """Block ``i``'s q, k, v of every shard's heads, each (B, heads /
+        shards, T, head_dim) on the shard's device."""
+        b, t, _ = x.shape
+        pre, w = f"blocks.{i}.", self.w
+        h = self._ln(pre + "ln_1", x).to(self.cfg.dtype)
+        out = []
+        for s, dev in enumerate(self.devices):
+            qkv = (h.to(dev) @ w[pre + "c_attn.kernel"][s]) + w[pre + "c_attn.bias"][s]
+            out.append(qkv.view(b, t, 3, self.heads, self.head_dim)
+                       .permute(2, 0, 3, 1, 4).unbind(0))
+        return out
+
+    def attend(self, i: int, x: torch.Tensor, qkv, keeps) -> torch.Tensor:
+        """Block ``i`` after its q/k/v: each shard's heads attend over its
+        (k, v) where its ``keeps`` entry is true, then the block's tail."""
+        pre, w, dt = f"blocks.{i}.", self.w, self.cfg.dtype
+        parts = [partial_product(_attention(q, k, v, keep, self.scale, dt),
+                                 w[pre + "c_proj.kernel"][s])
+                 for s, ((q, k, v), keep) in enumerate(zip(qkv, keeps))]
+        x = x + (row_parallel(parts, self.home).to(dt) + w[pre + "c_proj.bias"])
+        h = self._ln(pre + "ln_2", x).to(dt)
+        parts = [
+            partial_product(F.gelu((h.to(dev) @ w[pre + "c_fc.kernel"][s])
+                                   + w[pre + "c_fc.bias"][s], approximate="tanh"),
+                            w[pre + "mlp_proj.kernel"][s])
+            for s, dev in enumerate(self.devices)
+        ]
+        return x + (row_parallel(parts, self.home).to(dt) + w[pre + "mlp_proj.bias"])
+
+    def prefill(self, ids: torch.Tensor, mask: torch.Tensor):
+        """``CodeDecoder.prefill``: the last hidden states and, per layer,
+        each shard's (k, v) of its heads."""
+        t = ids.shape[1]
+        x = self.embed(ids, torch.arange(t, device=ids.device))
+        causal = torch.ones(t, t, dtype=torch.bool, device=ids.device).tril()
+        keep = (causal[None] & (mask[:, None, :] > 0))[:, None]
+        keeps = [keep.to(dev) for dev in self.devices]
+        kv = []
+        for i in range(self.cfg.layers):
+            qkv = self.qkv(i, x)
+            x = self.attend(i, x, qkv, keeps)
+            kv.append([(k, v) for _, k, v in qkv])
+        return x, kv
+
+    def __call__(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced float32 logits (B, T, vocab) on ``devices[0]``."""
+        return self.logits(self.prefill(ids, mask)[0])
 
 
 @torch.inference_mode()
@@ -455,6 +563,49 @@ def decode_step(model: CodeDecoder, st: _DecodeState, sample=_greedy) -> None:
     st.col.add_(1)
 
 
+def _generate_sharded(model: TPDecoder, ids, mask, max_new: int, sample) -> torch.Tensor:
+    """``generate_tokens`` over model shards, eagerly: the prefill and
+    decode steps of ``_prefill_into`` / ``decode_step``, each shard's KV
+    cache holding its own heads on its device (a ``_DecodeState`` of its
+    width, with its own slot mask and write index there); shard 0's state
+    keeps the tokens, positions and output."""
+    cfg, n = model.cfg, len(model.devices)
+    b, p_len = ids.shape
+    part = dataclasses.replace(cfg, heads=cfg.heads // n, hidden=cfg.hidden // n)
+    states = [_DecodeState(part, b, p_len, max_new, dev) for dev in model.devices]
+    x, kv = model.prefill(ids, mask)
+    for s, st in enumerate(states):
+        for li, layer in enumerate(kv):
+            st.k[li, :, :, :p_len] = layer[s][0]
+            st.v[li, :, :, :p_len] = layer[s][1]
+        st.reset(mask.to(st.k.device))
+    main = states[0]
+    rows = torch.arange(b, device=ids.device)
+    tok0 = sample(model.logits(x[rows, main.pos - 1]))
+    main.tok.copy_(tok0)
+    main.out[:, 0] = tok0
+    for _ in range(max_new - 1):
+        for st in states:
+            st.slot_mask.index_fill_(1, st.write, True)
+        x = model.embed(main.tok, main.pos)[:, None]
+        keeps = [st.slot_mask[:, None, None, :] for st in states]
+        for li in range(cfg.layers):
+            cached = []
+            for st, (q, k, v) in zip(states, model.qkv(li, x)):
+                st.k[li].index_copy_(2, st.write, k)
+                st.v[li].index_copy_(2, st.write, v)
+                cached.append((q, st.k[li], st.v[li]))
+            x = model.attend(li, x, cached, keeps)
+        nxt = sample(model.logits(x)[:, 0])
+        main.out.index_copy_(1, main.col, nxt[:, None])
+        main.tok.copy_(nxt)
+        main.pos.add_(1)
+        main.col.add_(1)
+        for st in states:
+            st.write.add_(1)
+    return main.out.clone()
+
+
 class _GraphedStep:
     """``decode_step`` captured once in a CUDA graph over its own static
     buffers (warm-up runs on a side stream first, a private memory pool).
@@ -514,20 +665,29 @@ def generate_tokens(
     and the CPU's path). Sampling draws from a ``torch.Generator`` seeded
     with ``seed`` on every call, eagerly. On the card any failure of the
     prefill, the capture or a replay is a ``KernelError``: there is no
-    retry on another path."""
-    dev = model.wte.device
+    retry on another path.
+
+    ``model`` may also be a ``TPDecoder`` (the LM trainer's sharded state,
+    ``LMTrainer.decoder``): its steps run eagerly over the model shards,
+    every row's tokens those of the one-device path up to the order of the
+    float sums; the CUDA graph stays the one-device serving path."""
+    sharded = isinstance(model, TPDecoder)
+    dev = model.home if sharded else model.wte.device
     ids = torch.as_tensor(ids, device=dev).long()
     mask = torch.as_tensor(mask, device=dev)
     b, p_len = ids.shape
     if graph is None:
-        graph = dev.type == "cuda" and greedy
-    if graph and (dev.type != "cuda" or not greedy):
-        raise ValueError("a graphed decode needs a CUDA model and greedy decoding")
+        graph = dev.type == "cuda" and greedy and not sharded
+    if graph and (dev.type != "cuda" or not greedy or sharded):
+        raise ValueError("a graphed decode needs a one-device CUDA model and "
+                         "greedy decoding")
     if greedy:
         sample = _greedy
     else:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         sample = _Sampler(temperature, gen)
+    if sharded:
+        return _generate_sharded(model, ids, mask, max_new, sample)
     with model.decode_lock:
         try:
             if graph:

@@ -17,6 +17,9 @@ computes, operation by operation:
   final layernorm output is pooled in float32 without rounding, post-LN's
   last block output is widened from the compute dtype.
 
+``tp_forward`` is the same forward with the weights split over model
+shards (the trainer's tensor parallelism, ``train.param_spec``).
+
 Weights come from the JAX package's checkpoints (``train.load_params`` /
 ``hf_loader``) through ``encoder_state_from_jax``. Products stay
 ``nn.Linear`` / ``torch.matmul``: the reference runs them in plain XLA, not
@@ -81,6 +84,29 @@ def _layer_norm(hidden: int) -> nn.LayerNorm:
     return nn.LayerNorm(hidden, eps=LN_EPS, dtype=torch.float32)
 
 
+def _query_scale(head_dim: int, dtype) -> float:
+    """flax: ``query / jnp.sqrt(depth).astype(dtype)``."""
+    return float(torch.tensor(math.sqrt(head_dim)).to(dtype).float())
+
+
+def _split_qkv(qkv: torch.Tensor, heads: int, head_dim: int):
+    """A fused (B, L, 3 * heads * head_dim) product -> q, k, v as
+    (B, heads, L, head_dim)."""
+    b, n, _ = qkv.shape
+    return qkv.view(b, n, 3, heads, head_dim).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def _attend(q, k, v, mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """Masked softmax attention in the compute dtype -> (B, L, heads *
+    head_dim)."""
+    b, _, n, _ = q.shape
+    logits = (q / scale) @ k.transpose(-1, -2)  # (B, H, L, L)
+    # one pass over the logits (masked_fill would clone them first)
+    logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+    weights = torch.softmax(logits, dim=-1)
+    return (weights @ v).transpose(1, 2).reshape(b, n, -1)
+
+
 class _Attention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` (q/k/v fused in one product)."""
 
@@ -90,23 +116,11 @@ class _Attention(nn.Module):
         self.head_dim = cfg.hidden // cfg.heads
         self.qkv = nn.Linear(cfg.hidden, 3 * cfg.hidden, dtype=cfg.dtype)
         self.out = nn.Linear(cfg.hidden, cfg.hidden, dtype=cfg.dtype)
-        # flax: query / jnp.sqrt(depth).astype(dtype)
-        self.scale = float(
-            torch.tensor(math.sqrt(self.head_dim)).to(cfg.dtype).float()
-        )
+        self.scale = _query_scale(self.head_dim, cfg.dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        b, n, _ = x.shape
-        q, k, v = (
-            self.qkv(x).view(b, n, 3, self.heads, self.head_dim)
-            .permute(2, 0, 3, 1, 4).unbind(0)
-        )
-        logits = (q / self.scale) @ k.transpose(-1, -2)  # (B, H, L, L)
-        # one pass over the logits (masked_fill would clone them first)
-        logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
-        weights = torch.softmax(logits, dim=-1)
-        out = (weights @ v).transpose(1, 2).reshape(b, n, -1)
-        return self.out(out)
+        q, k, v = _split_qkv(self.qkv(x), self.heads, self.head_dim)
+        return self.out(_attend(q, k, v, mask, self.scale))
 
 
 class _Block(nn.Module):
@@ -159,16 +173,126 @@ class CodeEncoder(nn.Module):
             x = x + self.type_emb[0]
         if self.emb_ln is not None:
             x = self.emb_ln(x.float()).to(dt)
-        m = mask.bool()
-        attn_mask = (m[:, :, None] & m[:, None, :])[:, None]  # (B, 1, L, L)
+        attn_mask = _attention_mask(mask)
         for block in self.blocks:
             x = block(x, attn_mask)
         x = self.ln_f(x.float()) if self.ln_f is not None else x.float()
-        # masked mean pooling in f32
-        mf = mask.to(torch.float32)[:, :, None]
-        pooled = (x * mf).sum(dim=1) / mf.sum(dim=1).clamp_min(1.0)
-        norm = torch.linalg.vector_norm(pooled, dim=1, keepdim=True)
-        return pooled / norm.clamp_min(1e-9)
+        return _pool(x, mask)
+
+
+def _attention_mask(mask: torch.Tensor) -> torch.Tensor:
+    m = mask.bool()
+    return (m[:, :, None] & m[:, None, :])[:, None]  # (B, 1, L, L)
+
+
+def _pool(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean pooling of float32 states, then L2 normalization."""
+    mf = mask.to(torch.float32)[:, :, None]
+    pooled = (x * mf).sum(dim=1) / mf.sum(dim=1).clamp_min(1.0)
+    norm = torch.linalg.vector_norm(pooled, dim=1, keepdim=True)
+    return pooled / norm.clamp_min(1e-9)
+
+
+# -- tensor parallelism ------------------------------------------------------------
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel shard's ``x @ w`` in float32: the compute-dtype
+    operands widened (exactly), so the products and their sum are those of
+    the compute-dtype GEMM's float32 accumulator, not yet rounded."""
+    return x.float() @ w.float()
+
+
+def row_parallel(parts: Sequence[torch.Tensor], home: torch.device) -> torch.Tensor:
+    """The model shards' float32 partial products summed on ``home`` (the
+    all-reduce): the one-device product's sum in another order, rounded
+    once by the caller as the one-device GEMM rounds its output."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part.to(home)
+    return total
+
+
+def gather_last(parts: Sequence[torch.Tensor], home: torch.device) -> torch.Tensor:
+    """The shards' slices of the last dim concatenated on ``home`` (the
+    all-gather); one slice is itself."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.to(home) for p in parts], dim=-1)
+
+
+def _ln(weights: Dict[str, Any], name: str, x: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x, x.shape[-1:], weights[name + ".weight"],
+                        weights[name + ".bias"], LN_EPS)
+
+
+def tp_forward(cfg: EncoderConfig, weights: Dict[str, Any],
+               devices: Sequence[torch.device], ids: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """``CodeEncoder``'s forward with its weights split over model shards
+    (``train.param_spec``): ``weights`` holds each ``state_dict`` name in
+    the module's dtype, a replicated one as a tensor on ``devices[0]`` and
+    a split one as its pieces, piece ``m`` on ``devices[m]``; ``ids`` and
+    ``mask`` live on ``devices[0]``.
+
+    Megatron's layout, as GSPMD lays out the reference's shardings: the
+    token embedding's hidden slices are looked up on their shards and
+    concatenated (the all-gather); in each block the column-parallel q/k/v
+    and ``mlp_in`` products run on every shard's device for its heads and
+    MLP columns, attention runs over the shard's heads, and the
+    row-parallel ``out`` and ``mlp_out`` partial products, in float32, are
+    summed on ``devices[0]`` with the bias and rounded once
+    (``row_parallel``: the all-reduce), as the one-device layer rounds its
+    output once. Layernorms, the residual stream and the pooling run on
+    ``devices[0]`` with flax's roundings, as in ``forward``. The result is
+    the one-device forward's up to the order of the float sums."""
+    home, dt = devices[0], cfg.dtype
+    heads, hd = cfg.heads // len(devices), cfg.hidden // cfg.heads
+    scale = _query_scale(hd, dt)
+    tok = [F.embedding(ids.to(dev), piece)
+           for piece, dev in zip(weights["tok_emb.weight"], devices)]
+    x = gather_last(tok, home) + weights["pos_emb"][: ids.shape[1]]
+    if cfg.type_vocab:
+        x = x + weights["type_emb"][0]
+    if cfg.emb_ln:
+        x = _ln(weights, "emb_ln", x.float()).to(dt)
+    attn_mask = _attention_mask(mask)
+    masks = [attn_mask.to(dev) for dev in devices]
+
+    def attention(pre: str, h: torch.Tensor) -> torch.Tensor:
+        parts = []
+        for s, dev in enumerate(devices):
+            qkv = F.linear(h.to(dev), weights[pre + "attn.qkv.weight"][s],
+                           weights[pre + "attn.qkv.bias"][s])
+            q, k, v = _split_qkv(qkv, heads, hd)
+            parts.append(partial_product(_attend(q, k, v, masks[s], scale),
+                                         weights[pre + "attn.out.weight"][s].t()))
+        return linear_out(parts, weights[pre + "attn.out.bias"])
+
+    def mlp(pre: str, h: torch.Tensor, approximate: str) -> torch.Tensor:
+        parts = [
+            partial_product(
+                F.gelu(F.linear(h.to(dev), weights[pre + "mlp_in.weight"][s],
+                                weights[pre + "mlp_in.bias"][s]), approximate=approximate),
+                weights[pre + "mlp_out.weight"][s].t())
+            for s, dev in enumerate(devices)
+        ]
+        return linear_out(parts, weights[pre + "mlp_out.bias"])
+
+    def linear_out(parts, bias: torch.Tensor) -> torch.Tensor:
+        # nn.Linear's addmm: the bias joins the float32 sum, one rounding
+        return (row_parallel(parts, home) + bias).to(dt)
+
+    for i in range(cfg.layers):
+        pre = f"blocks.{i}."
+        if cfg.post_ln:
+            x = _ln(weights, pre + "ln1", (x + attention(pre, x)).float()).to(dt)
+            x = _ln(weights, pre + "ln2", (x + mlp(pre, x, "none")).float()).to(dt)
+        else:
+            x = x + attention(pre, _ln(weights, pre + "ln1", x.float()).to(dt))
+            x = x + mlp(pre, _ln(weights, pre + "ln2", x.float()).to(dt), "tanh")
+    x = _ln(weights, "ln_f", x.float()) if not cfg.post_ln else x.float()
+    return _pool(x, mask)
 
 
 def encoder_state_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

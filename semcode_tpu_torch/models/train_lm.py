@@ -4,9 +4,12 @@ Counterpart of ``semcode_tpu/models/train_lm.py``: ``LMTrainer`` (masked
 next-token cross entropy under ``adamw(3e-4, weight_decay=0.01)``),
 ``build_qa_texts`` (the QA-grammar examples, equal strings) and
 ``WindowBatcher`` (random fixed-length windows; the same seed gives the
-same batches, bit for bit, the anchored QA mix included). One device: the
-reference's tensor-parallel rules (``param_spec_lm``) have no one-card
-counterpart and are left out. As in ``train.ContrastiveTrainer``, the
+same batches, bit for bit, the anchored QA mix included). As the
+reference, ``LMTrainer`` takes a ``(data, model)`` mesh: the batch splits
+over ``"data"``, and ``param_spec_lm`` splits ``c_attn`` / ``c_fc`` (output
+dim), both ``c_proj`` (input dim) and ``wte`` (hidden) over ``"model"``,
+run by ``decoder.TPDecoder``; ``LMTrainer.decoder`` hands the sharded state
+to ``decoder.generate_tokens``. As in ``train.ContrastiveTrainer``, the
 weights are float32 masters and the forward runs ``CodeDecoder`` on their
 casts (``functional_call``); the embeddings' compute-dtype buffers
 ``wte_c`` / ``wpe_c`` are fed casts of the masters, so ``wte`` gets its
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..device import DeviceLike
+from ..parallel.mesh import Mesh
 from .decoder import (
     DTYPES,
     QA_ANSWER,
@@ -49,14 +53,19 @@ from .decoder import (
     QA_QUESTION,
     CodeDecoder,
     DecoderConfig,
+    TPDecoder,
+    build_decoder,
     decoder_state_from_jax,
+    decoder_state_to_jax,
     init_params,
 )
 from .encoder import DTYPE_NAMES
 from .train import (
     MasterTrainer,
     Schedule,
-    compute_params,
+    Split,
+    sum_parts,
+    param_spec,
     params_from_bytes,
     params_to_bytes,
 )
@@ -65,43 +74,108 @@ PARAMS_FILE = "semcode_lm.msgpack"
 CONFIG_FILE = "semcode_lm.json"
 
 
+# CodeDecoder's state_dict names (``_Dense`` kernels are (in, out))
+DECODER_SPLITS = {
+    "c_attn.kernel": Split(1, 3),  # column-parallel, by heads
+    "c_attn.bias": Split(0, 3),
+    "c_proj.kernel": Split(0),  # row-parallel: the input dim
+    "c_fc.kernel": Split(1),  # column-parallel
+    "c_fc.bias": Split(0),
+    "mlp_proj.kernel": Split(0),  # row-parallel
+    "wte": Split(1),  # (vocab, hidden): the hidden dim; the head sums
+}
+
+
+def param_spec_lm(name: str) -> Optional[Split]:
+    """Tensor-parallel rule of a decoder ``state_dict`` name: the
+    counterpart of the reference's ``param_spec_lm`` (``c_attn`` / ``c_fc``
+    on the output dim, both ``c_proj`` on the input dim, ``wte`` on hidden;
+    ``wpe``, layernorms and the row-parallel biases replicated). The
+    reference splits the fused ``c_attn`` into contiguous output columns;
+    here it is split by heads within each of q, k and v (Megatron's
+    layout), so every shard's attention reads its own heads. GSPMD computes
+    the same function from either layout."""
+    return param_spec(name, DECODER_SPLITS)
+
+
 class LMTrainer(MasterTrainer):
     """Masked next-token steps of the decoder; ``init_state`` starts from
-    ``decoder.init_params``. ``decoder.decoder_state_to_jax(params)`` is
-    the JAX tree of the masters."""
+    ``decoder.init_params``. ``decoder.decoder_state_to_jax(trainer.gather(
+    params))`` is the JAX tree of the masters.
+
+    On a mesh each data replica computes its rows' logits (through
+    ``decoder.TPDecoder`` over its model shards when there are several) and
+    the sums of its masked cross entropy, hits and valid targets; the sums
+    meet on ``mesh.home``, so the loss is the whole batch's masked mean, as
+    in the reference."""
 
     def __init__(
         self,
         cfg: DecoderConfig,
+        mesh: Optional[Mesh] = None,
         *,
         learning_rate: Union[float, Schedule] = 3e-4,
         weight_decay: float = 0.01,
         device: DeviceLike = None,
     ):
-        super().__init__(CodeDecoder(cfg), learning_rate, weight_decay, device)
+        super().__init__(CodeDecoder(cfg), learning_rate, weight_decay, device, mesh,
+                         DECODER_SPLITS)
         self.cfg = cfg
 
     def init_state(self, seed: int = 0):
         return self.state_from(decoder_state_from_jax(init_params(self.cfg, seed=seed)))
 
-    def forward_logits(self, params, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced float32 logits (B, T, vocab) of the masters."""
-        cast = compute_params(self.model, params)
-        cast["wte_c"] = params["wte"].to(self.cfg.dtype)
-        cast["wpe_c"] = params["wpe"].to(self.cfg.dtype)
-        return functional_call(self.model, cast, (ids, mask))
+    def replica_weights(self, params, replica: int, cache: dict) -> Dict[str, Any]:
+        """``MasterTrainer.replica_weights`` and the embeddings' compute-dtype
+        casts ``wte_c`` / ``wpe_c``, so ``wte`` gets its gradient from both
+        the embedding and the tied head."""
+        weights = super().replica_weights(params, replica, cache)
+        for name in ("wte", "wpe"):
+            weights[name + "_c"] = self.cast(params[name], replica, self.cfg.dtype,
+                                             cache, name + "_c")
+        return weights
 
-    def loss_fn(self, params, batch: Mapping[str, torch.Tensor]):
-        ids, mask = batch["ids"], batch["mask"]
-        logits = self.forward_logits(params, ids, mask)[:, :-1]
-        targets = ids[:, 1:]
-        valid = mask[:, 1:].float()
-        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
-                             reduction="none").view(targets.shape)
-        denom = valid.sum().clamp_min(1.0)
-        loss = (ce * valid).sum() / denom
-        acc = ((logits.argmax(dim=-1) == targets).float() * valid).sum() / denom
+    def forward_logits(self, weights: Dict[str, Any], replica: int, ids: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced float32 logits (B, T, vocab) of one replica's rows
+        from ``replica_weights``."""
+        if self.mesh.model_shards == 1:
+            return functional_call(self.model, weights, (ids, mask))
+        return TPDecoder(self.cfg, self.replica_devices(replica), weights)(ids, mask)
+
+    def loss_fn(self, params, batches: Sequence[Mapping[str, torch.Tensor]]):
+        cache: dict = {}
+        ce_sums, hits, counts = [], [], []
+        for d, batch in enumerate(batches):
+            ids, mask = batch["ids"], batch["mask"]
+            weights = self.replica_weights(params, d, cache)
+            logits = self.forward_logits(weights, d, ids, mask)[:, :-1]
+            targets = ids[:, 1:]
+            valid = mask[:, 1:].float()
+            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
+                                 reduction="none").view(targets.shape)
+            ce_sums.append((ce * valid).sum().to(self.device))
+            hits.append(((logits.argmax(dim=-1) == targets).float() * valid).sum()
+                        .to(self.device))
+            counts.append(valid.sum().to(self.device))
+        denom = sum_parts(counts).clamp_min(1.0)
+        loss = sum_parts(ce_sums) / denom
+        acc = sum_parts(hits) / denom
         return loss, {"loss": loss.detach(), "accuracy": acc}
+
+    @torch.no_grad()
+    def decoder(self, params) -> Union[TPDecoder, CodeDecoder]:
+        """The masters in the compute dtype, for ``decoder.generate_tokens``:
+        on several model shards, data replica 0's shards (``TPDecoder``:
+        the prefill and the KV-cached decode run over them, eagerly); on
+        one, the one-device model of the gathered masters (``build_decoder``,
+        whose decode step is graphed on the card)."""
+        if self.mesh.model_shards == 1:
+            return build_decoder(decoder_state_to_jax(self.gather(params)), self.cfg,
+                                 self.device)
+        weights = {k: [p.detach() for p in v] if isinstance(v, list) else v.detach()
+                   for k, v in self.replica_weights(params, 0, {}).items()}
+        return TPDecoder(self.cfg, self.replica_devices(0), weights)
 
 
 def build_qa_texts(chunks, *, ctx_chars: Optional[int] = None) -> list:

@@ -19,6 +19,11 @@ A device may appear in a mesh more than once (``make_mesh(..., devices=
 [cuda0] * 4)``): the counterpart of XLA's forced host device count, which
 runs several shards on one card or on the CPU.
 
+The trainers (``models/train.py``, ``train_lm.py``) read a ``("data",
+"model")`` mesh as a grid: ``device_at(d, m)`` holds data replica ``d``'s
+model shard ``m``; the batch splits over ``"data"`` and the weights over
+``"model"``.
+
 Each process keeps an index's tensors in their global row layout on its
 first local device; a shard reads its own row range of them. On a mesh of
 several cards a shard's range is copied to its card once per tensor
@@ -102,6 +107,32 @@ class Mesh:
         if got is None:
             got = copies[(lo, hi, str(device))] = t[lo:hi].to(device)
         return got
+
+    # -- a training mesh: ("data", "model") ---------------------------------------
+
+    @property
+    def replicas(self) -> int:
+        """Data replicas of a training mesh: the size of its ``"data"`` axis
+        (1 without one)."""
+        return self.shape.get(DATA_AXIS, 1)
+
+    @property
+    def model_shards(self) -> int:
+        """Model shards of a training mesh: the size of its ``"model"`` axis
+        (1 without one)."""
+        return self.shape.get(MODEL_AXIS, 1)
+
+    def device_at(self, replica: int, shard: int) -> torch.device:
+        """The device of data replica ``replica``'s model shard ``shard``:
+        ``devices[replica, shard]`` on a ``("data", "model")`` mesh. A
+        training mesh lives in one process and has no other axis longer
+        than one (the trainers split the batch over ``"data"`` alone)."""
+        if self.process_count > 1 or any(
+                size > 1 for ax, size in self.shape.items()
+                if ax not in (DATA_AXIS, MODEL_AXIS)):
+            raise ValueError(f"{self} is not a one-process (data, model) mesh")
+        where = {DATA_AXIS: replica, MODEL_AXIS: shard}
+        return self.devices[tuple(where.get(ax, 0) for ax in self.axis_names)]
 
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, process {self.process_index} of "

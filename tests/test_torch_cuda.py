@@ -13,7 +13,8 @@ kernel's launch geometry is also held against what its entry point accepts.
 The causal decoder's CUDA-graph decode step is held against its eager step
 (bit for bit) and its float32 tokens against the CPU path's. One float32
 step of each trainer (the encoder's, the LM's, the term table's) is held
-against its CPU path.
+against its CPU path. ``entry.dryrun_multichip(4)`` runs its sharded
+training and index steps on the card.
 """
 
 import numpy as np
@@ -688,3 +689,13 @@ def test_term_table_training_card_matches_cpu(cuda):
     a, b = tables["cuda"], tables["cpu"]
     cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
     assert cos.min() >= 0.9999
+
+
+def test_dryrun_multichip_on_the_card(cuda):
+    """``entry.dryrun_multichip(4)`` on the visible cards (one card repeated
+    4 times on a one-card host): every sharded step, its checks and the
+    reference's summary line."""
+    from semcode_tpu_torch.entry import dryrun_multichip
+
+    line = dryrun_multichip(4)
+    assert line.startswith("dryrun_multichip ok: 4 devices (train mesh 2x2 dp x tp")
