@@ -208,15 +208,26 @@ Phases (any failed check exits non-zero before the final line):
    --dcn-worker``, each with a timeout), each holding 2 shards over Gloo
    (NCCL on a host of two cards): both processes' answers equal 9a's store;
    9b. phase 4's 1M x 384 int8 flat index with its f32 mirror over 4 shards:
-   recall@10 (>= 0.99), one top2_scan launch per shard a search, batch-512
-   and batch-8 search times, launches and device-busy share beside phase
-   4's, and shard 1's kernel call (rows from 250,016, off the 128-row grid)
-   against its plain version bit for bit; 9c. phase 4b's IVF (nlist 1024,
-   256 clusters a shard, nprobe 32) over 4 shards: recall@10 (>= 0.95), one
-   ivf_scan launch per shard a search, times beside phase 4b's, every
-   shard's kernel call with the probes it does not own set to -1 against
-   its plain version bit for bit, and the kernel route against the
-   gather-scan route.
+   the per-shard layout (every tensor of the index is one shard's, on
+   cuda:0, of shard_rows rows, and no tensor of the global row count
+   remains) and the build's ``torch.cuda.memory_allocated()`` growth, which
+   may exceed the index's own tensors by no more than 64 MiB; recall@10
+   (>= 0.99), one top2_scan launch per shard a search, batch-512 and
+   batch-8 search times, launches and device-busy share beside phase 4's,
+   and shard 1's kernel call (rows from 250,016, off the 128-row grid, in
+   tensors of their own) against its plain version bit for bit; 9c. phase
+   4b's IVF (nlist 1024, 256 clusters a shard, nprobe 32) over 4 shards:
+   the same layout (nlist_s clusters a shard) and memory checks, recall@10
+   (>= 0.95), one ivf_scan launch per shard a search, times beside phase
+   4b's, every shard's kernel call on its own clusters with the probes it
+   does not own set to -1 against its plain version bit for bit, and the
+   kernel route against the gather-scan route; 9e. the memory split across
+   processes: two processes over Gloo on the card (``chip_smoke.py
+   --split-worker``, each with a timeout), 2 of the 4 shards each, build
+   9b's flat index and 9c's IVF from the same seed; each holds only its own
+   shards' tensors (the layout and memory checks), at most 0.55 of the
+   one-process index's bytes, and answers the 512 queries with 9b's and
+   9c's ids; the bytes, the builds' seconds and the phase's are printed.
 10. DP x TP training on the one card (run after phase 8; a ``(2, 2)``
    ``("data", "model")`` mesh of ``[cuda:0] * 4``): 10a. 8a's contrastive
    step (mini, 32 pairs x 128, the same PairBatcher batches) on the mesh:
@@ -1217,7 +1228,7 @@ def api_kernel_shape(rows: int = API_ROWS, nq: int = API_CONCURRENCY // 2):
     index = FlatIndex(DIM, metric="ip", dtype="int8", scan_impl="pallas",
                       device="cuda")
     index.add(x.cpu().numpy())
-    vecs, _, valid, scales, _, _ = index._ensure_device()
+    vecs, _, valid, scales, _, _ = shard0(index._ensure_device())
     add = torch.where(valid, 0.0, NEG).float()
     emb = HashEmbeddings(DIM, device="cuda")
     q = emb.embed_queries_device([f"{q} served {i}" for i, (q, _) in
@@ -2580,7 +2591,7 @@ def scale_phase():
 
     # the kernel at the main path's shape, with the operands the scan builds,
     # at the bulk batch and at the interactive one
-    vecs, _, valid, scales, _, _ = index._ensure_device()
+    vecs, _, valid, scales, _, _ = shard0(index._ensure_device())
     add = torch.where(valid, 0.0, NEG).float()
     qq_all, qsc_all = quantize_queries_device(q)
     calls = top2_scan.launches
@@ -2614,7 +2625,7 @@ def float_scale_leg(storage, x_host, q, truth):
     index = FlatIndex(DIM, metric="ip", dtype=storage, scan_impl="pallas",
                       device="cuda")
     index.add(x_host)
-    vecs, _, valid, _, _, _ = index._ensure_device()
+    vecs, _, valid, _, _, _ = shard0(index._ensure_device())
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     top2_scan.launches = 0
@@ -2939,7 +2950,7 @@ def ivf_scale_phase():
             index.add(x[lo:lo + 131072])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    dev = index._ensure_device()
+    dev = shard0(index._ensure_device())
     log(f"[ivf-scale] {N_ROWS} x {DIM} int8 IVF (nlist {NLIST}, "
         f"{KMEANS_ITERS} k-means iterations) + f32 mirror built in "
         f"{build_s:.1f} s: cmax {index.cmax}, rescore "
@@ -3135,7 +3146,7 @@ def ivf_float_leg(storage, x, q, truth):
     with index.bulk(expected_rows=N_ROWS):
         for lo in range(0, N_ROWS, 131072):
             index.add(x[lo:lo + 131072])
-    dev = index._ensure_device()
+    dev = shard0(index._ensure_device())
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     ivf_scan.launches = 0
@@ -3218,6 +3229,93 @@ def ivf_float_leg(storage, x, q, truth):
 
 SHARDS = 4  # shards of phase 9's mesh, all on the one card
 DCN_TIMEOUT_S = 300  # each 9d worker: start, self-ingest, 102 questions
+SPLIT_TIMEOUT_S = 420  # each 9e worker: start, 1M flat and IVF builds, searches
+# what the JAX package replicates on every device too: IVF's centroids and
+# its pending tail; every other tensor of an index is split by shard
+REPLICATED = ("centroids", "_pend")
+# memory_allocated() growth an index build may show beyond its own tensors:
+# allocator rounding and a library workspace, far below one global copy
+# (phase 9b's int8 rows alone are 0.38 GB)
+MEM_SLACK = 64 << 20
+
+
+def shard0(state):
+    """A one-shard index's device state as plain tensors: shard 0 of each
+    ShardedRows (which then holds every row); replicated tensors as they
+    are."""
+    from semcode_tpu_torch.parallel.mesh import ShardedRows
+
+    if isinstance(state, ShardedRows):
+        if list(state.parts) != [0] or state.shard_rows != state.rows:
+            fail(f"{state} is not a one-shard container")
+        return state.shard(0)
+    if isinstance(state, tuple):
+        parts = [shard0(t) for t in state]
+        return type(state)(*parts) if hasattr(state, "_fields") else tuple(parts)
+    return state
+
+
+def index_layout(index, label: str) -> dict:
+    """The per-shard layout of 9b, 9c and 9e: every tensor ``index`` holds
+    is one shard's tensor of a ShardedRows, for exactly this process's
+    shards, on that shard's mesh device, with ``shard_rows`` rows
+    (``nlist_s`` clusters for the IVF layout); the only other tensors are
+    the replicated ones. Returns the bytes held, each storage once (the IVF
+    snapshot shares the mirror's tensors)."""
+    import torch
+
+    from semcode_tpu_torch.parallel.mesh import ShardedRows, local_shards
+
+    shards = local_shards(index.mesh)
+    held = {}
+    rows = {}
+
+    def walk(obj, path):
+        if isinstance(obj, ShardedRows):
+            if list(obj.parts) != [r for r, _ in shards]:
+                fail(f"{label}: {path} holds shards {sorted(obj.parts)}, this "
+                     f"process owns {[r for r, _ in shards]}")
+            for r, dev in shards:
+                t = obj.shard(r)
+                if t.device != dev or t.shape[0] != obj.shard_rows:
+                    fail(f"{label}: {path} shard {r} is {tuple(t.shape)} on "
+                         f"{t.device}, not {obj.shard_rows} rows on {dev}")
+                st = t.untyped_storage()
+                held.setdefault(st.data_ptr(), ("sharded", st.nbytes()))
+            rows[path.split(".")[-1]] = obj.shard_rows
+        elif isinstance(obj, torch.Tensor):
+            if not any(name in path.split(".") for name in REPLICATED):
+                fail(f"{label}: {path} {tuple(obj.shape)} is a tensor outside "
+                     "the shards")
+            st = obj.untyped_storage()
+            held.setdefault(st.data_ptr(), ("replicated", st.nbytes()))
+        elif isinstance(obj, (tuple, list)):
+            names = getattr(obj, "_fields", None)
+            for i, v in enumerate(obj):
+                walk(v, f"{path}.{names[i] if names else i}")
+
+    for name, value in vars(index).items():
+        walk(value, name)
+    sharded = sum(b for kind, b in held.values() if kind == "sharded")
+    replicated = sum(b for kind, b in held.values() if kind == "replicated")
+    if not sharded:
+        fail(f"{label}: the index holds no per-shard tensors")
+    return {"bytes": sharded + replicated, "sharded_bytes": sharded,
+            "replicated_bytes": replicated, "shard_rows": rows,
+            "shards": [r for r, _ in shards]}
+
+
+def memory_check(grown: int, layout: dict, label: str) -> None:
+    """The build's memory_allocated() growth holds the index's own tensors
+    and nothing more: no global copy beside the shards."""
+    log(f"[shard] {label}: memory_allocated() grew {grown / 2**30:.3f} GiB in "
+        f"the build; the index holds {layout['bytes'] / 2**30:.3f} GiB "
+        f"({layout['sharded_bytes'] / 2**30:.3f} in shards {layout['shards']}, "
+        f"{layout['replicated_bytes'] / 2**20:.1f} MiB replicated); "
+        f"shard rows {layout['shard_rows']}")
+    if grown > layout["bytes"] + MEM_SLACK:
+        fail(f"{label}: the build grew memory by {grown} B, more than the "
+             f"index's {layout['bytes']} B of tensors")
 
 
 def shard_mesh(n: int = SHARDS, device: str = "cuda:0"):
@@ -3360,15 +3458,20 @@ def sharded_scale_phase(one_shard: dict):
     truth = oracle_topk(x, q, 10)
     x_host = x.cpu().numpy()
     del x
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     index = FlatIndex(DIM, metric="ip", dtype="int8", scan_impl="pallas",
                       mesh=shard_mesh())
     index.add(x_host)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    grown = torch.cuda.memory_allocated() - base_mem
     if index.n_shards != SHARDS:
         fail(f"the phase 9b index is on {index.n_shards} shards")
     shard_rows = index.capacity // SHARDS
+    layout = index_layout(index, "9b")
+    memory_check(grown, layout, "9b")
     top2_scan.launches = 0
     _, ids = index.search_device(q, 10)
     launches = top2_scan.launches
@@ -3394,13 +3497,14 @@ def sharded_scale_phase(one_shard: dict):
     if rec < 0.99:
         fail(f"4-shard recall@10 {rec:.4f} < 0.99")
 
-    # shard 1's rows start at row 250,016, off the 128-row grid: its
-    # kernel call at the main path's shape against the plain version
+    # shard 1's rows start at row 250,016, off the 128-row grid, and sit in
+    # tensors of their own: its kernel call at the main path's shape
+    # against the plain version
     vecs, _, valid, scales, _, _ = index._ensure_device()
     lo, hi = shard_rows, 2 * shard_rows
-    add = torch.where(valid[lo:hi], 0.0, NEG).float()
+    add = torch.where(valid.shard(1), 0.0, NEG).float()
     qq, qsc = quantize_queries_device(q)
-    args = (vecs[lo:hi], scales[lo:hi].contiguous(), add, qq, qsc)
+    args = (vecs.shard(1), scales.shard(1), add, qq, qsc)
     bm, br = top2_scan(*args)
     rm, rr = top2_scan_reference(*args)
     if not torch.equal(bm, rm) or not torch.equal(br, rr):
@@ -3412,6 +3516,7 @@ def sharded_scale_phase(one_shard: dict):
     return {"launches": launches, "recall": rec, "ms_b512": ms512,
             "p50_b8_ms": p50, "qps": qps, "build_s": build_s,
             "shards": index_shards, "shard_rows": shard_rows, "breakdown": breakdown, "busy": busy,
+            "mem_grown": grown, "bytes": layout["bytes"], "ids": ids.cpu().tolist(),
             "one_shard": {"ms_b512": 1e3 * BATCH / one_shard["pallas"]["qps"],
                           "p50_b8_ms": one_shard["pallas"]["p50_b8_ms"],
                           "launches": base["launches"], "busy": busy1}}
@@ -3439,6 +3544,8 @@ def sharded_ivf_phase(one_shard: dict):
     x = mixture(gen, N_ROWS, DIM)
     q = queries_near(gen, x, BATCH)
     truth = oracle_topk(x, q, 10)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     index = IVFIndex(DIM, nlist=NLIST, nprobe=32, metric="ip", dtype="int8",
                      kmeans_iters=KMEANS_ITERS, mesh=shard_mesh())
@@ -3447,11 +3554,16 @@ def sharded_ivf_phase(one_shard: dict):
             index.add(x[lo:lo + 131072])
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    grown = torch.cuda.memory_allocated() - base_mem
     del x
     index_shards = index.n_shards
     nlist_s = index.nlist // SHARDS
     if index_shards != SHARDS or index.nlist != NLIST or nlist_s != 256:
         fail(f"the 4-shard IVF holds nlist {index.nlist} on {index_shards} shards")
+    layout = index_layout(index, "9c")
+    if layout["shard_rows"]["data"] != nlist_s:
+        fail(f"9c: a shard holds {layout['shard_rows']['data']} clusters, not {nlist_s}")
+    memory_check(grown, layout, "9c")
 
     def search(qb):
         return index.search_device(qb, 10, nprobe=32, mode="ivf")
@@ -3489,17 +3601,19 @@ def sharded_ivf_phase(one_shard: dict):
     if not untied_ids_equal(s_g, ids_g, ids, 1e-5):
         fail("4-shard IVF: the kernel route and the gather-scan route disagree")
 
-    # each shard's call at the main path's shape: the probes _ivf_search
-    # picks, those another shard owns out of range (-1)
+    # each shard's call at the main path's shape, on the shard's own
+    # tensors: the probes _ivf_search picks, those another shard owns out
+    # of range (-1)
     dev = index._ensure_device()
     _, probes = stable_topk(f32_matmul(q, dev.centroids.T), 32)
     owned_total = 0
     for rank in range(SHARDS):
-        lo, hi = rank * nlist_s, (rank + 1) * nlist_s
+        lo = rank * nlist_s
         owned = (probes // nlist_s) == rank
         owned_total += int(owned.sum())
         local = torch.where(owned, probes - lo, -1)
-        args = (dev.data[lo:hi], dev.ids[lo:hi], q, local, 64, dev.scales[lo:hi])
+        args = (dev.data.shard(rank), dev.ids.shard(rank), q, local, 64,
+                dev.scales.shard(rank))
         ks, ki = ivf_scan(*args)
         rs, ri = ivf_scan_reference(*args)
         if not torch.equal(ks, rs) or not torch.equal(ki, ri):
@@ -3513,6 +3627,7 @@ def sharded_ivf_phase(one_shard: dict):
     return {"launches": launches, "recall": rec, "ms_b512": 1e3 * BATCH / qps,
             "p50_b8_ms": p50, "qps": qps, "build_s": build_s,
             "shards": index_shards, "breakdown": breakdown, "busy": busy,
+            "mem_grown": grown, "bytes": layout["bytes"], "ids": ids.cpu().tolist(),
             "one_shard": {"ms_b512": [1e3 * BATCH / v for v in qps1],
                           "p50_b8_ms": p501, "launches": base["launches"],
                           "busy": base["device_ms"] / base["wall_ms"]}}
@@ -3582,33 +3697,28 @@ def dcn_worker(rank: int, out_path: str, backend: str) -> int:
     return 0
 
 
-def dcn_phase(workdir: Path, want: dict):
-    """9d: the ("dcn", "data") path across two processes on the card, each
-    holding 2 shards: Gloo (NCCL refuses two ranks on one device), the
-    (Q, k) candidates staged through the host; one process per card over
-    NCCL on a host with two cards. Both processes' answers must equal 9a's
-    single-process 4-shard store's; a worker that fails or outlives its
-    timeout fails the run."""
-    import torch
-
-    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+def run_pair(workdir: Path, label: str, flag: str, extra, timeout: float):
+    """Run ``chip_smoke.py FLAG RANK OUT *extra`` as two processes until both
+    end; a worker that fails or outlives ``timeout`` fails the run (once
+    more on a fresh port if the coordinator port was taken). Returns both
+    workers' JSON (rank 0 writes OUT, rank 1 OUT.1) and the seconds."""
     for attempt in range(2):
-        out_path = workdir / f"dcn{attempt}.json"
+        out_path = workdir / f"{label}{attempt}.json"
         t0 = time.perf_counter()
-        outs = [open(workdir / f"dcn{attempt}.{rank}.log", "w+") for rank in range(2)]
+        outs = [open(workdir / f"{label}{attempt}.{rank}.log", "w+") for rank in range(2)]
         procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--dcn-worker", str(rank),
-             str(out_path), backend],
+            [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(rank),
+             str(out_path), *extra],
             stdout=outs[rank], stderr=subprocess.STDOUT, text=True)
             for rank in range(2)]
         try:
             # until both end, or one fails (its peer would wait for it)
-            deadline = time.monotonic() + DCN_TIMEOUT_S
+            deadline = time.monotonic() + timeout
             while any(p.poll() is None for p in procs):
                 if any(p.poll() not in (None, 0) for p in procs):
                     break
                 if time.monotonic() > deadline:
-                    fail(f"a 9d worker outlived its {DCN_TIMEOUT_S} s timeout")
+                    fail(f"a {label} worker outlived its {timeout} s timeout")
                 time.sleep(0.2)
         finally:
             for p in procs:
@@ -3626,14 +3736,32 @@ def dcn_phase(workdir: Path, want: dict):
         # group's bind: try once more on a fresh port
         if attempt == 0 and any("address already in use" in text.lower()
                                 for text in logs):
-            log("[shard] 9d: the coordinator port was taken; retrying once")
+            log(f"[shard] {label}: the coordinator port was taken; retrying once")
             continue
-        fail("9d failed:\n" + "\n".join(
+        fail(f"{label} failed:\n" + "\n".join(
             f"worker {rank} (rc {p.returncode}):\n{text[-3000:]}"
             for rank, (p, text) in enumerate(zip(procs, logs)) if p.returncode != 0))
     wall_s = time.perf_counter() - t0
+    for rank, text in enumerate(logs):
+        for line in text.splitlines():
+            if line.startswith(f"[{label}]"):
+                log(f"{line} (worker {rank})")
     got = [json.loads(out_path.read_text()),
            json.loads(Path(str(out_path) + ".1").read_text())]
+    return got, wall_s
+
+
+def dcn_phase(workdir: Path, want: dict):
+    """9d: the ("dcn", "data") path across two processes on the card, each
+    holding 2 shards: Gloo (NCCL refuses two ranks on one device), the
+    (Q, k) candidates staged through the host; one process per card over
+    NCCL on a host with two cards. Both processes' answers must equal 9a's
+    single-process 4-shard store's; a worker that fails or outlives its
+    timeout fails the run."""
+    import torch
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    got, wall_s = run_pair(workdir, "dcn", "--dcn-worker", [backend], DCN_TIMEOUT_S)
     for rank, g in enumerate(got):
         if g["paths"] != want["paths"]:
             bad = next(i for i, (a, b) in enumerate(zip(g["paths"], want["paths"]))
@@ -3650,7 +3778,149 @@ def dcn_phase(workdir: Path, want: dict):
             "wall_s": wall_s}
 
 
+def split_worker(rank: int, out_path: str) -> int:
+    """One process of 9e: joins a two-process Gloo group on the card, holds
+    2 of the 4 shards (a ("dcn", "data") = (2, 2) mesh) and builds phase
+    9b's 1M x 384 int8 flat index with its f32 mirror, then 9c's IVF (nlist
+    1024), from phase 4's seed; writes each index's ids for the 512
+    queries, the bytes it holds and its build's memory growth."""
+    import gc
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from semcode_tpu_torch.index.flat import FlatIndex
+    from semcode_tpu_torch.index.ivf import IVFIndex
+    from semcode_tpu_torch.ops import ivf_scan, scan_top2
+    from semcode_tpu_torch.ops.build import BUILD_DIR
+    from semcode_tpu_torch.parallel import distributed
+    from semcode_tpu_torch.parallel.mesh import make_mesh
+    from semcode_tpu_torch.settings import AppSettings
+    from semcode_tpu_torch.tools._corpus import mixture, queries_near
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the parent built the kernel libraries: load them instead of rebuilding
+    scan_top2._library.get(BUILD_DIR / "libsemcode_top2_scan.so")
+    ivf_scan._library.get(BUILD_DIR / "libsemcode_ivf_scan.so")
+    device = "cuda:0"
+    torch.cuda.set_device(torch.device(device))
+    port = dcn_port(rank, out_path)
+    cfg = AppSettings(mesh_num_processes=2, mesh_coordinator=f"127.0.0.1:{port}",
+                      mesh_process_id=rank)
+    distributed.maybe_init_distributed(cfg, device=device, backend="gloo")
+    t_start = time.perf_counter()
+    try:
+        mesh = make_mesh((2, 2), ("dcn", "data"), devices=[device] * 2)
+        gen = torch.Generator(device="cuda").manual_seed(42)  # phase 4's corpus
+        x = mixture(gen, N_ROWS, DIM)
+        q = queries_near(gen, x, BATCH)
+        out = {}
+
+        def build(name, make):
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            index = make()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            grown = torch.cuda.memory_allocated() - base
+            layout = index_layout(index, f"9e {name}, process {rank}")
+            if layout["shards"] != [2 * rank, 2 * rank + 1]:
+                fail(f"9e process {rank} holds shards {layout['shards']}")
+            memory_check(grown, layout, f"9e {name}, process {rank}")
+            log(f"[split] {name}: process {rank} holds {layout['bytes']} B "
+                f"({layout['bytes'] / 2**30:.3f} GiB) of index tensors, shards "
+                f"{layout['shards']}; memory_allocated() grew {grown} B; built "
+                f"in {build_s:.1f} s")
+            return index, {"bytes": layout["bytes"], "mem_grown": grown,
+                           "build_s": build_s, "shards": layout["shards"],
+                           "shard_rows": layout["shard_rows"]}
+
+        x_host = x.cpu().numpy()
+
+        def flat():
+            index = FlatIndex(DIM, metric="ip", dtype="int8", scan_impl="pallas",
+                              mesh=mesh)
+            index.add(x_host)
+            return index
+
+        index, rec = build("flat", flat)
+        del x_host
+        scan_top2.top2_scan.launches = 0
+        _, ids = index.search_device(q, 10)
+        rec.update(ids=ids.cpu().tolist(), launches=scan_top2.top2_scan.launches)
+        out["flat"] = rec
+        del index, ids
+
+        def ivf():
+            index = IVFIndex(DIM, nlist=NLIST, nprobe=32, metric="ip", dtype="int8",
+                             kmeans_iters=KMEANS_ITERS, mesh=mesh)
+            with index.bulk(expected_rows=N_ROWS):
+                for lo in range(0, N_ROWS, 131072):
+                    index.add(x[lo:lo + 131072])
+            return index
+
+        index, rec = build("ivf", ivf)
+        ivf_scan.ivf_scan.launches = 0
+        _, ids = index.search_device(q, 10, nprobe=32, mode="ivf")
+        rec.update(ids=ids.cpu().tolist(), launches=ivf_scan.ivf_scan.launches)
+        out["ivf"] = rec
+        del index, ids
+        out["seconds"] = time.perf_counter() - t_start
+        Path(out_path if rank == 0 else out_path + ".1").write_text(json.dumps(out))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def split_phase(workdir: Path, flat: dict, ivf: dict):
+    """9e: the memory split across processes. Two processes on the card over
+    Gloo, 2 of the 4 shards each, build 9b's flat index and 9c's IVF from
+    the same seed: each must hold at most 0.55 of the one-process 4-shard
+    index's bytes (its own shards' tensors and the replicated centroids),
+    and both must answer the 512 queries with 9b's and 9c's ids."""
+    got, wall_s = run_pair(workdir, "split", "--split-worker", [], SPLIT_TIMEOUT_S)
+    out = {"wall_s": wall_s, "seconds": [g["seconds"] for g in got]}
+    for name, one in (("flat", flat), ("ivf", ivf)):
+        for rank, g in enumerate(got):
+            rec = g[name]
+            if rec["ids"] != one["ids"]:
+                bad = next(i for i, (a, b) in enumerate(zip(rec["ids"], one["ids"]))
+                           if a != b)
+                fail(f"9e {name}: process {rank} answers query {bad} with "
+                     f"{rec['ids'][bad]}, the one-process 4-shard index with "
+                     f"{one['ids'][bad]}")
+            share = rec["bytes"] / one["bytes"]
+            if share > 0.55:
+                fail(f"9e {name}: process {rank} holds {rec['bytes']} B, "
+                     f"{share:.3f} of the one-process index's {one['bytes']} B")
+            if rec["launches"] < 2:
+                fail(f"9e {name}: process {rank} launched its kernel "
+                     f"{rec['launches']} times in a search")
+        out[name] = {
+            "bytes": [g[name]["bytes"] for g in got],
+            "mem_grown": [g[name]["mem_grown"] for g in got],
+            "build_s": [g[name]["build_s"] for g in got],
+            "launches": [g[name]["launches"] for g in got],
+            "one_process_bytes": one["bytes"],
+            "share": [g[name]["bytes"] / one["bytes"] for g in got],
+        }
+        log(f"[shard] 9e {name}: two processes of 2 shards each hold "
+            + " and ".join(f"{b / 2**30:.3f} GiB" for b in out[name]["bytes"])
+            + f" of index tensors against {one['bytes'] / 2**30:.3f} GiB in one "
+            f"process of 4 shards (shares "
+            + " / ".join(f"{v:.3f}" for v in out[name]["share"])
+            + f"); the 512 queries' top-10 ids equal the one-process index's "
+            f"in both; launches a search {out[name]['launches']}")
+    log(f"[shard] 9e: {wall_s:.1f} s for both workers (each "
+        + " / ".join(f"{v:.1f}" for v in out["seconds"]) + " s after joining the group)")
+    return out
+
+
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3715,7 +3985,13 @@ def main() -> int:
         dcn = dcn_phase(Path(tmp), sharded)
     sharded_scale = sharded_scale_phase(scale)
     sharded_ivf = sharded_ivf_phase(ivf_scale)
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers' room on the card
+    with tempfile.TemporaryDirectory(prefix="semcode_split_") as tmp:
+        split = split_phase(Path(tmp), sharded_scale, sharded_ivf)
     sharded.pop("paths")
+    sharded_scale.pop("ids")
+    sharded_ivf.pop("ids")
 
     def kernel_record(name, source, replaces, launches, kern, worst_err=0.0, **extra):
         rec = {"name": name, "route": "cuda", "source": source,
@@ -3755,6 +4031,8 @@ def main() -> int:
         "sharded_api_launches": sharded["http_launches"],
         "sharded_scale_launches": sharded_scale["launches"],
         "dcn_launches": dcn["launches"],
+        # phase 9e: two processes holding 2 shards each of 9b's index
+        "split_launches": split["flat"]["launches"],
         # phase 10d: the dry run's index half (its indexes' default routes)
         "dryrun_launches": sharded_training["dryrun"]["launches"]["top2_scan"],
         **{f"api_{key}": api_kernel[key] for key in
@@ -3786,6 +4064,7 @@ def main() -> int:
         producer_wait=ik["producer_wait"],
         # phase 9c: one probe search over 4 shards, once per shard
         shards=sharded_ivf["shards"], sharded_launches=sharded_ivf["launches"],
+        split_launches=split["ivf"]["launches"],
         dryrun_launches=sharded_training["dryrun"]["launches"]["ivf_scan"]))
     for storage in ("bfloat16", "float32"):
         leg = ivf_scale[storage]
@@ -3824,6 +4103,7 @@ def main() -> int:
         "dcn": dcn,
         "sharded_scale": sharded_scale,
         "sharded_ivf": sharded_ivf,
+        "split": split,
     }
     log(f"[summary] {json.dumps(summary)}")
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s after the "
@@ -3844,4 +4124,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dcn-worker"]:
         raise SystemExit(dcn_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--split-worker"]:
+        raise SystemExit(split_worker(int(sys.argv[2]), sys.argv[3]))
     raise SystemExit(main())

@@ -3,17 +3,20 @@
 Counterpart of ``semcode_tpu/index/flat.py``: the corpus lives in device
 memory as a ``(capacity, dim)`` matrix in the storage dtype, split by rows
 over the mesh's row axes (``parallel/mesh.py``; capacity stays a multiple
-of ``lcm(n_shards * 8, 128)`` so every shard holds the same rows). A query
-batch is one sharded exact scan (``scan.exact_scan``: each shard scans its
-rows with a fused f32 rescore, then the shards' candidates merge). The
-host keeps the authoritative f32 buffer, so snapshots and growth never read
-back from the device.
+of ``lcm(n_shards * 8, 128)`` so every shard holds the same rows). Each
+shard's rows sit in tensors of their own on the shard's device
+(``ShardedRows``), and a process holds its own shards' rows and no others.
+A query batch is one sharded exact scan (``scan.exact_scan``: each shard
+scans its rows with a fused f32 rescore, then the shards' candidates
+merge). The host keeps the authoritative f32 buffer, whole in every
+process, so snapshots and growth never read back from the device.
 
-Device state is one tuple of tensors swapped as a whole, and writers build
-new tensors (out-of-place scatters) rather than editing the ones a reader
-may hold: a search racing an upsert sees the old or the new corpus, never a
-torn one — the reference's immutable-array contract, at the cost of one
-device copy of the touched arrays per write batch.
+Device state is one tuple of per-shard containers swapped as a whole, and
+writers build new tensors (out-of-place scatters into the owner shards)
+rather than editing the ones a reader may hold: a search racing an upsert
+sees the old or the new corpus, never a torn one — the reference's
+immutable-array contract, at the cost of one device copy of the touched
+shards' arrays per write batch.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, round_up, storage_dtype, storage_name
-from ..parallel.mesh import Mesh, n_shards, resolve_mesh
+from ..parallel.mesh import Mesh, ShardedRows, n_shards, resolve_mesh
 from .scan import exact_scan, exact_scan_batched, resolve_rescore_width
 
 _NEG_INF = np.float32(-3.0e38)
@@ -92,19 +95,13 @@ def _sqnorms(x: np.ndarray) -> np.ndarray:
     return np.sum(x.astype(np.float32) ** 2, axis=1)
 
 
-def _set_rows(arr: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor):
-    """Out-of-place row scatter (readers keep the previous tensor)."""
-    return arr.index_copy(0, rows, vals.to(arr.dtype))
-
-
 class FlatIndex:
     """Exact-scan index over a row-sharded device matrix.
 
     ``mesh`` (default: ``get_mesh`` over ``device``) decides the shards;
-    the tensors live on its first local device in global row order and each
-    shard reads its own range. Host-authoritative storage: a float32 numpy
-    buffer (amortized growth) mirrors the device tensors. Selection is
-    always exact: the reference's
+    each shard's rows live in its own tensors on its own device.
+    Host-authoritative storage: a float32 numpy buffer (amortized growth)
+    mirrors the device tensors. Selection is always exact: the reference's
     approximate selection (``approx_topk``, ``approx_recall_target``)
     exists only on a TPU, so those options have no counterpart here."""
 
@@ -156,8 +153,9 @@ class FlatIndex:
         self._alive = np.zeros((self.capacity,), dtype=bool)
         # int32 row tags for device-side filtered search (0 = untagged)
         self._tags = np.zeros((self.capacity,), dtype=np.int32)
-        # device state: one atomically-swapped tuple
-        # (vecs, norms, valid, scales-or-None, rescore-or-None, tags)
+        # device state: one atomically-swapped tuple of ShardedRows
+        # (vecs, norms, valid, scales-or-None, rescore-or-None, tags); a
+        # residual rescore is a (resid, rscales) pair
         self._dev: Optional[tuple] = None
         self._dirty = True  # device tensors need (re)materialization
 
@@ -197,24 +195,26 @@ class FlatIndex:
         return "none"
 
     def _materialize(self) -> tuple:
-        """Push the host buffer to device tensors (quantized on device)."""
-        x = torch.from_numpy(self._host).to(self.device)
+        """Push the host buffer to the shards' tensors: each local shard
+        copies its own rows and quantizes them on its device."""
+        mesh = self.mesh
+        x = ShardedRows.from_host(mesh, self._host)
         scales = None
         if self._dtype == torch.int8:
-            vecs, scales = quantize_rows_device(x)
+            vecs, scales = x.map(quantize_rows_device)
         else:
-            vecs = x.to(self._dtype)
+            vecs = x.map(lambda t: t.to(self._dtype))
         # squared norms summed on the host, in the reference's (numpy) order
-        norms = torch.from_numpy(_sqnorms(self._host)).to(self.device)
-        valid = torch.from_numpy(self._alive).to(self.device)
+        norms = ShardedRows.from_host(mesh, _sqnorms(self._host))
+        valid = ShardedRows.from_host(mesh, self._alive)
         kind = self._rescore_kind()
         if kind == "f32":
             rescore = x
         elif kind == "residual":
-            rescore = quantize_residual_device(x, vecs, scales)
+            rescore = x.map(quantize_residual_device, vecs, scales)
         else:
             rescore = None
-        tags = torch.from_numpy(self._tags).to(self.device)
+        tags = ShardedRows.from_host(mesh, self._tags)
         dev = (vecs, norms, valid, scales, rescore, tags)
         self._dev = dev  # single atomic swap
         self._dirty = False
@@ -317,33 +317,41 @@ class FlatIndex:
         self.n_live -= int(rows.size)
         dev = self._dev
         if not self._dirty and dev is not None:
-            rows_d = torch.from_numpy(rows).to(self.device)
-            valid = dev[2].index_fill(0, rows_d, False)
+            valid = dev[2].fill_rows(rows, False)
             self._dev = (dev[0], dev[1], valid, dev[3], dev[4], dev[5])
 
     def _write_device(self, rows: np.ndarray, x: np.ndarray, tags) -> None:
-        """Incremental scatter into the device tensors."""
+        """Incremental scatter into the owner shards' tensors (rows another
+        process owns are its to write)."""
         dev = self._dev
         if self._dirty or dev is None:
             return  # will materialize before the next search
-        rows_d = torch.from_numpy(rows).to(self.device)
-        x_d = torch.from_numpy(x).to(self.device)
         vecs, norms, valid, scl, rescore, tags_dev = dev
-        tags_dev = _set_rows(tags_dev, rows_d, torch.from_numpy(tags).to(self.device))
-        norms = _set_rows(norms, rows_d, torch.from_numpy(_sqnorms(x)).to(self.device))
-        valid = _set_rows(valid, rows_d, torch.ones_like(rows_d, dtype=torch.bool))
+        mine = vecs.mine(rows)
+        if not mine.all():
+            rows, x, tags = rows[mine], x[mine], tags[mine]
+            if rows.size == 0:
+                return
+        # every upload first, the owner shards' indices once for all fields
+        at = vecs.route(rows)
+        x_d = torch.from_numpy(x).to(self.device)
+        t_d = torch.from_numpy(tags).to(self.device)
+        n_d = torch.from_numpy(_sqnorms(x)).to(self.device)
+        tags_dev = tags_dev.set_rows(at, t_d)
+        norms = norms.set_rows(at, n_d)
+        valid = valid.fill_rows(at, True)
         if self._dtype == torch.int8:
             qx, sx = quantize_rows_device(x_d)
-            vecs = _set_rows(vecs, rows_d, qx)
-            scl = _set_rows(scl, rows_d, sx)
+            vecs = vecs.set_rows(at, qx)
+            scl = scl.set_rows(at, sx)
             if isinstance(rescore, tuple):  # residual mirror in lockstep
                 rq, rs = quantize_residual_device(x_d, qx, sx)
-                rescore = (_set_rows(rescore[0], rows_d, rq),
-                           _set_rows(rescore[1], rows_d, rs))
+                rescore = (rescore[0].set_rows(at, rq),
+                           rescore[1].set_rows(at, rs))
         else:
-            vecs = _set_rows(vecs, rows_d, x_d)
+            vecs = vecs.set_rows(at, x_d)
         if rescore is not None and not isinstance(rescore, tuple):
-            rescore = _set_rows(rescore, rows_d, x_d)  # f32 mirror in lockstep
+            rescore = rescore.set_rows(at, x_d)  # f32 mirror in lockstep
         self._dev = (vecs, norms, valid, scl, rescore, tags_dev)
 
     # -- search -----------------------------------------------------------------
@@ -389,7 +397,7 @@ class FlatIndex:
         by the shard's rows; the merged pool holds n_shards * k_shard
         candidates, so ``k_out`` up to that is servable."""
         vecs, norms, valid, scales, rescore, tags = dev
-        shard_rows = vecs.shape[0] // self.n_shards
+        shard_rows = vecs.shard_rows
         k_shard = min(k, shard_rows)
         resc_f32, resid, rscl = split_rescore(rescore)
         fn = exact_scan_batched if batched else exact_scan
@@ -435,7 +443,7 @@ class FlatIndex:
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
         dev = self._ensure_device()
         # shapes come from the snapshot, not live attributes (lock-free reads)
-        shard_rows = dev[0].shape[0] // self.n_shards
+        shard_rows = dev[0].shard_rows
         k_eff = min(k, min(k, shard_rows) * self.n_shards)
         scores, ids = self._scan(
             dev, torch.from_numpy(q).to(self.device), k, k_eff, allow_tags
@@ -457,14 +465,14 @@ class FlatIndex:
         metric-normalized. Returns device tensors (scores, ids) with
         min(k, shard rows) columns, as the reference's."""
         dev = self._ensure_device()
-        k = min(k, dev[0].shape[0] // self.n_shards)
+        k = min(k, dev[0].shard_rows)
         return self._scan(dev, q_dev, k, None, allow_tags)
 
     def search_device_batched(self, qs_dev: torch.Tensor, k: int, allow_tags=None):
         """``search_device`` over B batches: qs_dev (B, Q, dim); returns
         (scores (B, Q, k), ids (B, Q, k)) device tensors."""
         dev = self._ensure_device()
-        k = min(k, dev[0].shape[0] // self.n_shards)
+        k = min(k, dev[0].shard_rows)
         return self._scan(dev, qs_dev, k, None, allow_tags, batched=True)
 
     # -- maintenance ---------------------------------------------------------------

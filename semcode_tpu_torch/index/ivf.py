@@ -3,18 +3,24 @@
 Counterpart of ``semcode_tpu/index/ivf.py``. The cluster lists are split
 over the mesh's row axes (``parallel/mesh.py``) in contiguous blocks of
 ``nlist // n_shards`` clusters (``nlist`` rounds up to a multiple of the
-shard count), and the flat mirror by rows as the flat index is; centroids,
-probe selection and k-means are replicated on the first local device. Each
-query probes ``nprobe`` clusters; every shard scans the probed clusters it
-owns and contributes a local top-k, and the ``(Q, k)`` candidate sets merge
-innermost axis first (``hierarchical_topk_merge``).
+shard count), and the flat mirror by rows as the flat index is; each
+shard's clusters and mirror rows sit in tensors of their own on its device
+(``ShardedRows``), and a process holds its own shards' and no others.
+Centroids, probe selection, k-means and the pending tail are replicated on
+the first local device. Each query probes ``nprobe`` clusters; every shard
+scans the probed clusters it owns and contributes a local top-k, and the
+``(Q, k)`` candidate sets merge innermost axis first
+(``hierarchical_topk_merge``).
 
 - **Device-authoritative storage**: the row-major flat mirror on the device
   (storage-dtype vectors + scales + norms + optional f32 or two-level int8
   rescore mirror + tags) IS the corpus. The host keeps only O(N) metadata
-  (liveness, cluster assignment, slot map, tags). Ingest uploads f32 rows
-  and quantizes/normalizes on the device; builds, re-packs and compactions
-  gather from the mirror on the device.
+  (liveness, cluster assignment, slot map, tags), whole in every process.
+  Ingest uploads f32 rows and quantizes/normalizes on the device; builds,
+  re-packs and compactions gather from the mirror on the device
+  (``ShardedRows.take``: a row's mirror position and its cluster usually
+  sit on different shards, and in a multi-process run in different
+  processes, which then make every such call in the same order).
 - **Build**: k-means coarse quantizer trained on the device
   (``ops/kmeans.py``), capacity-balanced assignment, then the vectors are
   laid out in capacity-padded cluster blocks ``data[nlist, cmax, dim]``.
@@ -55,6 +61,7 @@ from ..ops import ivf_scan as ivf_ops
 from ..ops.kmeans import TRAIN_POINTS_PER_CENTROID, balanced_assign, kmeans_fit_dev, topm_step
 from ..parallel.mesh import (
     Mesh,
+    ShardedRows,
     hierarchical_topk_merge,
     local_shards,
     n_shards as mesh_shards,
@@ -84,7 +91,8 @@ log = get_logger("index.ivf")
 # One atomically-swapped device snapshot (lock-free readers). The padded
 # cluster layout (data/ids/sqnorms/scales/centroids) serves the probing path;
 # the flat row-major mirror (f*, position == global row id) serves the exact
-# path and is the authoritative storage. Fields:
+# path and is the authoritative storage. Every field but the replicated
+# centroids is ShardedRows, split by cluster (layout) or by row (mirror):
 #   data       (nlist, cmax, d) storage dtype
 #   ids        (nlist, cmax) int32 row ids, -1 = empty/tombstone
 #   sqnorms    (nlist, cmax) f32
@@ -118,22 +126,10 @@ _NEG = -3.0e38
 _CHUNK_ROWS = 131072
 
 
-def _set(arr: torch.Tensor, idx, vals: torch.Tensor, inplace: bool):
-    """Row scatter ``arr[idx] = vals``: in place only on tensors no reader
-    holds; otherwise out of place (readers keep the previous tensor)."""
-    vals = vals.to(arr.dtype)
-    if isinstance(idx, tuple):
-        if inplace:
-            return arr.index_put_(idx, vals)
-        return arr.index_put(idx, vals)
-    if inplace:
-        return arr.index_copy_(0, idx, vals)
-    return arr.index_copy(0, idx, vals)
-
-
-def _pad_rows(arr: torch.Tensor, new_rows: int) -> torch.Tensor:
-    pad = new_rows - arr.shape[0]
-    return torch.cat([arr, arr.new_zeros((pad,) + tuple(arr.shape[1:]))])
+def _set(arr: torch.Tensor, idx, vals: torch.Tensor) -> torch.Tensor:
+    """Out-of-place row scatter ``arr[idx] = vals`` into the pending tail
+    (readers keep the previous tensor)."""
+    return arr.index_copy(0, idx, vals.to(arr.dtype))
 
 
 def _normalize_rows(x: torch.Tensor) -> torch.Tensor:
@@ -264,8 +260,7 @@ class IVFIndex:
         out = np.empty((n, self.dim), dtype=np.float32)
         for lo in range(0, n, _CHUNK_ROWS):
             hi = min(lo + _CHUNK_ROWS, n)
-            idx = torch.arange(lo, hi, device=self.device)
-            out[lo:hi] = self._f32_chunk(idx).cpu().numpy()
+            out[lo:hi] = self._f32_chunk(np.arange(lo, hi)).cpu().numpy()
         return out
 
     def _check_vectors(self, x, *, device_ok: bool = True):
@@ -329,6 +324,9 @@ class IVFIndex:
     def _zeros(self, shape, dtype) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
+    def _sharded(self, rows: int, tail, dtype, fill=0) -> ShardedRows:
+        return ShardedRows.full(self.mesh, rows, tail, dtype, fill)
+
     def _rescore_kind(self, mirror_rows: int) -> str:
         """Fused device-rescore policy: 'f32', 'residual' (two-level int8,
         int8 storage only) or 'none' (see FlatIndex._rescore_kind)."""
@@ -367,23 +365,23 @@ class IVFIndex:
 
         def _fresh_rescore(kind):
             if kind == "f32":
-                return self._zeros((mcap, self.dim), torch.float32)
+                return self._sharded(mcap, (self.dim,), torch.float32)
             if kind == "residual":
                 return (
-                    self._zeros((mcap, self.dim), torch.int8),
-                    self._zeros((mcap,), torch.float32),
+                    self._sharded(mcap, (self.dim,), torch.int8),
+                    self._sharded(mcap, (), torch.float32),
                 )
             return None
 
         if self._mir is None:
             kind = self._rescore_kind(mcap)
             self._mir = _Mirror(
-                fvecs=self._zeros((mcap, self.dim), self._dtype),
-                fvalid=self._zeros((mcap,), torch.bool),
-                fnorms=self._zeros((mcap,), torch.float32),
-                fscales=self._zeros((mcap,), torch.float32),
+                fvecs=self._sharded(mcap, (self.dim,), self._dtype),
+                fvalid=self._sharded(mcap, (), torch.bool),
+                fnorms=self._sharded(mcap, (), torch.float32),
+                fscales=self._sharded(mcap, (), torch.float32),
                 frescore=_fresh_rescore(kind),
-                ftags=self._zeros((mcap,), torch.int32),
+                ftags=self._sharded(mcap, (), torch.int32),
             )
             if kind == "none" and self._dtype != torch.float32:
                 # the store's host rescore needs f32 somewhere: keep it on host
@@ -407,32 +405,32 @@ class IVFIndex:
                 cache = np.zeros((self._meta_cap, self.dim), dtype=np.float32)
                 cache[: host.shape[0]] = host
                 self._host_cache = cache
+        # growth moves the shard boundaries: ``grow`` passes rows between
+        # shards
         if old_kind == "f32" and new_kind == "f32":
-            frescore = _pad_rows(mir.frescore, mcap)
+            frescore = mir.frescore.grow(mcap)
         elif old_kind == "residual" and new_kind in ("residual", "f32"):
             # an existing residual never upgrades to f32 on growth (the
             # dropped bits are gone); pad it
-            frescore = (
-                _pad_rows(mir.frescore[0], mcap),
-                _pad_rows(mir.frescore[1], mcap),
-            )
+            frescore = (mir.frescore[0].grow(mcap), mir.frescore[1].grow(mcap))
         elif old_kind == "f32" and new_kind == "residual":
             # downgrade across the memory budget: requantize the residual
             # FROM the f32 mirror on the device, then free the mirror
             log.info("frescore_downgraded_to_residual", rows=need_rows)
-            rq, rs = quantize_residual_device(
-                mir.frescore, mir.fvecs.to(torch.float32), mir.fscales
+            rq, rs = mir.frescore.map(
+                lambda f, v, s: quantize_residual_device(f, v.to(torch.float32), s),
+                mir.fvecs, mir.fscales,
             )
-            frescore = (_pad_rows(rq, mcap), _pad_rows(rs, mcap))
+            frescore = (rq.grow(mcap), rs.grow(mcap))
         else:
             frescore = None
         grown = _Mirror(
-            fvecs=_pad_rows(mir.fvecs, mcap),
-            fvalid=_pad_rows(mir.fvalid, mcap),
-            fnorms=_pad_rows(mir.fnorms, mcap),
-            fscales=_pad_rows(mir.fscales, mcap),
+            fvecs=mir.fvecs.grow(mcap),
+            fvalid=mir.fvalid.grow(mcap),
+            fnorms=mir.fnorms.grow(mcap),
+            fscales=mir.fscales.grow(mcap),
             frescore=frescore,
-            ftags=_pad_rows(mir.ftags, mcap),
+            ftags=mir.ftags.grow(mcap),
         )
         self._mir = grown
         self._mirror_cap = mcap
@@ -445,7 +443,8 @@ class IVFIndex:
         """Scatter new/updated rows into the device mirror (chunked).
 
         ``x``: (n, dim) f32 numpy array or device tensor, NOT yet
-        metric-normalized. Quantization/normalization run on the device."""
+        metric-normalized. Quantization/normalization run on the device,
+        for the rows this process's shards own."""
         mir = self._mir
         n = rows.shape[0]
         cache = self._host_cache
@@ -457,33 +456,19 @@ class IVFIndex:
         for lo in range(0, n, _CHUNK_ROWS):
             hi = min(lo + _CHUNK_ROWS, n)
             xc = x[lo:hi]
-            xd = (xc if isinstance(xc, torch.Tensor) else self._to_dev(xc))
-            xd = xd.to(torch.float32)
-            if self.metric == "cosine":
-                xd = _normalize_rows(xd)
-            rows_d = self._to_dev(rows[lo:hi].astype(np.int64))
-            tags_d = self._to_dev(np.asarray(tags[lo:hi], dtype=np.int32))
-            nrm = _row_norms(xd)
-            fscales = mir.fscales
-            if self._dtype == torch.int8:
-                qx, scl = quantize_rows_device(xd)
-                fvecs = _set(mir.fvecs, rows_d, qx, inplace)
-                fscales = _set(mir.fscales, rows_d, scl, inplace)
-            else:
-                fvecs = _set(mir.fvecs, rows_d, xd, inplace)
-            fvalid = _set(mir.fvalid, rows_d,
-                          torch.ones_like(rows_d, dtype=torch.bool), inplace)
-            fnorms = _set(mir.fnorms, rows_d, nrm, inplace)
-            frescore = mir.frescore
-            if isinstance(frescore, tuple):
-                rq, rs = quantize_residual_device(xd, qx, scl)
-                frescore = (_set(frescore[0], rows_d, rq, inplace),
-                            _set(frescore[1], rows_d, rs, inplace))
-            elif frescore is not None:
-                frescore = _set(frescore, rows_d, xd, inplace)
-            ftags = _set(mir.ftags, rows_d, tags_d, inplace)
-            mir = _Mirror(fvecs, fvalid, fnorms, fscales, frescore, ftags)
-            self._mir = mir
+            rc = rows[lo:hi].astype(np.int64)
+            tc = np.asarray(tags[lo:hi], dtype=np.int32)
+            mine = mir.fvecs.mine(rc)
+            if mine.any():
+                xd = xc
+                if not mine.all():  # rows another process owns are its own
+                    sel = np.flatnonzero(mine)
+                    xd = (xd[torch.from_numpy(sel).to(xd.device)]
+                          if isinstance(xd, torch.Tensor) else xd[sel])
+                    rc, tc = rc[sel], tc[sel]
+                xd = xd if isinstance(xd, torch.Tensor) else self._to_dev(xd)
+                mir = self._write_mirror(mir, xd, rc, tc, inplace)
+                self._mir = mir
             if cache is not None:
                 if isinstance(xc, torch.Tensor):
                     # fetching every device chunk back to the host would undo
@@ -499,23 +484,57 @@ class IVFIndex:
                 else:
                     cache[rows[lo:hi]] = xc
 
-    def _f32_chunk(self, idx: torch.Tensor) -> torch.Tensor:
-        """Gather f32(-grade) rows from the mirror by row id (on device).
-        With the residual mirror the reconstruction carries ~16 bits of
+    def _write_mirror(self, mir: _Mirror, xd: torch.Tensor, rows: np.ndarray,
+                      tags: np.ndarray, inplace: bool) -> _Mirror:
+        """Quantize rows ``xd`` (f32, not yet metric-normalized) and write
+        them to mirror rows ``rows`` of their owner shards."""
+        at = mir.fvecs.route(rows)  # one upload of the indices for all fields
+        tags_d = self._to_dev(tags)
+        xd = xd.to(torch.float32)
+        if self.metric == "cosine":
+            xd = _normalize_rows(xd)
+        nrm = _row_norms(xd)
+        fscales = mir.fscales
+        if self._dtype == torch.int8:
+            qx, scl = quantize_rows_device(xd)
+            fvecs = mir.fvecs.set_rows(at, qx, inplace=inplace)
+            fscales = mir.fscales.set_rows(at, scl, inplace=inplace)
+        else:
+            fvecs = mir.fvecs.set_rows(at, xd, inplace=inplace)
+        fvalid = mir.fvalid.fill_rows(at, True, inplace=inplace)
+        fnorms = mir.fnorms.set_rows(at, nrm, inplace=inplace)
+        frescore = mir.frescore
+        if isinstance(frescore, tuple):
+            rq, rs = quantize_residual_device(xd, qx, scl)
+            frescore = (frescore[0].set_rows(at, rq, inplace=inplace),
+                        frescore[1].set_rows(at, rs, inplace=inplace))
+        elif frescore is not None:
+            frescore = frescore.set_rows(at, xd, inplace=inplace)
+        ftags = mir.ftags.set_rows(at, tags_d, inplace=inplace)
+        return _Mirror(fvecs, fvalid, fnorms, fscales, frescore, ftags)
+
+    def _f32_chunk(self, rows: np.ndarray) -> torch.Tensor:
+        """Gather f32(-grade) rows from the mirror by row id (int numpy) onto
+        the home device, from whichever shards hold them (in a
+        multi-process run every process calls it with the same rows). With
+        the residual mirror the reconstruction carries ~16 bits of
         mantissa — exact enough for k-means samples, host rescores and
         persistence round trips."""
         mir = self._mir
+        rows = mir.fvecs._route(rows)  # every mirror field has its row count
         if isinstance(mir.frescore, tuple):
             return (
-                mir.fvecs[idx].to(torch.float32) * mir.fscales[idx][:, None]
-                + mir.frescore[0][idx].to(torch.float32)
-                * mir.frescore[1][idx][:, None]
+                mir.fvecs.take(rows).to(torch.float32)
+                * mir.fscales.take(rows)[:, None]
+                + mir.frescore[0].take(rows).to(torch.float32)
+                * mir.frescore[1].take(rows)[:, None]
             )
         if mir.frescore is not None:
-            return mir.frescore[idx]
+            return mir.frescore.take(rows)
         if self._dtype == torch.int8:
-            return mir.fvecs[idx].to(torch.float32) * mir.fscales[idx][:, None]
-        return mir.fvecs[idx].to(torch.float32)
+            return (mir.fvecs.take(rows).to(torch.float32)
+                    * mir.fscales.take(rows)[:, None])
+        return mir.fvecs.take(rows).to(torch.float32)
 
     def gather_f32(self, rows: np.ndarray):
         """Exact f32 values for the given row ids, host-side, gathering ONLY
@@ -531,7 +550,7 @@ class IVFIndex:
         out = np.empty((rows.shape[0], self.dim), dtype=np.float32)
         for lo in range(0, rows.shape[0], _CHUNK_ROWS):
             hi = min(lo + _CHUNK_ROWS, rows.shape[0])
-            out[lo:hi] = self._f32_chunk(self._to_dev(safe[lo:hi])).cpu().numpy()
+            out[lo:hi] = self._f32_chunk(safe[lo:hi]).cpu().numpy()
         return out, ok
 
     def _topm_rows(self, rows: np.ndarray, m: int) -> np.ndarray:
@@ -540,7 +559,7 @@ class IVFIndex:
         out = np.empty((rows.shape[0], m), dtype=np.int32)
         for lo in range(0, rows.shape[0], _CHUNK_ROWS):
             hi = min(lo + _CHUNK_ROWS, rows.shape[0])
-            xd = self._f32_chunk(self._to_dev(rows[lo:hi].astype(np.int64)))
+            xd = self._f32_chunk(rows[lo:hi])
             out[lo:hi] = topm_step(xd, cent, m).cpu().numpy()
         return out
 
@@ -561,7 +580,7 @@ class IVFIndex:
             if live.size > max_train:
                 rng = np.random.default_rng(self.seed)
                 live = rng.choice(live, size=max_train, replace=False)
-            sample_dev = self._f32_chunk(self._to_dev(live.astype(np.int64)))
+            sample_dev = self._f32_chunk(live)
         if sample_dev.shape[0] == 0:
             raise ValueError("cannot train IVF on an empty corpus")
         self.centroids = kmeans_fit_dev(
@@ -667,15 +686,14 @@ class IVFIndex:
     PENDING_CAP = 8192
 
     def _scatter_copy_bytes(self) -> int:
-        """Transient bytes a copy-on-write mirror scatter materializes."""
+        """Transient bytes a copy-on-write mirror scatter materializes, over
+        all shards (every process decides alike)."""
         mir = self._mir
         if mir is None:
             return 0
-        total = mir.fvecs.numel() * mir.fvecs.element_size()
         resc = mir.frescore[0] if isinstance(mir.frescore, tuple) else mir.frescore
-        if resc is not None:
-            total += resc.numel() * resc.element_size()
-        return total
+        return sum(math.prod(t.shape) * t.dtype.itemsize
+                   for t in (mir.fvecs, resc) if t is not None)
 
     def _use_pending(self, n: int) -> bool:
         return (
@@ -709,9 +727,9 @@ class IVFIndex:
         vecs, pids, ptags, _ = self._pend
         idx = torch.arange(used, used + n, device=self.device)
         self._pend = (
-            _set(vecs, idx, xd, False),
-            _set(pids, idx, self._to_dev(rows.astype(np.int32)), False),
-            _set(ptags, idx, self._to_dev(tags), False),
+            _set(vecs, idx, xd),
+            _set(pids, idx, self._to_dev(rows.astype(np.int32))),
+            _set(ptags, idx, self._to_dev(tags)),
             used + n,
         )
         self._host_ingest_only = self._host_ingest_only and not isinstance(
@@ -784,27 +802,29 @@ class IVFIndex:
             self._pend = (vecs, torch.where(hit, -1, pids), ptags, n_used)
         if self._mir is not None:
             self._mir = self._mir._replace(
-                fvalid=self._mir.fvalid.index_fill(0, rows_d, False)
-            )
+                fvalid=self._mir.fvalid.fill_rows(rows, False))
         dev = self._dev
         if not self._dirty and dev is not None:
             new = dev._replace(fvalid=self._mir.fvalid)
             if placed.any():
-                c = self._to_dev(locs[placed, 0].astype(np.int64))
-                s = self._to_dev(locs[placed, 1].astype(np.int64))
-                new = new._replace(ids=new.ids.index_put(
-                    (c, s), torch.tensor(-1, dtype=torch.int32, device=self.device)
-                ))
+                new = new._replace(ids=new.ids.fill_rows(
+                    locs[placed, 0], -1, cols=locs[placed, 1]))
             self._dev = new
 
-    def _pack(self, data, ids, sqnorms, scales, mir, rows_d, c_d, s_d,
+    def _pack(self, data, ids, sqnorms, scales, mir, rows, c, s,
               inplace: bool):
-        """Scatter mirror rows into the padded cluster layout (device)."""
-        data = _set(data, (c_d, s_d), mir.fvecs[rows_d], inplace)
-        ids = _set(ids, (c_d, s_d), rows_d, inplace)
-        sqnorms = _set(sqnorms, (c_d, s_d), mir.fnorms[rows_d], inplace)
+        """Scatter mirror rows ``rows`` into slots ``(c, s)`` of the padded
+        cluster layout (int numpy): the rows come from whichever shards
+        hold them (``take``) and go to the shards that own their
+        clusters."""
+        src = mir.fvecs.route(rows)  # each side's indices uploaded once
+        dst = data.route(c, s)
+        row_ids = self._to_dev(rows.astype(np.int32))
+        data = data.set_rows(dst, mir.fvecs.take(src), inplace=inplace)
+        ids = ids.set_rows(dst, row_ids, inplace=inplace)
+        sqnorms = sqnorms.set_rows(dst, mir.fnorms.take(src), inplace=inplace)
         if scales is not None:
-            scales = _set(scales, (c_d, s_d), mir.fscales[rows_d], inplace)
+            scales = scales.set_rows(dst, mir.fscales.take(src), inplace=inplace)
         return data, ids, sqnorms, scales
 
     def _place_rows(self, rows: np.ndarray, assign: np.ndarray) -> None:
@@ -830,9 +850,8 @@ class IVFIndex:
         mir = self._mir
         data, ids, sqnorms, scales = self._pack(
             dev.data, dev.ids, dev.sqnorms, dev.scales, mir,
-            self._to_dev(rows.astype(np.int64)),
-            self._to_dev(assign.astype(np.int64)),
-            self._to_dev(slots.astype(np.int64)), inplace=False,
+            rows.astype(np.int64), assign.astype(np.int64),
+            slots.astype(np.int64), inplace=False,
         )
         self._dev = dev._replace(data=data, ids=ids, sqnorms=sqnorms,
                                  scales=scales, **mir._asdict())
@@ -894,18 +913,18 @@ class IVFIndex:
         fvalid_h[: self._n_rows] = self._alive[: self._n_rows]
         ftags_h = np.zeros((mcap,), dtype=np.int32)
         ftags_h[: self._n_rows] = self._tags[: self._n_rows]
-        mir = mir._replace(fvalid=self._to_dev(fvalid_h),
-                           ftags=self._to_dev(ftags_h))
+        mir = mir._replace(fvalid=ShardedRows.from_host(self.mesh, fvalid_h),
+                           ftags=ShardedRows.from_host(self.mesh, ftags_h))
         self._mir = mir
 
         live = np.flatnonzero(self._alive[: self._n_rows])
-        c_all = self._loc[live, 0]
-        s_all = self._loc[live, 1]
-        shape2 = (self.nlist, self.cmax)
-        data = self._zeros(shape2 + (self.dim,), self._dtype)
-        ids = torch.full(shape2, -1, dtype=torch.int32, device=self.device)
-        sqnorms = self._zeros(shape2, torch.float32)
-        scales = (self._zeros(shape2, torch.float32)
+        c_all = self._loc[live, 0].astype(np.int64)
+        s_all = self._loc[live, 1].astype(np.int64)
+        # the layout splits by cluster: nlist_s clusters a shard
+        data = self._sharded(self.nlist, (self.cmax, self.dim), self._dtype)
+        ids = self._sharded(self.nlist, (self.cmax,), torch.int32, -1)
+        sqnorms = self._sharded(self.nlist, (self.cmax,), torch.float32)
+        scales = (self._sharded(self.nlist, (self.cmax,), torch.float32)
                   if self._dtype == torch.int8 else None)
         # chunk so the transient (chunk, dim) gather stays bounded at high dim
         chunk = max(8192, min(_CHUNK_ROWS, (256 << 20) // max(self.dim * 4, 1)))
@@ -913,10 +932,8 @@ class IVFIndex:
             hi = min(lo + chunk, live.size)
             # fresh tensors no reader has seen: pack in place
             data, ids, sqnorms, scales = self._pack(
-                data, ids, sqnorms, scales, mir,
-                self._to_dev(live[lo:hi].astype(np.int64)),
-                self._to_dev(c_all[lo:hi].astype(np.int64)),
-                self._to_dev(s_all[lo:hi].astype(np.int64)), inplace=True,
+                data, ids, sqnorms, scales, mir, live[lo:hi].astype(np.int64),
+                c_all[lo:hi], s_all[lo:hi], inplace=True,
             )
         dev = _Dev(
             data=data,
@@ -1033,7 +1050,7 @@ class IVFIndex:
     def _exact(self, dev, q_dev, k, k_out, allow_tags, batched=False):
         """The sharded exact scan over the flat mirror; ``k`` is capped per
         shard by the shard's rows."""
-        shard_rows = dev.fvecs.shape[0] // self.n_shards
+        shard_rows = dev.fvecs.shard_rows
         k_shard = min(k, shard_rows)
         resc_f32, resid, rscl = split_rescore(dev.frescore)
         fn = exact_scan_batched if batched else exact_scan
@@ -1109,7 +1126,7 @@ class IVFIndex:
         if mode == "auto":
             mode = self._pick_mode(pad_bucket(n_q), np_probe, k)
         if mode == "exact":
-            shard_rows = dev.fvecs.shape[0] // self.n_shards
+            shard_rows = dev.fvecs.shard_rows
             k_eff = min(k, min(k, shard_rows) * self.n_shards)
             scores, ids = self._exact(dev, q_dev, k, k_eff, allow_tags)
         else:
@@ -1156,7 +1173,7 @@ class IVFIndex:
         if mode == "auto":
             mode = self._pick_mode(pad_bucket(q_dev.shape[0]), np_probe, k)
         if mode == "exact":
-            k = min(k, dev.fvecs.shape[0] // self.n_shards)
+            k = min(k, dev.fvecs.shard_rows)
             scores, ids = self._exact(dev, q_dev, k, None, allow_tags)
         else:
             scores, ids = self._probe(dev, q_dev, k, np_probe)
@@ -1180,7 +1197,7 @@ class IVFIndex:
         if allow_tags is not None:
             mode = "exact"  # tag masking rides the flat mirror (see search())
         if mode == "exact":
-            k = min(k, dev.fvecs.shape[0] // self.n_shards)
+            k = min(k, dev.fvecs.shard_rows)
             scores, ids = self._exact(dev, qs_dev, k, None, allow_tags,
                                       batched=True)
         else:
@@ -1238,35 +1255,38 @@ class IVFIndex:
             return new, remap
         new_rows = new._extend_meta(n, self._tags[live])
         new._ensure_mirror(n)
-        # device-to-device renumbering gather into the new (unread) mirror
+        # device-to-device renumbering gather into the new (unread) mirror:
+        # a row's old and new positions may sit on different shards
         mir, nm = self._mir, new._mir
         cache = new._host_cache
         for lo in range(0, n, _CHUNK_ROWS):
             hi = min(lo + _CHUNK_ROWS, n)
-            src = self._to_dev(live[lo:hi].astype(np.int64))
-            dst = self._to_dev(new_rows[lo:hi].astype(np.int64))
-            fvecs = _set(nm.fvecs, dst, mir.fvecs[src], True)
-            fvalid = _set(nm.fvalid, dst,
-                          torch.ones_like(dst, dtype=torch.bool), True)
-            fnorms = _set(nm.fnorms, dst, mir.fnorms[src], True)
-            fscales = _set(nm.fscales, dst, mir.fscales[src], True)
+            src_ids = live[lo:hi].astype(np.int64)
+            src, dst = mir.fvecs.route(src_ids), nm.fvecs.route(new_rows[lo:hi])
+            fvecs = nm.fvecs.set_rows(dst, mir.fvecs.take(src), inplace=True)
+            fvalid = nm.fvalid.fill_rows(dst, True, inplace=True)
+            fnorms = nm.fnorms.set_rows(dst, mir.fnorms.take(src), inplace=True)
+            fscales = nm.fscales.set_rows(dst, mir.fscales.take(src), inplace=True)
             frescore = nm.frescore
             if frescore is not None and mir.frescore is not None:
                 old_resid = isinstance(mir.frescore, tuple)
                 if isinstance(frescore, tuple):
                     if old_resid:
-                        rq, rs = mir.frescore[0][src], mir.frescore[1][src]
+                        rq, rs = (mir.frescore[0].take(src),
+                                  mir.frescore[1].take(src))
                     else:  # auto-kind flip across the rebuild: re-derive
                         rq, rs = quantize_residual_device(
-                            mir.frescore[src], mir.fvecs[src].to(torch.float32),
-                            mir.fscales[src],
+                            mir.frescore.take(src),
+                            mir.fvecs.take(src).to(torch.float32),
+                            mir.fscales.take(src),
                         )
-                    frescore = (_set(frescore[0], dst, rq, True),
-                                _set(frescore[1], dst, rs, True))
+                    frescore = (frescore[0].set_rows(dst, rq, inplace=True),
+                                frescore[1].set_rows(dst, rs, inplace=True))
                 else:
-                    frescore = _set(frescore, dst, self._f32_chunk(src), True)
-            ftags = _set(nm.ftags, dst, self._to_dev(self._tags[live[lo:hi]]),
-                         True)
+                    frescore = frescore.set_rows(dst, self._f32_chunk(src),
+                                                 inplace=True)
+            ftags = nm.ftags.set_rows(dst, self._to_dev(self._tags[src_ids]),
+                                      inplace=True)
             nm = _Mirror(fvecs, fvalid, fnorms, fscales, frescore, ftags)
             if cache is not None:
                 if self._host_cache is not None:
@@ -1389,7 +1409,7 @@ def _ivf_search(mesh, data, ids, sqnorms, scales, centroids, q, k, nprobe,
     n_shards = mesh_shards(mesh)
     k_out = k if k_out is None else k_out
     k_out = min(k_out, k * n_shards)
-    nlist_s = data.shape[0] // n_shards
+    nlist_s = data.shard_rows
     q = q.to(torch.float32)
     qc = f32_matmul(q, centroids.T)  # (Q, nlist)
     if metric == "l2":
@@ -1404,7 +1424,7 @@ def _ivf_search(mesh, data, ids, sqnorms, scales, centroids, q, k, nprobe,
         base = rank * nlist_s
 
         def clusters(t):
-            return mesh.place(t, base, base + nlist_s, dev)
+            return t.shard(rank)
 
         pr = probes.to(dev)
         q_s = q.to(dev)

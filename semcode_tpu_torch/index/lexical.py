@@ -7,7 +7,8 @@ terms by selection weight as crc32 ids with f16 tf weights, plus the doc's
 total term mass and its whole-symbol hash). The query side runs on the
 device: gather the candidate window's fingerprints by global row id from
 the row-sharded fingerprint table (each shard gathers the rows in its
-range and the parts are summed, the reference's psum), window-level
+range from its own tensors and the parts are summed, the reference's psum),
+window-level
 BM25 with the exact-symbol bonus and the gated learned MaxSim channel, the
 min-max blend with the dense scores, and the stable two-key sort — the
 math of ``bm25_blend`` (lexical.py:269-377), chunked by query so the
@@ -26,6 +27,7 @@ import torch
 from ..device import DeviceLike
 from ..parallel.mesh import (
     Mesh,
+    ShardedRows,
     all_reduce_sum,
     local_shards,
     n_shards,
@@ -202,9 +204,11 @@ def gather_fingerprints(mesh: Mesh, fp_ids, fp_w, fp_len, fp_sym, ids):
     empty fingerprint (ids -1, weights 0, length 0, symbol -1) for every
     other id, and the parts are summed, across processes too; the -1 that
     each of the shards but the owner adds to ids and symbols is then added
-    back. -1 / unowned ids give the empty fingerprint."""
+    back. -1 / unowned ids give the empty fingerprint. The tables are
+    ``ShardedRows`` (a tensor in global row order is split first)."""
     n = n_shards(mesh)
-    shard_rows = fp_ids.shape[0] // n
+    tables = [ShardedRows.of(mesh, t) for t in (fp_ids, fp_w, fp_len, fp_sym)]
+    shard_rows = tables[0].shard_rows
     home = mesh.home
     ids = ids.to(torch.int64)
     total = None
@@ -213,8 +217,7 @@ def gather_fingerprints(mesh: Mesh, fp_ids, fp_w, fp_len, fp_sym, ids):
         ids_d = ids.to(dev)
         mine = (ids_d >= lo) & (ids_d < hi)
         li = torch.clamp(ids_d - lo if lo else ids_d, 0, shard_rows - 1)
-        g_ids, g_w, g_len, g_sym = (mesh.place(t, lo, hi, dev)[li]
-                                    for t in (fp_ids, fp_w, fp_len, fp_sym))
+        g_ids, g_w, g_len, g_sym = (t.shard(rank)[li] for t in tables)
         parts = (
             torch.where(mine[..., None], g_ids, -1),
             torch.where(mine[..., None], g_w.to(torch.float32), 0.0),
@@ -337,7 +340,8 @@ def bm25_blend(
 
 
 def rerank_device(
-    fingerprints,  # (fp_ids (R,K), fp_w (R,K) f16, fp_len (R,), fp_sym (R,))
+    fingerprints,  # (fp_ids (R,K), fp_w (R,K) f16, fp_len (R,), fp_sym (R,)):
+                   # ShardedRows, or tensors in global row order
     scores,  # (Q, W) f32 device tensor or host array
     ids,  # (Q, W) int row ids, device tensor or host array
     q_ids,  # (Q, T) int32 host (featurize_queries)
@@ -347,7 +351,7 @@ def rerank_device(
     sym_bonus: float = DEFAULT_SYM_BONUS,
     table=None,  # (B, D) unit-row f32 device tensor: learned MaxSim channel
     learned_weight: float = 0.0,
-    mesh: Optional[Mesh] = None,  # the fingerprints' mesh (default: one shard)
+    mesh: Mesh,  # the fingerprints' mesh
 ):
     """Full device rerank step: sharded gather + BM25 + blend + reorder, on
     the mesh's first local device.
@@ -356,7 +360,6 @@ def rerank_device(
     tensors. Scores returned are the ORIGINAL dense scores in the new order
     (the blend only decides order, as the host rerank_hits)."""
     fp_ids, fp_w, fp_len, fp_sym = fingerprints
-    mesh = resolve_mesh(mesh, fp_ids.device) if mesh is None else mesh
     device = mesh.home
     ids_dev = torch.as_tensor(ids, device=device).to(torch.int64)
     scores_dev = torch.as_tensor(scores, device=device).to(torch.float32)
@@ -387,7 +390,9 @@ class LexicalFingerprints:
     reader may still have to build that mirror from the host arrays (after
     a growth or a remap dropped it), so the host arrays and the mirror
     change only under ``_mu``, which such a build takes too: it never mixes
-    arrays of two generations, nor installs a mirror older than a write."""
+    arrays of two generations, nor installs a mirror older than a write.
+    The host arrays are whole in every process; the device mirror is
+    ``ShardedRows``, each shard's rows on its own device."""
 
     def __init__(self, row_multiple: int, kterms: int = DEFAULT_KTERMS,
                  device: DeviceLike = None, mesh: Optional[Mesh] = None):
@@ -438,11 +443,9 @@ class LexicalFingerprints:
             self._sym[rows] = sym
             dev = self._dev
             if dev is not None:
-                rows_d = torch.from_numpy(rows).to(self.device)
-                self._dev = tuple(
-                    arr.index_copy(0, rows_d, torch.from_numpy(v).to(self.device))
-                    for arr, v in zip(dev, (ids, w, ln, sym))
-                )
+                at = dev[0].route(rows)
+                vals = [torch.from_numpy(v).to(self.device) for v in (ids, w, ln, sym)]
+                self._dev = tuple(arr.set_rows(at, v) for arr, v in zip(dev, vals))
 
     def remap(self, remap: np.ndarray) -> None:
         """Renumber rows after compaction (old row -> new row, -1 =
@@ -480,9 +483,9 @@ class LexicalFingerprints:
     # -- device snapshot ----------------------------------------------------
 
     def device_arrays(self, min_rows: int) -> tuple:
-        """Device mirror in global row order (each shard reads its range),
-        padded to cover ``min_rows`` (the index's allocated rows) and the
-        row multiple."""
+        """Device mirror, one ``ShardedRows`` per array (each shard holds
+        its own rows), padded to cover ``min_rows`` (the index's allocated
+        rows) and the row multiple."""
         dev = self._dev
         if dev is not None and dev[0].shape[0] >= max(min_rows, 1):
             return dev  # the common case: no lock on the read path
@@ -492,7 +495,7 @@ class LexicalFingerprints:
             if dev is not None and dev[0].shape[0] >= self._ids.shape[0]:
                 return dev
             dev = tuple(
-                torch.from_numpy(a).to(self.device)
+                ShardedRows.from_host(self.mesh, a)
                 for a in (self._ids, self._w, self._len, self._sym)
             )
             self._dev = dev

@@ -3,8 +3,9 @@
 Counterpart of ``semcode_tpu/index/scan.py`` (``_exact_scan_impl``,
 125-361). The corpus rows are split over the mesh's row axes
 (``parallel/mesh.py``): shard ``s`` owns rows ``[s * shard_rows, (s + 1) *
-shard_rows)``. Each of this process's shards runs the step below on its own
-rows, on its own device, and the shards' ``(Q, k)`` candidates merge
+shard_rows)``, held in its own tensors (``ShardedRows``) on its own device.
+Each of this process's shards runs the step below on those tensors, and the
+shards' ``(Q, k)`` candidates merge
 innermost axis first (``hierarchical_topk_merge``), as the reference's
 shard_map body does.
 
@@ -37,6 +38,7 @@ import torch
 from ..ops.scan_top2 import NEG, top2_scan
 from ..parallel.mesh import (
     Mesh,
+    ShardedRows,
     all_reduce_sum,
     hierarchical_topk_merge,
     local_shards,
@@ -168,11 +170,11 @@ def _select_pallas(qq, q_scales, vecs, nrm, vld, scl, storage, metric,
 
 def exact_scan(
     mesh: Mesh,
-    vecs: torch.Tensor,        # (R, d) storage dtype, global row layout
-    norms: torch.Tensor,       # (R,) f32 row sqnorms (l2)
-    valid: torch.Tensor,       # (R,) bool liveness
-    scales: torch.Tensor,      # (R,) f32 int8 row scales (or placeholder)
-    rescore: Optional[torch.Tensor],  # (R, d) f32 mirror, or None
+    vecs,                      # (R, d) storage dtype
+    norms,                     # (R,) f32 row sqnorms (l2)
+    valid,                     # (R,) bool liveness
+    scales,                    # (R,) f32 int8 row scales (or placeholder)
+    rescore,                   # (R, d) f32 mirror, or None
     q: torch.Tensor,           # (Q, d) f32, metric-normalized
     k: int,                    # per-shard result width
     fetch: int,                # per-shard candidate width before rescore
@@ -180,20 +182,24 @@ def exact_scan(
     storage: str,              # int8 | bfloat16 | float32
     k_out: Optional[int] = None,  # merged width (default k)
     score_dtype: str = "float32",
-    tags: Optional[torch.Tensor] = None,   # (R,) int32 row tags
+    tags=None,                 # (R,) int32 row tags
     allow: Optional[torch.Tensor] = None,  # (A,) int32 allowed tags (-1 pad)
     scan_impl: str = "xla",
-    resid: Optional[torch.Tensor] = None,    # (R, d) int8 residual mirror
-    rscales: Optional[torch.Tensor] = None,  # (R,) f32 residual scales
+    resid=None,                # (R, d) int8 residual mirror
+    rscales=None,              # (R,) f32 residual scales
     rescore_width: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan + select + (rescore) per shard, then the merge; returns
     (scores (Q, k_out) f32, ids (Q, k_out) int64 global rows) on the mesh's
-    first local device. For l2, scores are -||q - x||^2."""
+    first local device. For l2, scores are -||q - x||^2. The row operands
+    are ``ShardedRows`` (a tensor in global row order is split first)."""
     if k_out is None:
         k_out = k
     n_shards = mesh_shards(mesh)
-    shard_rows = vecs.shape[0] // n_shards
+    vecs, norms, valid, scales, rescore, tags, resid, rscales = (
+        None if t is None else ShardedRows.of(mesh, t)
+        for t in (vecs, norms, valid, scales, rescore, tags, resid, rscales))
+    shard_rows = vecs.shard_rows
     fetch = min(fetch, shard_rows)
     k = min(k, fetch)
     w = int(rescore_width)
@@ -219,7 +225,7 @@ def exact_scan(
         lo = rank * shard_rows
 
         def rows(t):
-            return None if t is None else mesh.place(t, lo, lo + shard_rows, dev)
+            return None if t is None else t.shard(rank)
 
         v, nrm, vld, scl = rows(vecs), rows(norms), rows(valid), rows(scales)
         if tags is not None:
@@ -269,10 +275,10 @@ def exact_scan(
 
 def _rescore_parts(mesh: Mesh, n_rows: int, q, ids, metric, gather):
     """Exact f32 scores of merged candidates by global row id: each shard
-    gathers the candidates in its row range (``gather(lo, hi, dev, li)`` ->
-    (Q, K, d) rows and (Q, K) norms), scores them, and the shards' parts
-    (zero where another shard owns the row) are summed, across processes
-    too: the reference's psum. Aligned with ``ids``, not re-sorted; -3e38
+    gathers the candidates in its row range from its own tensors
+    (``gather(rank, li)`` -> (Q, K, d) rows and (Q, K) norms), scores them,
+    and the shards' parts (zero where another shard owns the row) are
+    summed, across processes too: the reference's psum. Aligned with ``ids``, not re-sorted; -3e38
     where ids < 0; l2 scores follow -||q-x||^2."""
     n_shards = mesh_shards(mesh)
     shard_rows = n_rows // n_shards
@@ -282,7 +288,7 @@ def _rescore_parts(mesh: Mesh, n_rows: int, q, ids, metric, gather):
         lo, hi = rank * shard_rows, (rank + 1) * shard_rows
         ids_d = ids.to(dev).to(torch.int64)
         li = (ids_d - lo if lo else ids_d).clamp(0, shard_rows - 1)
-        cand, nrm = gather(lo, hi, dev, li)
+        cand, nrm = gather(rank, li)
         exact = (cand * q.to(dev)[:, None, :]).sum(dim=2)
         if metric == "l2":
             exact = 2.0 * exact - nrm
@@ -303,12 +309,12 @@ def rescore_global(mesh: Mesh, frescore, fnorms, q, ids, metric):
     (scan.py:418-467): the probing path's candidates are owned by cluster,
     not by mirror row range, so each shard gathers the candidates its f32
     mirror range holds and the parts are summed (``_rescore_parts``)."""
+    frescore, fnorms = (ShardedRows.of(mesh, t) for t in (frescore, fnorms))
 
-    def gather(lo, hi, dev, li):
-        return (mesh.place(frescore, lo, hi, dev)[li],
-                mesh.place(fnorms, lo, hi, dev)[li])
+    def gather(rank, li):
+        return frescore.shard(rank)[li], fnorms.shard(rank)[li]
 
-    return _rescore_parts(mesh, frescore.shape[0], q, ids, metric, gather)
+    return _rescore_parts(mesh, frescore.rows, q, ids, metric, gather)
 
 
 def rescore_global_residual(mesh: Mesh, fvecs, fscales, fresid, frscales,
@@ -316,17 +322,19 @@ def rescore_global_residual(mesh: Mesh, fvecs, fscales, fresid, frscales,
     """``rescore_global`` for the two-level int8 mirror (scan.py:469-517):
     each shard rebuilds its candidates from the int8 corpus plus the int8
     residual (~16-bit precision) and re-scores them in f32."""
+    fvecs, fscales, fresid, frscales, fnorms = (
+        ShardedRows.of(mesh, t) for t in (fvecs, fscales, fresid, frscales, fnorms))
 
-    def gather(lo, hi, dev, li):
+    def gather(rank, li):
         cand = (
-            mesh.place(fvecs, lo, hi, dev)[li].to(torch.float32)
-            * mesh.place(fscales, lo, hi, dev)[li][:, :, None]
-            + mesh.place(fresid, lo, hi, dev)[li].to(torch.float32)
-            * mesh.place(frscales, lo, hi, dev)[li][:, :, None]
+            fvecs.shard(rank)[li].to(torch.float32)
+            * fscales.shard(rank)[li][:, :, None]
+            + fresid.shard(rank)[li].to(torch.float32)
+            * frscales.shard(rank)[li][:, :, None]
         )
-        return cand, mesh.place(fnorms, lo, hi, dev)[li]
+        return cand, fnorms.shard(rank)[li]
 
-    return _rescore_parts(mesh, fvecs.shape[0], q, ids, metric, gather)
+    return _rescore_parts(mesh, fvecs.rows, q, ids, metric, gather)
 
 
 def exact_scan_batched(mesh, vecs, norms, valid, scales, rescore, qs, k,

@@ -98,7 +98,13 @@ def main(argv: Optional[Sequence[str]] = None,
     qb = torch.from_numpy(q).to(device)
     qs = torch.stack([qb] * chunk_b)  # (B, Q, d)
 
-    vecs, norms, valid, scales, rescore, tags = idx._ensure_device()
+    state = idx._ensure_device()
+    # one shard: its tensors hold every row
+    vecs, norms, valid, scales, rescore, tags = (
+        None if t is None
+        else tuple(p.shard(0) for p in t) if isinstance(t, tuple)
+        else t.shard(0)
+        for t in state)
     rows = vecs.shape[0]
     # fixed random candidate ids for the isolated gather stages
     pos = torch.from_numpy(rng.integers(0, rows, (batch, fetch))).to(device)
@@ -154,9 +160,9 @@ def main(argv: Optional[Sequence[str]] = None,
         elif mode == "dotseltop":
             timed(lambda: dotsel(True), "dotseltop")
         elif mode == "norescore":
-            idx._dev = (vecs, norms, valid, scales, None, tags)
+            idx._dev = state[:4] + (None, state[5])
             timed(lambda: idx.search_device_batched(qs, K), "norescore", batched=True)
-            idx._dev = (vecs, norms, valid, scales, rescore, tags)
+            idx._dev = state
         elif mode == "full":
             idx.fetch_width = fetch
             timed(lambda: idx.search_device_batched(qs, K), "full", batched=True)

@@ -352,4 +352,4 @@ def test_searches_read_consistent_snapshots_during_upserts():
     # no reader installed a mirror older than the last write
     lex = store._lex
     for got, want in zip(lex.device_arrays(0), (lex._ids, lex._w, lex._len, lex._sym)):
-        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.take(np.arange(got.rows)).numpy(), want)

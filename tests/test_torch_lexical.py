@@ -132,7 +132,7 @@ def test_rerank_device_matches_reference():
         ts, ti = tl.rerank_device(
             ta.device_arrays(0), scores, ids, q_ids, q_sym=q_sym, weight=0.8,
             sym_bonus=1.0, table=None if tab is None else torch.from_numpy(tab),
-            learned_weight=0.8,
+            learned_weight=0.8, mesh=ta.mesh,
         )
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
         np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
@@ -151,4 +151,4 @@ def test_fingerprints_set_rows_and_remap():
         np.testing.assert_array_equal(getattr(ta, k), getattr(ja, k))
     dev = ta.device_arrays(0)
     for arr, host in zip(dev, (ta._ids, ta._w, ta._len, ta._sym)):
-        np.testing.assert_array_equal(arr.numpy(), host)
+        np.testing.assert_array_equal(arr.take(np.arange(arr.rows)).numpy(), host)

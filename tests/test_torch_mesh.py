@@ -192,32 +192,6 @@ def test_gather_fingerprints_matches_reference(shape, names):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_place_is_a_view_on_the_home_device():
-    t = torch.arange(40.0).reshape(10, 4)
-    v = tmesh.make_mesh(devices=["cpu"]).place(t, 2, 6, torch.device("cpu"))
-    assert v.data_ptr() == t[2].data_ptr() and v.shape == (4, 4)
-
-
-def test_place_copies_once_per_source_tensor_and_drops_with_it():
-    # ``cpu:0`` is not the home device ``cpu``: a shard there reads a copy,
-    # as a shard on another card does
-    import gc
-
-    mesh = tmesh.make_mesh(devices=["cpu", "cpu:0"])
-    other = torch.device("cpu", 0)
-    t = torch.arange(40.0).reshape(10, 4)
-    c = mesh.place(t, 5, 10, other)
-    assert torch.equal(c, t[5:10]) and c.data_ptr() != t[5].data_ptr()
-    assert mesh.place(t, 5, 10, other) is c  # cached per (source, range)
-    assert mesh.place(t, 0, 5, other) is not c
-    u = t + 1  # a writer's new tensor: its own copies, never the old ones
-    assert torch.equal(mesh.place(u, 5, 10, other), u[5:10])
-    assert len(mesh._placed) == 2
-    del t, c
-    gc.collect()
-    assert len(mesh._placed) == 1  # the source's copies went with it
-
-
 # -- multi-process settings ----------------------------------------------------------
 
 

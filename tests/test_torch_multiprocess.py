@@ -9,8 +9,11 @@ probing and exact search, the chained batched probe search, the lexical
 rerank's sharded fingerprint gather, and a VectorStore whose mesh comes from
 the ``[mesh]`` settings. Every result must equal the same engine's on the
 single-process ``(2, 4)`` mesh of ``[cpu] * 8``, bit for bit, in both
-workers. Every spawn has a timeout, and each worker destroys its process
-group in ``finally``.
+workers. A second run checks the memory split: each worker's index tensors
+hold its own 4 shards, half of every index's rows and clusters, and the
+snapshots it gathers equal the single-process ones bit for bit. Every
+spawn has a timeout, and each worker destroys its process group in
+``finally``.
 """
 
 import json
@@ -95,6 +98,72 @@ def run_engine(mesh, store_cfg, store_mesh=None):
     return out
 '''
 
+LAYOUT = r'''
+def run_layout(mesh):
+    import hashlib
+    import numpy as np
+    from semcode_tpu_torch.index.flat import FlatIndex
+    from semcode_tpu_torch.index.ivf import IVFIndex
+    from semcode_tpu_torch.index.lexical import LexicalFingerprints
+    from semcode_tpu_torch.parallel.mesh import ShardedRows
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2048, 128)).astype(np.float32)
+    q = x[:8] + 0.01 * rng.standard_normal((8, 128)).astype(np.float32)
+    out = {"held": {}, "answers": {}, "states": {}}
+
+    def held(name, state):
+        """(shards, rows held here, global rows) of every ShardedRows."""
+        found = []
+
+        def walk(obj):
+            if isinstance(obj, ShardedRows):
+                found.append([sorted(obj.parts),
+                              sum(p.shape[0] for p in obj.parts.values()),
+                              obj.rows])
+            elif isinstance(obj, tuple):
+                for v in obj:
+                    walk(v)
+
+        walk(state)
+        out["held"][name] = found
+
+    def digest(name, state):
+        out["states"][name] = {
+            k: [str(v.dtype), list(v.shape),
+                hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()]
+            if isinstance(v, np.ndarray) else v
+            for k, v in state.items()}
+
+    flat = FlatIndex(128, dtype="int8", rescore_mode="f32", scan_impl="pallas",
+                     mesh=mesh)
+    flat.add(x[:1000])
+    flat.add(x[1000:])  # grows: every shard's range moves
+    flat.remove(np.arange(0, 2048, 9))
+    ivf = IVFIndex(128, nlist=16, nprobe=4, dtype="int8", use_pallas="always",
+                   mesh=mesh)
+    ivf.add(x[:1500])
+    ivf.add(x[1500:])  # the mirror grows across the processes' shards
+    ivf.remove(np.arange(3, 2048, 11))
+    packed, _ = ivf.compacted()  # rows move to other shards' positions
+    lex = LexicalFingerprints(128, kterms=16, mesh=mesh)
+    lex.set_rows(np.arange(2048), [{"text": f"def f_{i}(): pass", "symbol": f"f_{i}",
+                                    "path": f"m{i % 7}.py"} for i in range(2048)])
+    lex.device_arrays(2048)
+    for name, idx in (("flat", flat), ("ivf", ivf), ("ivf_compacted", packed)):
+        held(name, idx._dev)
+        digest(name, idx.state_dict())  # gathered from every process's shards
+        for mode in ("ivf", "exact") if name != "flat" else ("exact",):
+            kw = {} if name == "flat" else {"mode": mode}
+            s, i = idx.search(q, 10, **kw)
+            out["answers"][f"{name}_{mode}"] = [s.astype(np.float64).tolist(),
+                                                i.tolist()]
+    held("lexical", lex._dev)
+    out["lexical_host"] = [hashlib.sha256(a.take(np.arange(a.rows)).numpy().tobytes()).hexdigest()
+                           for a in lex.device_arrays(0)]
+    return out
+'''
+
 WORKER = r'''
 import json, socket, sys
 sys.path.insert(0, {repo!r})
@@ -120,14 +189,14 @@ try:
         (2, 1), ("dcn", "data"))
     mesh = make_mesh((2, 4), ("dcn", "data"), devices=["cpu"] * 4)
     assert (mesh.process_index, mesh.process_count) == (rank, 2)
-    print("RESULT " + json.dumps(run_engine(mesh, cfg)), flush=True)
+    print("RESULT " + json.dumps({call}), flush=True)
 finally:
     distributed.shutdown()
 '''
 
 
-def _spawn(tmp_path):
-    code = ENGINE + WORKER.format(repo=str(REPO))
+def _spawn(tmp_path, code=ENGINE, call="run_engine(mesh, cfg)"):
+    code = code + WORKER.format(repo=str(REPO), call=call)
     env = {k: v for k, v in os.environ.items() if not k.startswith("SEMCODE_")}
     env["PYTHONPATH"] = str(REPO)
     procs, outs = [], []
@@ -197,3 +266,40 @@ def test_two_process_gloo_mesh_equals_single_process(tmp_path):
     # the rerank lifted the named symbol to rank 1; query 0 is row 0's
     assert want["rerank"][1][0][0] == want["rerank_target"]
     assert want["flat_float32"][1][0][0] == 0 == want["ivf_exact"][1][0][0]
+
+
+def test_two_processes_each_hold_half_of_every_index():
+    """Each worker allocates its own 4 shards' tensors and no others: half
+    of the flat rows, the IVF mirror rows and clusters (before and after a
+    compaction that moves rows between the processes' shards) and the
+    lexical table. Answers, rank 0's gathered snapshots and the gathered
+    lexical table equal one process's on the (2, 4) mesh, bit for bit."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        results, err = None, None
+        for _ in range(2):  # one retry: the port probe has a tiny reuse window
+            results, err = _spawn(tmp, LAYOUT, "run_layout(mesh)")
+            if results is not None:
+                break
+    assert results is not None, err
+
+    from semcode_tpu_torch.parallel.mesh import make_mesh
+
+    namespace = {}
+    exec(LAYOUT, namespace)
+    want = namespace["run_layout"](
+        make_mesh((2, 4), ("dcn", "data"), devices=["cpu"] * 8))
+    for name, entries in want["held"].items():
+        assert entries and all(ranks == list(range(8)) and rows == total
+                               for ranks, rows, total in entries), name
+    for rank, got in enumerate(results):
+        for name, entries in got["held"].items():
+            assert len(entries) == len(want["held"][name]), name
+            for ranks, rows, total in entries:
+                assert ranks == list(range(4 * rank, 4 * rank + 4)), name
+                assert 2 * rows == total, name
+        assert got["answers"] == want["answers"]
+        assert got["lexical_host"] == want["lexical_host"]
+    assert results[0]["states"] == want["states"]
+    assert results[1]["states"] == want["states"]

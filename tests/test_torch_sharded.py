@@ -379,71 +379,3 @@ def test_snapshots_cross_load_across_shard_counts(tmp_path, meshes, repo):
     assert answers[("1", "jax")] == answers[("1", "torch")]
     # the sharded reload serves another window than the one-shard reload
     assert answers[("8", "jax")] != answers[("1", "jax")]
-
-
-# -- shards off the home device ----------------------------------------------------
-
-# ``cpu:0`` is not the home device ``cpu``: those shards read copies of
-# their rows, as the shards on the other cards of a multi-card host do
-SPLIT = ["cpu", "cpu:0"] * 4
-
-
-def _equal(a, b):
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-
-@pytest.mark.parametrize("kind", ["flat", "ivf", "store"])
-def test_shards_off_the_home_device_read_copies(tmp_path, meshes, repo, kind):
-    """``Mesh.place``'s copy branch: the 8-shard mesh whose odd shards sit
-    on another device answers as the 8-shard mesh of one device does, bit
-    for bit, and after a write too (writers make new tensors, whose rows
-    the next search copies anew); the copies go with their source."""
-    import gc
-
-    one = meshes["8"][1]
-    split = make_mesh((8,), ("data",), devices=SPLIT)
-    x, tags, q = _rows(31, 1600, 128)
-    if kind == "store":
-        svcs = []
-        for name, mesh in (("one", one), ("split", split)):
-            cfg = _settings(AppSettings, tmp_path / name)
-            svc = IndexerService(config=cfg, vector_store=VectorStore(cfg, mesh=mesh),
-                                 device="cpu")
-            svc.index_repository([repo], "pkg")
-            svcs.append(SemanticSearchPipeline(
-                config=cfg, vector_store=svc.vector_store,
-                embeddings=svc.embeddings, device="cpu"))
-        assert (_hits(svcs[1].query_batch(QUESTIONS, top_k=5))
-                == _hits(svcs[0].query_batch(QUESTIONS, top_k=5)))
-        assert split._placed
-        return
-    if kind == "flat":
-        kw = dict(dtype="int8", scan_impl="pallas", rescore_mode="residual")
-        a, b = FlatIndex(128, mesh=one, **kw), FlatIndex(128, mesh=split, **kw)
-        for idx in (a, b):
-            idx.add(x[:1200], tags[:1200])
-        modes = [{}]
-    else:
-        j = JaxIVF(128, nlist=16, nprobe=4, dtype="int8", use_pallas="always",
-                   mesh=meshes["8"][0])
-        j.add(x[:1200], tags[:1200])
-        state = j.state_dict()
-        a, b = (IVFIndex.from_state(state, mesh=m, dtype="int8", use_pallas="always")
-                for m in (one, split))
-        modes = [{"mode": "ivf"}, {"mode": "exact"}]
-    for mode in modes:
-        _equal(a.search(q, 10, **mode), b.search(q, 10, **mode))
-    old = set(split._placed)
-    assert old
-    for idx in (a, b):
-        idx.add(x[1200:], tags[1200:])
-        idx.remove(np.arange(0, 1600, 7))
-    for mode in modes:
-        _equal(a.search(q, 10, **mode), b.search(q, 10, **mode))
-        _equal(a.search(q, 10, allow_tags=[1], **mode),
-               b.search(q, 10, allow_tags=[1], **mode))
-    gc.collect()
-    # the tensors the write replaced took their copies with them
-    assert all(ref() is not None for ref, _ in split._placed.values())
-    assert old - set(split._placed)
