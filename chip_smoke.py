@@ -28,7 +28,9 @@ Phases (any failed check exits non-zero before the final line):
 2b. hold the ivf_scan kernels against their plain versions on the card:
    int8 / bf16 / f32 cluster blocks with ~10% empty slots and duplicated
    rows, d in {128, 384, 3072}, cmax in {128, 2176}, Q in {1, 8, 512},
-   nprobe in {1, 16, 32, 128}, k in {10, 64}; then every storage at cmax
+   nprobe in {1, 16, 32, 128}, k in {10, 64}, with int8 at the bench's
+   two probing shapes (nlist 1024, cmax 2176: d 384 at Q 512, nprobe 32;
+   d 3072 at Q 8, nprobe 16; phase 11); then every storage at cmax
    2176 with clusters probed by 64, by 65 and by every query (tiles that
    end at, past and far past one 64-query int8 tile, past 20-query bf16
    and 32-query f32 tiles) and empty tails of every length, nprobe up to 128, k 10 and 64,
@@ -242,6 +244,19 @@ Phases (any failed check exits non-zero before the final line):
    eager path's, every token; 10d. ``entry.dryrun_multichip(8)`` on
    ``[cuda:0] * 8`` with the kernel launches of its index half (its
    indexes' default routes, as the reference's dry run) read around it.
+11. the headline benchmark (run after phase 9e): 11a. ``python -m
+   semcode_tpu_torch.bench`` as shipped (``BENCH_SCAN_IMPL=auto``) in a
+   process of its own with a timeout, at the full 1M x 384 and 1M x 3072,
+   ``BENCH_SECS=4``; 11b. the same with ``BENCH_SCAN_IMPL=pallas
+   BENCH_HIGHDIM=0 BENCH_API=0``, so the flagship, chunked, serving and
+   filtered exact scans go through top2_scan. Each last line must name no
+   failed or skipped section, with recall@10 >= 0.99 exact, >= 0.95
+   probing at nprobe 32 and 16, >= 0.99 filtered, every filtered hit
+   tagged and the writer's 5120 rows written and read back; 11a's 1M x 3072
+   index must take the residual rescore tier at recall@10 >= 0.99 exact
+   and >= 0.95 probing at nprobe 16. The
+   bench's kernel launch counts join the kernels line (``bench_launches``:
+   ivf_scan's from 11a, top2_scan's from 11b, each >= 1).
 
 Prints the ``kernels`` JSON line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -251,6 +266,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -467,15 +483,34 @@ def tile_edge_inputs(storage, rs, d, nq, metric, gen):
 # -- phase 2b: the IVF kernel against its plain version ------------------------
 
 
-def ivf_inputs(storage, nlist, cmax, d, nq, nprobe, gen):
-    """Cluster blocks with ~10% empty slots and duplicated rows (ties)."""
+def unit_blocks(nlist, cmax, d, gen):
+    """(nlist, cmax, d) f32 unit rows, slots 8-15 of each cluster copying
+    slots 0-7 (ties)."""
     import torch
-
-    from semcode_tpu_torch.index.flat import quantize_rows_device
 
     x = torch.randn(nlist, cmax, d, generator=gen, device="cuda")
     x = x / x.norm(dim=2, keepdim=True)
     x[:, 8:16] = x[:, 0:8]
+    return x
+
+
+def ivf_inputs(storage, nlist, cmax, d, nq, nprobe, gen):
+    """Cluster blocks with ~10% empty slots and duplicated rows (ties).
+    int8 blocks are made and quantized IVF_GEN_BYTES of f32 at a time: the
+    bench's 1024 x 2176 x 3072 layout is 6.8 GB of int8, 27 GB as f32."""
+    import torch
+
+    from semcode_tpu_torch.index.flat import quantize_rows_device
+
+    if storage == "int8":
+        per = max(1, IVF_GEN_BYTES // (cmax * d * 4))
+        parts = [quantize_rows_device(unit_blocks(min(per, nlist - lo), cmax, d, gen))
+                 for lo in range(0, nlist, per)]
+        data = torch.cat([p[0] for p in parts]) if len(parts) > 1 else parts[0][0]
+        scales = torch.cat([p[1] for p in parts]) if len(parts) > 1 else parts[0][1]
+        del parts
+    else:
+        x = unit_blocks(nlist, cmax, d, gen)
     ids = torch.arange(nlist * cmax, device="cuda", dtype=torch.int32)
     empty = torch.rand(nlist, cmax, generator=gen, device="cuda") < 0.1
     ids = torch.where(empty, -1, ids.reshape(nlist, cmax))
@@ -484,7 +519,6 @@ def ivf_inputs(storage, nlist, cmax, d, nq, nprobe, gen):
     probes = torch.argsort(torch.rand(nq, nlist, generator=gen, device="cuda"),
                            dim=1)[:, :nprobe]
     if storage == "int8":
-        data, scales = quantize_rows_device(x)
         return data, ids, q, probes, scales
     dt = torch.bfloat16 if storage == "bfloat16" else torch.float32
     return x.to(dt), ids, q, probes, None
@@ -504,10 +538,16 @@ def untied_ids_equal(s_ref, i_ref, i_got, tol) -> bool:
     return bool(torch.equal(i_got[apart], i_ref[apart]))
 
 
-# (storage, nlist, cmax, d, Q, nprobe, k): every value of each axis appears
+# f32 made at a time for an int8 case's blocks (ivf_inputs)
+IVF_GEN_BYTES = 4 << 30
+
+# (storage, nlist, cmax, d, Q, nprobe, k): every value of each axis appears;
+# the int8 cases at cmax 2176 are the bench's shapes (phase 11): 1M x 384 at
+# batch 512, nprobe 32, and 1M x 3072 at batch 8, nprobe 16
 IVF_CASES = [
     ("int8", 16, 128, 128, 1, 1, 10),
     ("int8", 1024, 2176, 384, 512, 32, 64),
+    ("int8", 1024, 2176, 3072, 8, 16, 64),
     ("int8", 64, 128, 3072, 8, 16, 64),
     ("int8", 256, 128, 384, 8, 128, 10),
     ("bfloat16", 64, 2176, 128, 8, 16, 64),
@@ -523,6 +563,7 @@ IVF_CASES = [
 # tiles hold 64 queries, bf16 tiles 20, f32 tiles 32
 IVF_CROWDED_CASES = [
     ("int8", 64, 384, 200, 16, 64),
+    ("int8", 16, 3072, 100, 8, 64),
     ("int8", 256, 128, 100, 128, 10),
     ("int8", 16, 384, 700, 8, 64),
     ("bfloat16", 64, 384, 200, 16, 64),
@@ -3918,6 +3959,71 @@ def split_phase(workdir: Path, flat: dict, ivf: dict):
     return out
 
 
+# -- phase 11: the headline benchmark ----------------------------------------------
+
+# the limits each bench line must meet (key, least value); 11a adds the
+# 1M x 3072 section's, exact and probing at nprobe 16
+BENCH_FLOORS = (("recall_at_10_exact", 0.99), ("recall_at_10_probing", 0.95),
+                ("recall_at_10_probing16", 0.95), ("filtered_recall_at_10", 0.99))
+BENCH_SECS = "4"
+BENCH_TIMEOUT_S = 300
+BENCH_PALLAS_TIMEOUT_S = 200
+
+
+def bench_phase(label: str, env_extra: dict, timeout: float) -> dict:
+    """11a / 11b: ``python -m semcode_tpu_torch.bench`` as shipped, in a
+    process of its own with a timeout, at the full 1M x 384 (and 11a's 1M
+    x 3072) with BENCH_SECS 4. Its last line must name no failed or
+    skipped section and meet BENCH_FLOORS, hold every filtered hit to its
+    tag and show the writer's 5120 rows; 11a's 1M x 3072 section must
+    take the residual tier at recall@10 >= 0.99 (>= 0.95 probing at
+    nprobe 16). The line's figures and
+    the bench's log are printed; returns its extras, value and seconds."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_SECS=BENCH_SECS, **env_extra)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "semcode_tpu_torch.bench"],
+                              cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=timeout)
+    except subprocess.TimeoutExpired as exc:
+        fail(f"bench {label} outlived its {timeout} s timeout:\n"
+             f"{(exc.stderr or b'')[-3000:]}")
+    wall_s = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith("[bench"):
+            log(f"[bench] {label} {line}")
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    if not lines:
+        fail(f"bench {label} printed no line (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+    log(f"[bench] {label} last line: {lines[-1]}")
+    out = json.loads(lines[-1])
+    ex = out["extras"]
+    if proc.returncode != 0 or ex.get("stage") != "done":
+        fail(f"bench {label} exited {proc.returncode} at stage {ex.get('stage')}:\n"
+             f"{proc.stderr[-3000:]}")
+    if ex["failed"] or ex["skipped"]:
+        fail(f"bench {label}: failed {ex['failed']}, skipped {ex['skipped']}")
+    floors = BENCH_FLOORS
+    if env_extra.get("BENCH_HIGHDIM") != "0":
+        floors += (("d3072_recall_at_10", 0.99),
+                   ("d3072_recall_at_10_probing16", 0.95))
+        if ex.get("d3072_rescore_tier") != "residual":
+            fail(f"bench {label}: the 1M x 3072 index took the "
+                 f"{ex.get('d3072_rescore_tier')} tier, not residual")
+    for key, least in floors:
+        if not ex.get(key, -1) >= least:
+            fail(f"bench {label}: {key} {ex.get(key)} < {least}")
+    if ex.get("filtered_hits_all_match") is not True:
+        fail(f"bench {label}: a filtered hit lies outside the allowed tag")
+    if ex.get("under_ingest_rows") != 5120:
+        fail(f"bench {label}: the writer wrote {ex.get('under_ingest_rows')} of 5120 rows")
+    log(f"[bench] {label}: {out['value']} QPS (vs_baseline {out['vs_baseline']}), "
+        f"launches {ex['kernel_launches']}, in {wall_s:.1f} s")
+    return {"value": out["value"], "vs_baseline": out["vs_baseline"],
+            "extras": ex, "wall_s": wall_s}
+
+
 def main() -> int:
     import gc
 
@@ -3989,6 +4095,11 @@ def main() -> int:
     torch.cuda.empty_cache()  # the workers' room on the card
     with tempfile.TemporaryDirectory(prefix="semcode_split_") as tmp:
         split = split_phase(Path(tmp), sharded_scale, sharded_ivf)
+    gc.collect()
+    torch.cuda.empty_cache()  # the bench's room on the card
+    bench_auto = bench_phase("11a", {}, BENCH_TIMEOUT_S)
+    bench_pallas = bench_phase("11b", {"BENCH_SCAN_IMPL": "pallas", "BENCH_HIGHDIM": "0",
+                                       "BENCH_API": "0"}, BENCH_PALLAS_TIMEOUT_S)
     sharded.pop("paths")
     sharded_scale.pop("ids")
     sharded_ivf.pop("ids")
@@ -4035,6 +4146,8 @@ def main() -> int:
         "split_launches": split["flat"]["launches"],
         # phase 10d: the dry run's index half (its indexes' default routes)
         "dryrun_launches": sharded_training["dryrun"]["launches"]["top2_scan"],
+        # phase 11b: the bench with BENCH_SCAN_IMPL=pallas
+        "bench_launches": bench_pallas["extras"]["kernel_launches"]["top2_scan"],
         **{f"api_{key}": api_kernel[key] for key in
            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }
@@ -4053,7 +4166,11 @@ def main() -> int:
             **extra))
     if api["launches"] < 1:
         fail("top2_scan was not launched behind /query")
+    if records[0]["bench_launches"] < 1:
+        fail("top2_scan was not launched in the bench's run with BENCH_SCAN_IMPL=pallas")
     ik = ivf_scale["kernel"]
+    if bench_auto["extras"]["kernel_launches"]["ivf_scan"] < 1:
+        fail("ivf_scan was not launched in the bench's run as shipped")
     records.append(kernel_record(
         "ivf_scan[int8]", *ivf_src, ik["launches"], ik, worst_ivf,
         # the scan kernel alone, the bookkeeping kernels and the scan's two
@@ -4065,7 +4182,9 @@ def main() -> int:
         # phase 9c: one probe search over 4 shards, once per shard
         shards=sharded_ivf["shards"], sharded_launches=sharded_ivf["launches"],
         split_launches=split["ivf"]["launches"],
-        dryrun_launches=sharded_training["dryrun"]["launches"]["ivf_scan"]))
+        dryrun_launches=sharded_training["dryrun"]["launches"]["ivf_scan"],
+        # phase 11a: the bench as shipped
+        bench_launches=bench_auto["extras"]["kernel_launches"]["ivf_scan"]))
     for storage in ("bfloat16", "float32"):
         leg = ivf_scale[storage]
         lk = leg["kernel"]
@@ -4104,6 +4223,7 @@ def main() -> int:
         "sharded_scale": sharded_scale,
         "sharded_ivf": sharded_ivf,
         "split": split,
+        "bench": {"11a": bench_auto, "11b": bench_pallas},
     }
     log(f"[summary] {json.dumps(summary)}")
     log(f"[time] chip_smoke ran {time.perf_counter() - t_start:.1f} s after the "

@@ -1,25 +1,56 @@
-"""Seeded corpora and the exact oracle shared by the tools and chip_smoke.py.
+"""Seeded corpora and the exact oracle shared by the tools, the bench and
+chip_smoke.py.
 
 The corpus is the JAX package's ``bench.py`` shape of difficulty: unit rows
 around ``max(64, n / 1000)`` Gaussian centers, made on the generator's
-device from a seeded ``torch.Generator``.
+device from a seeded ``torch.Generator``. A corpus too large to hold whole
+is made in chunks, each from its own generator (``mixture_chunk``).
 """
 
 from __future__ import annotations
 
+from typing import Iterable, Tuple
+
+import numpy as np
 import torch
 
 from ..device import f32_matmul
 
 
+# chunk i of a streamed corpus draws from the generator seeded
+# seed * CHUNK_KEYS + i (a CPU generator keeps 32 bits of its seed)
+CHUNK_KEYS = 1 << 16
+
+
+def mixture_centers(gen: torch.Generator, n_centers: int, d: int) -> torch.Tensor:
+    """(n_centers, d) f32 Gaussian centers."""
+    return torch.randn(n_centers, d, generator=gen, device=gen.device)
+
+
+def mixture_rows(gen: torch.Generator, centers: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, d) f32 unit rows: a uniformly drawn center each plus 0.35
+    Gaussian noise. The noise and the norm are applied in place, so a
+    3 GB chunk needs two chunk-sized buffers, not four."""
+    assign = torch.randint(0, centers.shape[0], (n,), generator=gen, device=gen.device)
+    x = centers[assign]
+    noise = torch.randn(n, centers.shape[1], generator=gen, device=gen.device)
+    x.add_(noise.mul_(0.35))
+    del noise
+    return x.div_(torch.clamp(x.norm(dim=1, keepdim=True), min=1e-9))
+
+
 def mixture(gen: torch.Generator, n: int, d: int) -> torch.Tensor:
     """(n, d) f32 unit rows around max(64, n // 1000) Gaussian centers."""
-    n_centers = max(64, n // 1000)
-    centers = torch.randn(n_centers, d, generator=gen, device=gen.device)
-    assign = torch.randint(0, n_centers, (n,), generator=gen, device=gen.device)
-    x = centers[assign]
-    x.add_(0.35 * torch.randn(n, d, generator=gen, device=gen.device))
-    return x / torch.clamp(x.norm(dim=1, keepdim=True), min=1e-9)
+    return mixture_rows(gen, mixture_centers(gen, max(64, n // 1000), d), n)
+
+
+def mixture_chunk(seed: int, i: int, centers: torch.Tensor, n: int) -> torch.Tensor:
+    """Chunk ``i`` (n rows) of a corpus streamed around ``centers``: keyed
+    by ``(seed, i)`` alone, so making it again gives the same bits."""
+    if not 0 <= i < CHUNK_KEYS:
+        raise ValueError(f"chunk index {i} outside [0, {CHUNK_KEYS})")
+    gen = torch.Generator(device=centers.device).manual_seed(seed * CHUNK_KEYS + i)
+    return mixture_rows(gen, centers, n)
 
 
 def queries_near(gen: torch.Generator, x: torch.Tensor, nq: int) -> torch.Tensor:
@@ -29,16 +60,25 @@ def queries_near(gen: torch.Generator, x: torch.Tensor, nq: int) -> torch.Tensor
     return q / torch.clamp(q.norm(dim=1, keepdim=True), min=1e-9)
 
 
-def oracle_topk(x: torch.Tensor, q: torch.Tensor, k: int) -> torch.Tensor:
-    """(Q, k) ids of the exact top-k inner products, in true f32 (TF32 held
-    off), over row chunks of 2**18."""
+def oracle_parts(parts: Iterable[Tuple[int, torch.Tensor]], q: torch.Tensor,
+                 k: int, sub: int = 1 << 18) -> np.ndarray:
+    """(Q, k) int64 ids of the exact top-k inner products over row parts
+    given as (first id, rows), the parts made as they are consumed: the
+    true-f32 product (TF32 held off) of every ``sub``-row slice, its
+    ``torch.topk``, and one host merge by score."""
     best_s, best_i = [], []
-    for lo in range(0, x.shape[0], 1 << 18):
-        s = f32_matmul(q, x[lo:lo + (1 << 18)].T)
-        v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
-        best_s.append(v)
-        best_i.append(i + lo)
-    s = torch.cat(best_s, dim=1)
-    i = torch.cat(best_i, dim=1)
-    _, sel = torch.topk(s, k, dim=1)
-    return torch.gather(i, 1, sel)
+    for base, rows in parts:
+        for lo in range(0, rows.shape[0], sub):
+            s = f32_matmul(q, rows[lo:lo + sub].T)
+            v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
+            best_s.append(v.cpu().numpy())
+            best_i.append(i.cpu().numpy() + (base + lo))
+    s = np.concatenate(best_s, axis=1)
+    i = np.concatenate(best_i, axis=1)
+    sel = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(i, sel, axis=1)
+
+
+def oracle_topk(x: torch.Tensor, q: torch.Tensor, k: int) -> torch.Tensor:
+    """``oracle_parts`` over the whole of ``x``, on ``q``'s device."""
+    return torch.from_numpy(oracle_parts([(0, x)], q, k)).to(q.device)
