@@ -1334,6 +1334,8 @@ def op_class_breakdown(fn, iters: int = 5):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from semcode_tpu_torch.utils.tracing import is_span_event
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1347,7 +1349,7 @@ def op_class_breakdown(fn, iters: int = 5):
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if ev.device_type != DeviceType.CUDA or dev_us <= 0:
+        if ev.device_type != DeviceType.CUDA or dev_us <= 0 or is_span_event(ev):
             continue
         cls = op_class(ev.key)
         classes[cls] += dev_us / 1e3 / iters
@@ -2508,6 +2510,8 @@ def device_breakdown(fn, label: str, iters: int = 5):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from semcode_tpu_torch.utils.tracing import is_span_event
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2522,7 +2526,7 @@ def device_breakdown(fn, label: str, iters: int = 5):
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if ev.device_type == DeviceType.CUDA and dev_us > 0:
+        if ev.device_type == DeviceType.CUDA and dev_us > 0 and not is_span_event(ev):
             rows.append((ev.key, dev_us / 1e3 / iters))
             launches += ev.count
     rows.sort(key=lambda r: -r[1])
@@ -2547,6 +2551,8 @@ def kernel_device_ms(fn, names, iters: int = 10):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from semcode_tpu_torch.utils.tracing import is_span_event
+
     fn()
     torch.cuda.synchronize()
     for _attempt in range(3):
@@ -2560,7 +2566,7 @@ def kernel_device_ms(fn, names, iters: int = 10):
             dev_us = getattr(ev, "self_device_time_total", None)
             if dev_us is None:
                 dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if ev.device_type != DeviceType.CUDA:
+            if ev.device_type != DeviceType.CUDA or is_span_event(ev):
                 continue
             for name in names:
                 if name in ev.key:

@@ -11,7 +11,9 @@ JSON, serving the PyTorch engine:
     POST /jobs/ingest      async ingest job           (auth)
     GET  /jobs             all jobs                   (auth)
     GET  /jobs/{id}        one job                    (auth)
-    GET  /telemetry        counters snapshot          (auth, 404 if disabled)
+    GET  /telemetry        counters snapshot, the engine's
+                           spans and counters under "engine"
+                                                      (auth, 404 if disabled)
     POST /query            RAG query                  (auth, 502 on failure)
     POST /compact          reclaim tombstoned rows    (auth)
     GET  /chunks           chunk listing              (auth)
@@ -46,6 +48,7 @@ from ..rag import SemanticSearchPipeline
 from ..rag.llm import LOCAL_LLM_PROVIDERS
 from ..services import IndexerService, IndexingCallbacks
 from ..settings import AppSettings, settings as default_settings
+from ..utils import tracing
 from .batcher import BatcherOverloaded, QueryBatcher
 from .dependencies import API_KEY_HEADER, check_api_key, telemetry_enabled
 from .jobs import JobLedger, JobSnapshot
@@ -554,7 +557,8 @@ def create_app(
     async def telemetry_snapshot(_request: web.Request) -> web.Response:
         if not telemetry_enabled(config):
             raise web.HTTPNotFound(reason="Telemetry disabled")
-        return web.json_response(telemetry.snapshot())
+        return web.json_response({**telemetry.snapshot(),
+                                  "engine": tracing.snapshot()})
 
     async def query(request: web.Request) -> web.Response:
         try:

@@ -68,6 +68,7 @@ from ..parallel.mesh import (
     pad_bucket,
     resolve_mesh,
 )
+from ..utils import tracing
 from .flat import (
     DEVICE_RESCORE_MAX_BYTES,
     RESIDUAL_RESCORE_MAX_BYTES,
@@ -567,25 +568,26 @@ class IVFIndex:
 
     def train(self, x: Optional[np.ndarray] = None) -> None:
         """Train the coarse quantizer (on provided sample or current rows)."""
-        if x is not None:
-            x = self._check_vectors(x, device_ok=False)
-            if self.metric == "cosine":
-                x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
-            sample_dev = self._to_dev(x)
-        else:
-            live = np.flatnonzero(self._alive[: self._n_rows])
-            if live.size == 0:
+        with tracing.phase("ivf.build.kmeans"):
+            if x is not None:
+                x = self._check_vectors(x, device_ok=False)
+                if self.metric == "cosine":
+                    x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+                sample_dev = self._to_dev(x)
+            else:
+                live = np.flatnonzero(self._alive[: self._n_rows])
+                if live.size == 0:
+                    raise ValueError("cannot train IVF on an empty corpus")
+                max_train = self.nlist * TRAIN_POINTS_PER_CENTROID
+                if live.size > max_train:
+                    rng = np.random.default_rng(self.seed)
+                    live = rng.choice(live, size=max_train, replace=False)
+                sample_dev = self._f32_chunk(live)
+            if sample_dev.shape[0] == 0:
                 raise ValueError("cannot train IVF on an empty corpus")
-            max_train = self.nlist * TRAIN_POINTS_PER_CENTROID
-            if live.size > max_train:
-                rng = np.random.default_rng(self.seed)
-                live = rng.choice(live, size=max_train, replace=False)
-            sample_dev = self._f32_chunk(live)
-        if sample_dev.shape[0] == 0:
-            raise ValueError("cannot train IVF on an empty corpus")
-        self.centroids = kmeans_fit_dev(
-            sample_dev, self.nlist, iters=self.kmeans_iters, seed=self.seed
-        )
+            self.centroids = kmeans_fit_dev(
+                sample_dev, self.nlist, iters=self.kmeans_iters, seed=self.seed
+            )
 
     @contextmanager
     def bulk(self, expected_rows: Optional[int] = None):
@@ -622,37 +624,38 @@ class IVFIndex:
         the device needs no host round trip). ``tags`` (optional int32 per
         row, >= 0) enable device-side filtered search on the exact path;
         None = tag 0."""
-        x = self._check_vectors(x)
-        if x.shape[0] == 0:
-            return np.zeros((0,), dtype=np.int64)
-        n = x.shape[0]
-        if tags is None:
-            tags = np.zeros((n,), dtype=np.int32)
-        else:
-            tags = np.asarray(tags, dtype=np.int32).ravel()
-            if tags.shape[0] != n:
-                raise ValueError(f"expected {n} tags, got {tags.shape[0]}")
-        if self._use_pending(n):
-            return self._add_pending(x, tags)
-        rows = self._extend_meta(n, tags)
-        self._ensure_mirror(self._n_rows)
-        self._ingest_rows(x, rows, tags)
-        if self._bulk:
-            # layout/materialization deferred to bulk() exit; the mirror is
-            # authoritative so nothing is lost if the block exits early
-            self._dirty = True
+        with tracing.phase("ivf.add"):
+            x = self._check_vectors(x)
+            if x.shape[0] == 0:
+                return np.zeros((0,), dtype=np.int64)
+            n = x.shape[0]
+            if tags is None:
+                tags = np.zeros((n,), dtype=np.int32)
+            else:
+                tags = np.asarray(tags, dtype=np.int32).ravel()
+                if tags.shape[0] != n:
+                    raise ValueError(f"expected {n} tags, got {tags.shape[0]}")
+            if self._use_pending(n):
+                return self._add_pending(x, tags)
+            rows = self._extend_meta(n, tags)
+            self._ensure_mirror(self._n_rows)
+            self._ingest_rows(x, rows, tags)
+            if self._bulk:
+                # layout/materialization deferred to bulk() exit; the mirror is
+                # authoritative so nothing is lost if the block exits early
+                self._dirty = True
+                return rows
+            if not self.is_trained:
+                self.train()
+                self._rebuild_layout()
+                self._materialize()
+                return rows
+            if self.cmax == 0:
+                self._rebuild_layout()
+                self._materialize()
+                return rows
+            self._stream_place(rows)
             return rows
-        if not self.is_trained:
-            self.train()
-            self._rebuild_layout()
-            self._materialize()
-            return rows
-        if self.cmax == 0:
-            self._rebuild_layout()
-            self._materialize()
-            return rows
-        self._stream_place(rows)
-        return rows
 
     def _stream_place(self, rows: np.ndarray) -> None:
         """Streaming placement: nearest candidate cluster with a free slot;
@@ -767,22 +770,24 @@ class IVFIndex:
         if pend is None or pend[3] == 0:
             return scores, ids
         vecs, pids, ptags, _ = pend
-        return _pending_merge(scores, ids, q_dev, vecs, pids, ptags,
-                              self.metric, self._allow_dev(allow_tags))
+        with tracing.span("ivf.pending"):
+            return _pending_merge(scores, ids, q_dev, vecs, pids, ptags,
+                                  self.metric, self._allow_dev(allow_tags))
 
     def _merge_pending_into_batched(self, scores, ids, qs_dev, allow_tags=None):
         pend = self._pend
         if pend is None or pend[3] == 0:
             return scores, ids
         vecs, pids, ptags, _ = pend
-        allow = self._allow_dev(allow_tags)
-        outs = [
-            _pending_merge(scores[b], ids[b], qs_dev[b], vecs, pids, ptags,
-                           self.metric, allow)
-            for b in range(qs_dev.shape[0])
-        ]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]))
+        with tracing.span("ivf.pending"):
+            allow = self._allow_dev(allow_tags)
+            outs = [
+                _pending_merge(scores[b], ids[b], qs_dev[b], vecs, pids, ptags,
+                               self.metric, allow)
+                for b in range(qs_dev.shape[0])
+            ]
+            return (torch.stack([o[0] for o in outs]),
+                    torch.stack([o[1] for o in outs]))
 
     def remove(self, rows: np.ndarray) -> None:
         """Tombstone rows (device slots masked via ids == -1)."""
@@ -865,87 +870,92 @@ class IVFIndex:
         even on skewed corpora. Candidate clusters are scored on the device;
         only the (N, m) int32 candidate table and the O(N) greedy assignment
         run on the host."""
-        # pending rows live only in the side buffer; the re-pack below reads
-        # every live row from the mirror, so fold first (no placement)
-        self._fold_pending(place=False)
-        live = np.flatnonzero(self._alive[: self._n_rows])
-        mean = max(1.0, live.size / self.nlist)
-        cap = max(8, int(np.ceil(mean * self.balance_cap)))
-        # m=8 spill candidates: enough fallthrough that the cap holds
-        cands = self._topm_rows(live, m=min(8, self.nlist))
-        assign = balanced_assign(cands, self.nlist, cap)
-        self._assign[live] = assign
-        counts = np.bincount(assign, minlength=self.nlist).astype(np.int32)
-        # headroom so streaming inserts don't immediately re-trigger a
-        # rebuild; the probing kernel needs 128-aligned cluster blocks
-        slot_align = 128 if self._pallas_eligible() else 8
-        self.cmax = max(
-            slot_align, round_up(int(counts.max() * 1.1) + 8, slot_align)
-        )
-        order = np.argsort(assign, kind="stable")
-        sorted_rows = live[order]
-        sorted_assign = assign[order]
-        starts = np.zeros(self.nlist + 1, dtype=np.int64)
-        np.cumsum(counts, out=starts[1:])
-        slots = np.arange(len(order), dtype=np.int64) - starts[sorted_assign]
-        self._loc[sorted_rows, 0] = sorted_assign
-        self._loc[sorted_rows, 1] = slots.astype(np.int32)
-        self._counts = counts
-        self._dirty = True
-        log.info(
-            "ivf_layout_rebuilt",
-            nlist=self.nlist,
-            cmax=self.cmax,
-            rows=int(live.size),
-            fill=float(live.size / max(self.nlist * self.cmax, 1)),
-        )
+        tracing.count("ivf.layout_rebuild")
+        with tracing.phase("ivf.build.layout"):
+            # pending rows live only in the side buffer; the re-pack below reads
+            # every live row from the mirror, so fold first (no placement)
+            self._fold_pending(place=False)
+            live = np.flatnonzero(self._alive[: self._n_rows])
+            mean = max(1.0, live.size / self.nlist)
+            cap = max(8, int(np.ceil(mean * self.balance_cap)))
+            # m=8 spill candidates: enough fallthrough that the cap holds
+            with tracing.phase("ivf.build.layout.candidates"):
+                cands = self._topm_rows(live, m=min(8, self.nlist))
+            with tracing.phase("ivf.build.layout.assign"):
+                assign = balanced_assign(cands, self.nlist, cap)
+            self._assign[live] = assign
+            counts = np.bincount(assign, minlength=self.nlist).astype(np.int32)
+            # headroom so streaming inserts don't immediately re-trigger a
+            # rebuild; the probing kernel needs 128-aligned cluster blocks
+            slot_align = 128 if self._pallas_eligible() else 8
+            self.cmax = max(
+                slot_align, round_up(int(counts.max() * 1.1) + 8, slot_align)
+            )
+            order = np.argsort(assign, kind="stable")
+            sorted_rows = live[order]
+            sorted_assign = assign[order]
+            starts = np.zeros(self.nlist + 1, dtype=np.int64)
+            np.cumsum(counts, out=starts[1:])
+            slots = np.arange(len(order), dtype=np.int64) - starts[sorted_assign]
+            self._loc[sorted_rows, 0] = sorted_assign
+            self._loc[sorted_rows, 1] = slots.astype(np.int32)
+            self._counts = counts
+            self._dirty = True
+            log.info(
+                "ivf_layout_rebuilt",
+                nlist=self.nlist,
+                cmax=self.cmax,
+                rows=int(live.size),
+                fill=float(live.size / max(self.nlist * self.cmax, 1)),
+            )
 
     def _materialize(self) -> tuple:
         """(Re)build the padded cluster layout from the device mirror. All
         vector bytes move device to device; the host contributes only the
         int32 location table and the liveness/tag refresh."""
-        self._ensure_mirror(max(self._n_rows, 1))
-        mir = self._mir
-        # refresh liveness/tags from the host authority (covers external
-        # _tags writes, e.g. store.load re-deriving tags)
-        mcap = self._mirror_cap
-        fvalid_h = np.zeros((mcap,), dtype=bool)
-        fvalid_h[: self._n_rows] = self._alive[: self._n_rows]
-        ftags_h = np.zeros((mcap,), dtype=np.int32)
-        ftags_h[: self._n_rows] = self._tags[: self._n_rows]
-        mir = mir._replace(fvalid=ShardedRows.from_host(self.mesh, fvalid_h),
-                           ftags=ShardedRows.from_host(self.mesh, ftags_h))
-        self._mir = mir
+        with tracing.phase("ivf.build.pack"):
+            self._ensure_mirror(max(self._n_rows, 1))
+            mir = self._mir
+            # refresh liveness/tags from the host authority (covers external
+            # _tags writes, e.g. store.load re-deriving tags)
+            mcap = self._mirror_cap
+            fvalid_h = np.zeros((mcap,), dtype=bool)
+            fvalid_h[: self._n_rows] = self._alive[: self._n_rows]
+            ftags_h = np.zeros((mcap,), dtype=np.int32)
+            ftags_h[: self._n_rows] = self._tags[: self._n_rows]
+            mir = mir._replace(fvalid=ShardedRows.from_host(self.mesh, fvalid_h),
+                               ftags=ShardedRows.from_host(self.mesh, ftags_h))
+            self._mir = mir
 
-        live = np.flatnonzero(self._alive[: self._n_rows])
-        c_all = self._loc[live, 0].astype(np.int64)
-        s_all = self._loc[live, 1].astype(np.int64)
-        # the layout splits by cluster: nlist_s clusters a shard
-        data = self._sharded(self.nlist, (self.cmax, self.dim), self._dtype)
-        ids = self._sharded(self.nlist, (self.cmax,), torch.int32, -1)
-        sqnorms = self._sharded(self.nlist, (self.cmax,), torch.float32)
-        scales = (self._sharded(self.nlist, (self.cmax,), torch.float32)
-                  if self._dtype == torch.int8 else None)
-        # chunk so the transient (chunk, dim) gather stays bounded at high dim
-        chunk = max(8192, min(_CHUNK_ROWS, (256 << 20) // max(self.dim * 4, 1)))
-        for lo in range(0, live.size, chunk):
-            hi = min(lo + chunk, live.size)
-            # fresh tensors no reader has seen: pack in place
-            data, ids, sqnorms, scales = self._pack(
-                data, ids, sqnorms, scales, mir, live[lo:hi].astype(np.int64),
-                c_all[lo:hi], s_all[lo:hi], inplace=True,
+            live = np.flatnonzero(self._alive[: self._n_rows])
+            c_all = self._loc[live, 0].astype(np.int64)
+            s_all = self._loc[live, 1].astype(np.int64)
+            # the layout splits by cluster: nlist_s clusters a shard
+            data = self._sharded(self.nlist, (self.cmax, self.dim), self._dtype)
+            ids = self._sharded(self.nlist, (self.cmax,), torch.int32, -1)
+            sqnorms = self._sharded(self.nlist, (self.cmax,), torch.float32)
+            scales = (self._sharded(self.nlist, (self.cmax,), torch.float32)
+                      if self._dtype == torch.int8 else None)
+            # chunk so the transient (chunk, dim) gather stays bounded at high dim
+            chunk = max(8192, min(_CHUNK_ROWS, (256 << 20) // max(self.dim * 4, 1)))
+            for lo in range(0, live.size, chunk):
+                hi = min(lo + chunk, live.size)
+                # fresh tensors no reader has seen: pack in place
+                data, ids, sqnorms, scales = self._pack(
+                    data, ids, sqnorms, scales, mir, live[lo:hi].astype(np.int64),
+                    c_all[lo:hi], s_all[lo:hi], inplace=True,
+                )
+            dev = _Dev(
+                data=data,
+                ids=ids,
+                sqnorms=sqnorms,
+                scales=scales,
+                centroids=self._to_dev(np.asarray(self.centroids, dtype=np.float32)),
+                **mir._asdict(),
             )
-        dev = _Dev(
-            data=data,
-            ids=ids,
-            sqnorms=sqnorms,
-            scales=scales,
-            centroids=self._to_dev(np.asarray(self.centroids, dtype=np.float32)),
-            **mir._asdict(),
-        )
-        self._dev = dev  # single atomic swap
-        self._dirty = False
-        return dev
+            self._dev = dev  # single atomic swap
+            self._dirty = False
+            return dev
 
     @property
     def device_rescore_active(self) -> bool:
@@ -1115,26 +1125,31 @@ class IVFIndex:
             )
         if self.metric == "cosine":
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
-        dev = self._ensure_device()
-        np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
-        q_dev = self._to_dev(q)
-        if allow_tags is not None:
-            # tag masking lives on the flat mirror; the probing layout is
-            # cluster-addressed and unfiltered, so filtered searches take the
-            # exact path
-            mode = "exact"
-        if mode == "auto":
-            mode = self._pick_mode(pad_bucket(n_q), np_probe, k)
-        if mode == "exact":
-            shard_rows = dev.fvecs.shard_rows
-            k_eff = min(k, min(k, shard_rows) * self.n_shards)
-            scores, ids = self._exact(dev, q_dev, k, k_eff, allow_tags)
-        else:
-            scores, ids = self._probe(dev, q_dev, k, np_probe)
-            k_eff = scores.shape[1]
-        scores, ids = self._merge_pending_into(scores, ids, q_dev, allow_tags)
-        scores = scores.cpu().numpy().astype(np.float32)
-        ids = ids.cpu().numpy().astype(np.int64)
+        with tracing.span("ivf.search"):
+            dev = self._ensure_device()
+            np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
+            q_dev = self._to_dev(q)
+            if allow_tags is not None:
+                # tag masking lives on the flat mirror; the probing layout is
+                # cluster-addressed and unfiltered, so filtered searches take
+                # the exact path
+                mode = "exact"
+            if mode == "auto":
+                mode = self._pick_mode(pad_bucket(n_q), np_probe, k)
+            if mode == "exact":
+                tracing.count("ivf.route.exact")
+                with tracing.span("ivf.exact"):
+                    shard_rows = dev.fvecs.shard_rows
+                    k_eff = min(k, min(k, shard_rows) * self.n_shards)
+                    scores, ids = self._exact(dev, q_dev, k, k_eff, allow_tags)
+            else:
+                tracing.count("ivf.route.probe")
+                with tracing.span("ivf.probe"):
+                    scores, ids = self._probe(dev, q_dev, k, np_probe)
+                k_eff = scores.shape[1]
+            scores, ids = self._merge_pending_into(scores, ids, q_dev, allow_tags)
+            scores = scores.cpu().numpy().astype(np.float32)
+            ids = ids.cpu().numpy().astype(np.int64)
         bad = (ids < 0) | (scores <= _NEG_INF / 2)
         scores = np.where(bad, _NEG_INF, scores)
         ids = np.where(bad, -1, ids)
@@ -1149,15 +1164,16 @@ class IVFIndex:
         rescore tier."""
         if dev.frescore is None:
             return scores, ids
-        if isinstance(dev.frescore, tuple):
-            exact = rescore_global_residual(
-                self.mesh, dev.fvecs, dev.fscales, dev.frescore[0],
-                dev.frescore[1], dev.fnorms, q_dev, ids, self.metric,
-            )
-        else:
-            exact = rescore_global(self.mesh, dev.frescore, dev.fnorms,
-                                   q_dev, ids, self.metric)
-        return _resort(exact, ids)
+        with tracing.span("ivf.rescore"):
+            if isinstance(dev.frescore, tuple):
+                exact = rescore_global_residual(
+                    self.mesh, dev.fvecs, dev.fscales, dev.frescore[0],
+                    dev.frescore[1], dev.fnorms, q_dev, ids, self.metric,
+                )
+            else:
+                exact = rescore_global(self.mesh, dev.frescore, dev.fnorms,
+                                       q_dev, ids, self.metric)
+            return _resort(exact, ids)
 
     def search_device(
         self, q_dev, k: int, nprobe: Optional[int] = None, mode: str = "auto",
@@ -1166,18 +1182,23 @@ class IVFIndex:
         """Device-to-device IVF search (see FlatIndex.search_device):
         ``q_dev`` (Q, dim) metric-normalized on this index's device; returns
         device tensors (scores, ids)."""
-        dev = self._ensure_device()
-        np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
-        if allow_tags is not None:
-            mode = "exact"  # see search(): tag masking rides the flat mirror
-        if mode == "auto":
-            mode = self._pick_mode(pad_bucket(q_dev.shape[0]), np_probe, k)
-        if mode == "exact":
-            k = min(k, dev.fvecs.shard_rows)
-            scores, ids = self._exact(dev, q_dev, k, None, allow_tags)
-        else:
-            scores, ids = self._probe(dev, q_dev, k, np_probe)
-        return self._merge_pending_into(scores, ids, q_dev, allow_tags)
+        with tracing.span("ivf.search"):
+            dev = self._ensure_device()
+            np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
+            if allow_tags is not None:
+                mode = "exact"  # see search(): tag masking rides the flat mirror
+            if mode == "auto":
+                mode = self._pick_mode(pad_bucket(q_dev.shape[0]), np_probe, k)
+            if mode == "exact":
+                tracing.count("ivf.route.exact")
+                with tracing.span("ivf.exact"):
+                    k = min(k, dev.fvecs.shard_rows)
+                    scores, ids = self._exact(dev, q_dev, k, None, allow_tags)
+            else:
+                tracing.count("ivf.route.probe")
+                with tracing.span("ivf.probe"):
+                    scores, ids = self._probe(dev, q_dev, k, np_probe)
+            return self._merge_pending_into(scores, ids, q_dev, allow_tags)
 
     def search_device_batched(
         self, qs_dev, k: int, allow_tags=None, mode: str = "exact",
@@ -1193,20 +1214,26 @@ class IVFIndex:
                 f"got {mode!r} (no 'auto' here: the chained launch commits "
                 f"all B batches to one path)"
             )
-        dev = self._ensure_device()
-        if allow_tags is not None:
-            mode = "exact"  # tag masking rides the flat mirror (see search())
-        if mode == "exact":
-            k = min(k, dev.fvecs.shard_rows)
-            scores, ids = self._exact(dev, qs_dev, k, None, allow_tags,
-                                      batched=True)
-        else:
-            np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
-            outs = [self._probe(dev, qs_dev[b], k, np_probe)
-                    for b in range(qs_dev.shape[0])]
-            scores = torch.stack([o[0] for o in outs])
-            ids = torch.stack([o[1] for o in outs])
-        return self._merge_pending_into_batched(scores, ids, qs_dev, allow_tags)
+        with tracing.span("ivf.search"):
+            dev = self._ensure_device()
+            if allow_tags is not None:
+                mode = "exact"  # tag masking rides the flat mirror (see search())
+            if mode == "exact":
+                tracing.count("ivf.route.exact")
+                with tracing.span("ivf.exact"):
+                    k = min(k, dev.fvecs.shard_rows)
+                    scores, ids = self._exact(dev, qs_dev, k, None, allow_tags,
+                                              batched=True)
+            else:
+                tracing.count("ivf.route.probe")
+                with tracing.span("ivf.probe"):
+                    np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
+                    outs = [self._probe(dev, qs_dev[b], k, np_probe)
+                            for b in range(qs_dev.shape[0])]
+                    scores = torch.stack([o[0] for o in outs])
+                    ids = torch.stack([o[1] for o in outs])
+            return self._merge_pending_into_batched(scores, ids, qs_dev,
+                                                    allow_tags)
 
     # -- maintenance / persistence -------------------------------------------------
 
@@ -1411,12 +1438,13 @@ def _ivf_search(mesh, data, ids, sqnorms, scales, centroids, q, k, nprobe,
     k_out = min(k_out, k * n_shards)
     nlist_s = data.shard_rows
     q = q.to(torch.float32)
-    qc = f32_matmul(q, centroids.T)  # (Q, nlist)
-    if metric == "l2":
-        probe_scores = 2.0 * qc - torch.sum(centroids * centroids, dim=1)[None, :]
-    else:
-        probe_scores = qc
-    _, probes = stable_topk(probe_scores, nprobe)
+    with tracing.span("ivf.probe.select"):
+        qc = f32_matmul(q, centroids.T)  # (Q, nlist)
+        if metric == "l2":
+            probe_scores = 2.0 * qc - torch.sum(centroids * centroids, dim=1)[None, :]
+        else:
+            probe_scores = qc
+        _, probes = stable_topk(probe_scores, nprobe)
     kernel = (pallas_mode != "off" and k <= ivf_ops.MAX_K
               and nprobe <= ivf_ops.MAX_PROBE)
     parts = []
@@ -1426,27 +1454,29 @@ def _ivf_search(mesh, data, ids, sqnorms, scales, centroids, q, k, nprobe,
         def clusters(t):
             return t.shard(rank)
 
-        pr = probes.to(dev)
-        q_s = q.to(dev)
-        # one shard owns every probe: no mask
-        owned = (pr // nlist_s) == rank if n_shards > 1 else None
-        if kernel:
-            # probes another shard owns go in out of range: the kernel's
-            # probe table skips them, so they add nothing, ties included
-            local = pr if owned is None else torch.where(owned, pr - base, -1)
-            s_loc, i_loc = ivf_ops.ivf_scan(
-                clusters(data), clusters(ids), q_s, local, k,
-                clusters(scales) if quantized else None,
-            )
-        else:
-            local = pr if owned is None else torch.clamp(pr - base, 0, nlist_s - 1)
-            s_loc, i_loc = _gather_scan(
-                clusters(data), clusters(ids), clusters(sqnorms),
-                clusters(scales), q_s, local, owned, k, metric, quantized,
-            )
+        with tracing.span("ivf.probe.scan", rank):
+            pr = probes.to(dev)
+            q_s = q.to(dev)
+            # one shard owns every probe: no mask
+            owned = (pr // nlist_s) == rank if n_shards > 1 else None
+            if kernel:
+                # probes another shard owns go in out of range: the kernel's
+                # probe table skips them, so they add nothing, ties included
+                local = pr if owned is None else torch.where(owned, pr - base, -1)
+                s_loc, i_loc = ivf_ops.ivf_scan(
+                    clusters(data), clusters(ids), q_s, local, k,
+                    clusters(scales) if quantized else None,
+                )
+            else:
+                local = pr if owned is None else torch.clamp(pr - base, 0, nlist_s - 1)
+                s_loc, i_loc = _gather_scan(
+                    clusters(data), clusters(ids), clusters(sqnorms),
+                    clusters(scales), q_s, local, owned, k, metric, quantized,
+                )
         parts.append((s_loc, i_loc.to(torch.int64)))
     # local shards first, then across processes
-    top_s, top_i = hierarchical_topk_merge(parts, k_out, mesh)
+    with tracing.span("ivf.probe.merge"):
+        top_s, top_i = hierarchical_topk_merge(parts, k_out, mesh)
     if metric == "l2":
         top_s = top_s - torch.sum(q * q, dim=1, keepdim=True)
     return top_s, top_i

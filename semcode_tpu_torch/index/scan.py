@@ -44,6 +44,7 @@ from ..parallel.mesh import (
     local_shards,
     n_shards as mesh_shards,
 )
+from ..utils import tracing
 
 _NEG_F16 = -6.0e4
 # bound on the (query chunk x rows) score matrix of the xla route
@@ -57,14 +58,15 @@ def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     word, the complemented column in the low word), which have no ties."""
     n = x.shape[1]
     k = min(int(k), n)
-    xf = x.to(torch.float32)
-    bits = xf.view(torch.int32).to(torch.int64)
-    # IEEE total order as signed ints: flip the magnitude bits of negatives
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    col = torch.arange(n, device=x.device, dtype=torch.int64)
-    keys = (ordered << 32) | (0xFFFFFFFF - col)
-    _, idx = torch.topk(keys, k, dim=1, sorted=True)
-    return torch.gather(x, 1, idx), idx
+    with tracing.span("topk"):
+        xf = x.to(torch.float32)
+        bits = xf.view(torch.int32).to(torch.int64)
+        # IEEE total order as signed ints: flip the magnitude bits of negatives
+        ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+        col = torch.arange(n, device=x.device, dtype=torch.int64)
+        keys = (ordered << 32) | (0xFFFFFFFF - col)
+        _, idx = torch.topk(keys, k, dim=1, sorted=True)
+        return torch.gather(x, 1, idx), idx
 
 
 def resolve_rescore_width(rescore_width: int, fetch_width: int, k: int,
@@ -216,7 +218,8 @@ def exact_scan(
         raise ValueError(f"unknown scan_impl: {scan_impl}")
     q = q.to(torch.float32)
     if storage == "int8":
-        qq, q_scales = quantize_queries_device(q)
+        with tracing.span("scan.quantize"):
+            qq, q_scales = quantize_queries_device(q)
     else:
         qq, q_scales = q, None
 
@@ -230,44 +233,47 @@ def exact_scan(
         v, nrm, vld, scl = rows(vecs), rows(norms), rows(valid), rows(scales)
         if tags is not None:
             vld = vld & (rows(tags)[:, None] == allow.to(dev)[None, :]).any(dim=1)
-        qq_s = qq.to(dev)
-        qs_s = q_scales.to(dev) if q_scales is not None else None
-        if scan_impl == "pallas":
-            s, pos = _select_pallas(qq_s, qs_s, v, nrm, vld, scl, storage,
-                                    metric, fetch, k)
-        else:
-            s, pos = _select_xla(qq_s, qs_s, v, nrm, vld, scl, storage,
-                                 metric, fetch, f16)
-        s = s.to(torch.float32)
-        resc, rsd = rows(rescore), rows(resid)
-        if (resc is not None or rsd is not None) and w:
-            # top-W gather slice: selection output is sorted by prefilter score
-            s = s[:, :w]
-            pos = pos[:, :w]
-        if resc is not None or rsd is not None:
-            # fused exact rescore in true f32: an elementwise product and
-            # sum, which no TF32 setting can lower (the reference's HIGHEST
-            # einsum)
-            if resc is not None:
-                cand = resc[pos]  # (Q, W, d)
+        with tracing.span("scan.select", rank):
+            qq_s = qq.to(dev)
+            qs_s = q_scales.to(dev) if q_scales is not None else None
+            if scan_impl == "pallas":
+                s, pos = _select_pallas(qq_s, qs_s, v, nrm, vld, scl, storage,
+                                        metric, fetch, k)
             else:
-                cand = (
-                    v[pos].to(torch.float32) * scl[pos][:, :, None]
-                    + rsd[pos].to(torch.float32) * rows(rscales)[pos][:, :, None]
-                )
-            exact = (cand * q.to(dev)[:, None, :]).sum(dim=2)
-            if metric == "l2":
-                exact = 2.0 * exact - nrm[pos]
-            s = torch.where(s > neg / 2, exact, NEG)
-        else:
-            s = torch.where(s > neg / 2, s, NEG)
-        # the shard's top-k, sorted (the merge takes sorted parts; the
-        # reference sorts in its merge, to the same order)
-        s, sel = stable_topk(s, min(k, s.shape[1]))
-        pos = torch.gather(pos, 1, sel)
+                s, pos = _select_xla(qq_s, qs_s, v, nrm, vld, scl, storage,
+                                     metric, fetch, f16)
+            s = s.to(torch.float32)
+        with tracing.span("scan.rescore", rank):
+            resc, rsd = rows(rescore), rows(resid)
+            if (resc is not None or rsd is not None) and w:
+                # top-W gather slice: selection output is sorted by prefilter score
+                s = s[:, :w]
+                pos = pos[:, :w]
+            if resc is not None or rsd is not None:
+                # fused exact rescore in true f32: an elementwise product and
+                # sum, which no TF32 setting can lower (the reference's HIGHEST
+                # einsum)
+                if resc is not None:
+                    cand = resc[pos]  # (Q, W, d)
+                else:
+                    cand = (
+                        v[pos].to(torch.float32) * scl[pos][:, :, None]
+                        + rsd[pos].to(torch.float32) * rows(rscales)[pos][:, :, None]
+                    )
+                exact = (cand * q.to(dev)[:, None, :]).sum(dim=2)
+                if metric == "l2":
+                    exact = 2.0 * exact - nrm[pos]
+                s = torch.where(s > neg / 2, exact, NEG)
+            else:
+                s = torch.where(s > neg / 2, s, NEG)
+            # the shard's top-k, sorted (the merge takes sorted parts; the
+            # reference sorts in its merge, to the same order)
+            s, sel = stable_topk(s, min(k, s.shape[1]))
+            pos = torch.gather(pos, 1, sel)
         parts.append((s, pos + lo if lo else pos))
     # hierarchical merge: the local shards first, then across processes
-    s, ids = hierarchical_topk_merge(parts, k_out, mesh)
+    with tracing.span("scan.merge"):
+        s, ids = hierarchical_topk_merge(parts, k_out, mesh)
     if metric == "l2":
         s = s - torch.sum(q * q, dim=1, keepdim=True)
     return s, ids

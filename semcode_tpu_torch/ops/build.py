@@ -14,6 +14,8 @@ import threading
 from pathlib import Path
 from typing import Callable, Optional, Sequence
 
+from ..utils import tracing
+
 
 class KernelError(RuntimeError):
     """A kernel library failed to build, load or launch. The engine never
@@ -93,11 +95,16 @@ class KernelLibrary:
         (a caller may build in parallel with other work)."""
         with self._lock:
             if self._lib is None or lib_path is not None:
-                path = lib_path or self.build()
+                path = lib_path
+                if path is None:
+                    with tracing.phase("kernels.build", self.source):
+                        path = self.build()
+                    tracing.count("kernels.built")
                 try:
                     lib = ctypes.CDLL(str(path))
                 except OSError as exc:
                     raise KernelError(f"cannot load {path}: {exc}") from exc
                 self._bind(lib)
                 self._lib = lib
+                tracing.count("kernels.loaded")
             return self._lib

@@ -196,6 +196,8 @@ async def profiled_window(client, concurrency: int, requests: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from ..utils import tracing
+
     headers = {"X-API-Key": API_KEY}
     sent = 0
 
@@ -220,7 +222,7 @@ async def profiled_window(client, concurrency: int, requests: int) -> dict:
     busy_ms = 0.0
     launches: dict = {}
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or tracing.is_span_event(ev):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:

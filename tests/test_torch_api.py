@@ -190,6 +190,10 @@ def _serve(pkg, tmp_path, scenario, **cfg_kw):
 def test_stub_contract_matches_jax(tmp_path, name, scenario):
     jax_out, port_out = (_serve(pkg, tmp_path, scenario) for pkg in PACKAGES)
     assert [s for s, _ in port_out] == [s for s, _ in jax_out]
+    if name == "telemetry":
+        # the port's /telemetry adds its engine's spans and counters
+        engine = port_out[0][1].pop("engine")
+        assert set(engine) == {"counters", "spans"}
     assert _mask(port_out) == _mask(jax_out)
 
 
@@ -301,13 +305,13 @@ def test_real_engines_serve_the_same_answers(shared_workspace):
 # -- the JAX file's endpoint cases, on the port --------------------------------
 
 
-def _port_store(tmp_path, n, repos=("r",)):
+def _port_store(tmp_path, n, repos=("r",), **cfg_kw):
     from semcode_tpu_torch.embeddings.providers import EmbeddingPayload
     from semcode_tpu_torch.index.store import VectorStore
     from semcode_tpu_torch.settings import AppSettings
 
     cfg = AppSettings(workspace_root=tmp_path, embedding_dimension=16,
-                      index_kind="flat", index_dtype="float32")
+                      **{"index_kind": "flat", "index_dtype": "float32", **cfg_kw})
     store = VectorStore(cfg, device="cpu")
     rng = np.random.default_rng(0)
     store.upsert_embeddings([
@@ -384,6 +388,26 @@ def test_stats_reports_the_engine(tmp_path):
     assert status == 200
     assert body["backend"] == "cpu" and body["devices"] == ["cpu"]
     assert body["index"]["rows"] == 8 and body["index"]["kind"] == "flat"
+
+
+def test_telemetry_serves_the_engines_route_counters(tmp_path):
+    cfg, store = _port_store(tmp_path, 64, index_kind="ivf", index_nlist=4,
+                             index_nprobe=2, api_warmup=False)
+
+    async def scenario(client):
+        before = (await (await client.get("/telemetry")).json())["engine"]
+        r = await client.post("/query", json={"question": "t3", "top_k": 3})
+        assert r.status == 200 and (await r.json())["sources"]
+        after = (await (await client.get("/telemetry")).json())["engine"]
+        return before, after
+
+    before, after = _run_port(cfg, store, scenario)
+    assert store.stats()["kind"] == "ivf"
+    routes = ("ivf.route.exact", "ivf.route.probe")
+    took = sum(after["counters"].get(r, 0) - before["counters"].get(r, 0)
+               for r in routes)
+    assert took == 1
+    assert set(after) == {"counters", "spans"}
 
 
 def test_delete_repo(tmp_path):
