@@ -173,7 +173,9 @@ Phases (any failed check exits non-zero before the final line):
    recall@10 against the f32 oracle (>= 0.95 required at nprobe 32), ids
    equal to the gather-scan route's on the same layout, QPS at batch 512
    and p50 at batch 8; the cost model's choice at batch 8 / nprobe 8 under
-   mode "auto" (must be "ivf" and launch the kernel); at Q=512, nprobe 32,
+   mode "auto" (must be "ivf" and launch the kernel), and at batch 512
+   (must be "exact" and select through scan_topk: its launches on the
+   main path, counted from 0, are the kernels line's); at Q=512, nprobe 32,
    k 64: the whole ivf_scan call (CUDA events) and each of its kernels
    (prep, scatter, scan, merge; torch.profiler device time), the scan's two
    measurement builds (products alone, selection alone on synthetic
@@ -197,6 +199,16 @@ Phases (any failed check exits non-zero before the final line):
    the kernel-measurement tool ``semcode_tpu_torch.tools.dot_cuda`` at its
    default 1M x 384 x 512 shape with a short SECS (the kernel's launch
    counts, by mode, are read around this run).
+4d. scan_topk, the exact route's int8 selection (run after phase 4): its
+   registers and spills; against the matrix route (``index/scan._select_xla``,
+   sliced to w) bit for bit, scores as bits and rows, at the cells' shapes,
+   w 32: 1M x 384 at Q 512 and Q 8 and 1M x 3072 at Q 256 (ms per call
+   beside its bound, its plain version, the matrix route and its products
+   build), with a tag-filtered (1% of rows), an l2 and a duplicated-rows
+   case at 1M x 384 (the tile-edge cases are ``tests/test_torch_cuda.py``'s);
+   and ``exact_scan``'s whole output (f32 mirror at d 384, residual rescore
+   at d 3072, and the filtered case) on the kernel route against the matrix route, bit for bit, with
+   ``scan.select.kernel`` counted once a call and a call's ms on each route.
 
 9. the row-sharded engine on the one card (run after phase 4b; shards placed
    with ``make_mesh((4,), devices=[cuda:0] * 4)``): 9a. phase 3's
@@ -2895,6 +2907,231 @@ def dot_max_phase(vecs, qq, top2):
     return out
 
 
+# -- phase 4d: scan_topk, the exact route's int8 selection in one kernel --------
+
+TOPK_WIDTH = 32  # the exact route's auto top-W slice, max(3k, 32) at k 10
+
+
+def topk_rows(x, gen, dup: bool, live_share: float):
+    """int8 rows of ``x`` as the indexes quantize them, their norms and a
+    liveness mask; ``dup`` repeats rows exactly (score ties) on both sides
+    of a 256-row tile boundary and far apart."""
+    import torch
+
+    from semcode_tpu_torch.index.flat import quantize_rows_device
+
+    vecs, sc = quantize_rows_device(x)
+    norms = (x * x).sum(dim=1)
+    rows = x.shape[0]
+    if dup:
+        for dst, src, n in ((250, 0, 12), (rows // 2, 0, 64), (rows - 5, 300 % rows, 5)):
+            n = min(n, rows - dst, rows - src)
+            vecs[dst:dst + n] = vecs[src:src + n]
+            sc[dst:dst + n] = sc[src:src + n]
+            norms[dst:dst + n] = norms[src:src + n]
+    valid = torch.rand(rows, generator=gen, device=x.device) < live_share
+    return vecs, sc, valid, norms
+
+
+def topk_matches(tag, got, want) -> None:
+    """Scores (as bits: -0 and +0 differ) and rows equal, or fail naming the
+    first query that differs."""
+    import torch
+
+    (gs, gi), (ws, wi) = got, want
+    same_s = (gs.view(torch.int32) == ws.view(torch.int32)).all(dim=1)
+    same_i = (gi == wi).all(dim=1)
+    bad = torch.nonzero(~(same_s & same_i)).flatten()
+    if bad.numel():
+        q = int(bad[0])
+        fail(f"scan_topk {tag}: {bad.numel()} queries differ; query {q}:\n"
+             f"  kernel {gs[q, :8].tolist()} {gi[q, :8].tolist()}\n"
+             f"  want   {ws[q, :8].tolist()} {wi[q, :8].tolist()}")
+
+
+def time_topk(vecs, sc, valid, nrm, qq, qsc, fetch, label):
+    """scan_topk at one cell's shape, held to the matrix route bit for bit:
+    ms per call (CUDA events) beside its plain version, the matrix route it
+    replaces (library_ms: its product, keys and radix top-k, then the
+    slice), its products-and-ring build and its bound."""
+    import torch
+
+    from semcode_tpu_torch.index.scan import _select_xla
+    from semcode_tpu_torch.ops.scan_top2 import (
+        scan_topk, scan_topk_probe, scan_topk_reference, topk_geometry,
+    )
+    from semcode_tpu_torch.tools._timing import cuda_ms
+
+    rows, d = vecs.shape
+    nq, w = qq.shape[0], TOPK_WIDTH
+    metric = "l2" if nrm is not None else "ip"
+    args = (vecs, sc, valid, nrm, qq, qsc, w)
+    # the matrix route's operands: the norms are read for l2 only
+    matrix = (qq, qsc, vecs, nrm if nrm is not None else sc, valid, sc, "int8",
+              metric, fetch, False)
+    got = scan_topk(*args)
+    ms, mp = _select_xla(*matrix)
+    topk_matches(f"{label} vs matrix route", got, (ms[:, :w], mp[:, :w]))
+    err = (got[0] - ms[:, :w]).abs().max().item()
+    del ms, mp
+    kernel_ms = cuda_ms(lambda: scan_topk(*args), iters=20)
+    library_ms = cuda_ms(lambda: _select_xla(*matrix), iters=3, warmup=1)
+    plain_ms = cuda_ms(lambda: scan_topk_reference(*args), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    # the measurement builds: products and ring alone (a selection on zero
+    # products, where every score ties, measures nothing the cells see)
+    probe_ms = {"products": cuda_ms(lambda: scan_topk_probe("products", *args), iters=10)}
+    n_bytes = rows * (d + 4 + 1) + nq * (d + 4) + nq * w * 12
+    n_ops = 2 * nq * rows * d
+    bound_ms = max(n_bytes / PEAK_HBM_BYTES, n_ops / PEAK_INT8_OPS) * 1e3
+    bound_by = "operations" if n_ops / PEAK_INT8_OPS >= n_bytes / PEAK_HBM_BYTES else "bytes"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geom = topk_geometry(rows, d, nq, sms, w)
+    log(f"[topk] {label}: scan_topk {kernel_ms:.3f} ms per call (plain {plain_ms:.1f} "
+        f"ms, matrix route {library_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}); "
+        f"grid {geom.grid} ({geom.lists} lists x {geom.n_query_pairs} pairs), "
+        f"{geom.stages} stages, {geom.smem_bytes} B; products and ring alone "
+        f"{probe_ms['products']:.3f} ms")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "stages": geom.stages, "products_ms": probe_ms["products"]}
+
+
+def exact_scan_both_routes(mesh, ops, q, fetch, label, **kw):
+    """exact_scan's whole output on the kernel route against the matrix
+    route (select_route forced to it), bit for bit; the counters read
+    around each; the call's wall ms on each route."""
+    import torch
+
+    from semcode_tpu_torch.index import scan
+    from semcode_tpu_torch.utils import tracing
+
+    vecs, norms, valid, sc, mirror = ops
+
+    def call():
+        return scan.exact_scan(mesh, vecs, norms, valid, sc, mirror, q, 10, fetch,
+                               "ip", "int8", **kw)
+
+    def timed(n=10):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    before = tracing.snapshot()["counters"]
+    got = call()
+    after = tracing.snapshot()["counters"]
+    kernel_calls = after.get("scan.select.kernel", 0) - before.get("scan.select.kernel", 0)
+    if kernel_calls != 1 or after.get("scan.select.matrix", 0) != before.get(
+            "scan.select.matrix", 0):
+        fail(f"exact_scan {label} did not take the kernel route once: {after}")
+    kernel_ms = timed()
+    real = scan.select_route
+    scan.select_route = lambda *a: "matrix"
+    try:
+        want = call()
+        matrix_ms = timed(4)
+    finally:
+        scan.select_route = real
+    if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1])):
+        fail(f"exact_scan {label}: the kernel route's answers differ from the "
+             "matrix route's")
+    log(f"[topk] exact_scan {label}: answers equal on both routes bit for bit; "
+        f"a call {kernel_ms:.3f} ms (kernel route) vs {matrix_ms:.3f} ms (matrix route)")
+    return {"call_ms": kernel_ms, "matrix_call_ms": matrix_ms}
+
+
+def topk_phase():
+    """Phase 4d: scan_topk against the matrix route at the cells' shapes
+    (1M x 384 at Q 512 and Q 8, 1M x 3072 at Q 256, w 32; a tag-filtered,
+    an l2 and a tied case), exact_scan's whole output on both routes, and
+    the timings. Its tile-edge cases are tests/test_torch_cuda.py's."""
+    import gc
+
+    import torch
+
+    from semcode_tpu_torch.index.flat import quantize_residual_device
+    from semcode_tpu_torch.index.scan import quantize_queries_device
+    from semcode_tpu_torch.ops.scan_top2 import scan_topk, scan_topk_attributes
+    from semcode_tpu_torch.parallel.mesh import make_mesh
+    from semcode_tpu_torch.tools._corpus import (
+        mixture, mixture_centers, mixture_chunk, queries_near,
+    )
+
+    regs, local = scan_topk_attributes()
+    log(f"[topk] scan_topk_s8: {regs} registers a thread, {local} B of local memory")
+    launches0 = scan_topk.launches
+    mesh = make_mesh((1,), ("data",), devices=["cuda"])
+    out = {"registers": regs, "local_bytes": local}
+    gen = torch.Generator(device="cuda").manual_seed(42)
+
+    # 1M x 384, the d384 cells' corpus: f32 mirror, fetch 128
+    x = mixture(gen, N_ROWS, DIM)
+    q = queries_near(gen, x, BATCH)
+    vecs, sc, valid, norms = topk_rows(x, gen, False, 1.0)
+    qq, qsc = quantize_queries_device(q)
+    out["d384_q512"] = time_topk(vecs, sc, valid, None, qq, qsc, 128,
+                                 f"{N_ROWS} x {DIM} Q={BATCH}")
+    out["d384_q8"] = time_topk(vecs, sc, valid, None, qq[:SERVE_BATCH],
+                               qsc[:SERVE_BATCH], 128, f"{N_ROWS} x {DIM} Q={SERVE_BATCH}")
+    # the tag-filtered (1% of rows allowed), l2 and tied cases at full size
+    tags = (torch.arange(N_ROWS, device="cuda") % 100 == 0).to(torch.int32)
+    time_topk(vecs, sc, valid & (tags == 1), None, qq, qsc, 128,
+              f"{N_ROWS} x {DIM} Q={BATCH}, 1% of rows allowed")
+    time_topk(vecs, sc, valid, norms, qq, qsc, 128, f"{N_ROWS} x {DIM} Q={BATCH} l2")
+    tv, tsc, tvalid, _ = topk_rows(x, gen, True, 0.95)
+    time_topk(tv, tsc, tvalid, None, qq, qsc, 128,
+              f"{N_ROWS} x {DIM} Q={BATCH}, duplicated rows")
+    del tv, tsc, tvalid
+    ops = (vecs, norms, valid, sc, x)
+    out["exact_d384_q512"] = exact_scan_both_routes(mesh, ops, q, 128, f"{N_ROWS} x {DIM} "
+                                                    f"Q={BATCH}, f32 mirror",
+                                                    rescore_width=TOPK_WIDTH)
+    out["exact_d384_q8"] = exact_scan_both_routes(mesh, ops, q[:SERVE_BATCH], 128,
+                                                  f"{N_ROWS} x {DIM} Q={SERVE_BATCH}",
+                                                  rescore_width=TOPK_WIDTH)
+    exact_scan_both_routes(mesh, ops, q, 128, f"{N_ROWS} x {DIM} Q={BATCH}, tag 1 (1%)",
+                           rescore_width=TOPK_WIDTH, tags=tags,
+                           allow=torch.tensor([1], dtype=torch.int32, device="cuda"))
+    del x, q, vecs, sc, valid, norms, qq, qsc, ops, tags
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 1M x 3072, the d3072 bulk cell's corpus: residual rescore, fetch 96
+    d, nq, chunks = 3072, 256, 4
+    centers = mixture_centers(gen, N_ROWS // 1000, d)
+    parts = [], [], [], [], []
+    for i in range(chunks):
+        xc = mixture_chunk(3072, i, centers, N_ROWS // chunks)
+        v, s, ok, nr = topk_rows(xc, gen, i == 0, 1.0)
+        r, rs = quantize_residual_device(xc, v, s)
+        for dst, t in zip(parts, (v, s, nr, r, rs)):
+            dst.append(t)
+        if i == 0:
+            q = queries_near(gen, xc, nq)
+        del xc
+    vecs, sc, norms, resid, rscl = (torch.cat(p) for p in parts)
+    del parts
+    valid = torch.ones(N_ROWS, dtype=torch.bool, device="cuda")
+    qq, qsc = quantize_queries_device(q)
+    out["d3072_q256"] = time_topk(vecs, sc, valid, None, qq, qsc, 96,
+                                  f"{N_ROWS} x {d} Q={nq}")
+    out["exact_d3072_q256"] = exact_scan_both_routes(
+        mesh, (vecs, norms, valid, sc, None), q, 96,
+        f"{N_ROWS} x {d} Q={nq}, residual rescore", rescore_width=TOPK_WIDTH,
+        resid=resid, rscales=rscl)
+    # the launches of this phase's own calls; the main path's are phase 4b's
+    out["smoke_launches"] = scan_topk.launches - launches0
+    del vecs, sc, norms, resid, rscl, valid, q, qq, qsc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 4b: IVF at scale ------------------------------------------------------
 
 
@@ -2979,6 +3216,7 @@ def ivf_scale_phase():
     from semcode_tpu_torch.ops.ivf_scan import (
         ivf_prep, ivf_scan, ivf_scan_probe, ivf_scan_reference,
     )
+    from semcode_tpu_torch.ops.scan_top2 import scan_topk
     from semcode_tpu_torch.tools._corpus import mixture, oracle_topk, queries_near
     from semcode_tpu_torch.tools._timing import cuda_ms
 
@@ -3054,6 +3292,17 @@ def ivf_scale_phase():
     if mode != "ivf" or launches < 1:
         fail("the auto-mode batch-8 search did not probe through the kernel")
     out["auto_mode_b8"] = mode
+    # the bulk cells' main path: auto mode at batch BATCH takes the exact
+    # route, whose int8 selection is scan_topk (its launches counted from 0)
+    mode = index._pick_mode(BATCH, index.nprobe, 10)
+    scan_topk.launches = 0
+    index.search_device(q, 10)
+    torch.cuda.synchronize()
+    out["topk_launches"] = scan_topk.launches
+    log(f"[ivf-scale] mode='auto' at batch {BATCH}, nprobe {index.nprobe} picks "
+        f"{mode!r}; scan_topk launches {out['topk_launches']}")
+    if mode != "exact" or out["topk_launches"] < 1:
+        fail("the auto-mode batch-512 search did not select through scan_topk")
     out["breakdown"] = device_breakdown(
         lambda: index.search_device(q, 10, nprobe=32, mode="ivf"),
         f"batch-{BATCH} IVF probe search (nprobe 32)",
@@ -4091,6 +4340,7 @@ def main() -> int:
     api_legs = api_slo()
     api_kernel = api_kernel_shape()
     scale = scale_phase()
+    topk = topk_phase()
     ivf_scale = ivf_scale_phase()
     with tempfile.TemporaryDirectory(prefix="semcode_shard_") as tmp:
         sharded = sharded_store_phase(Path(tmp), e2e["mrr"])
@@ -4199,6 +4449,15 @@ def main() -> int:
             kernel_ms=lk["kernel_ms"], products_ms=lk["products_ms"],
             selection_ms=lk["selection_ms"], registers=lk["registers"],
             local_bytes=lk["local_bytes"], producer_wait=lk["producer_wait"]))
+    records.append(kernel_record(
+        "scan_topk[int8]", "semcode_tpu_torch/ops/csrc/top2_scan.cu",
+        "none (the JAX exact route's XLA dot + top_k)", ivf_scale["topk_launches"],
+        topk["d384_q512"], smoke_launches=topk["smoke_launches"],
+        ms_q8=topk["d384_q8"]["ms"],
+        bound_ms_q8=topk["d384_q8"]["bound_ms"], ms_d3072=topk["d3072_q256"]["ms"],
+        bound_ms_d3072=topk["d3072_q256"]["bound_ms"],
+        library_ms_d3072=topk["d3072_q256"]["library_ms"],
+        registers=topk["registers"], local_bytes=topk["local_bytes"]))
     dk = scale["dot_max"]
     for mode in ("s32", "bf16"):
         records.append(kernel_record(f"dot_max[{mode}]", *dot_src,
@@ -4222,6 +4481,7 @@ def main() -> int:
         "sharded_training": {k: v for k, v in sharded_training.items() if k != "dryrun"},
         "dryrun": sharded_training["dryrun"],
         "scale": {k: v for k, v in scale.items() if k not in ("kernel", "dot_max")},
+        "topk": topk,
         "dot_max": dk,
         "ivf_scale": {k: v for k, v in ivf_scale.items() if k != "kernel"},
         "sharded": sharded,

@@ -15,10 +15,19 @@ Routes, with the JAX meanings of ``scan_impl``:
   Hopper counterpart of the Pallas ``top2_scan_shard``), launched once per
   shard on the shard's rows, then an exact top-``fetch`` over the reduced
   (Q, 2*nb) matrix, padded to ``k``.
-- ``xla`` (also what ``auto`` resolves to): the full (Q, shard_rows) score
-  matrix (``_score_block``) and an exact top-``fetch``, in query chunks so
-  the matrix stays bounded. int8 storage uses ``torch._int_mm`` on the card
-  and an exact float64 product on the CPU.
+- ``xla`` (also what ``auto`` resolves to): an exact top-``fetch`` of the
+  scores, by one of two routes that ``select_route`` picks from what the
+  call can observe. On a CUDA card, for int8 storage, float32 scores and a
+  selection of at most 64 rows (the top-W slice's width when a rescore tier
+  slices the fetch, else the fetch): ``ops/scan_top2.scan_topk``, which
+  fuses the int8 product, the epilogue, the mask and an exact top-w
+  selection in one kernel and never writes the score matrix. Otherwise the
+  full (Q, shard_rows) score matrix (``_score_block``) and ``stable_topk``,
+  in query chunks so the matrix stays bounded (int8 storage uses
+  ``torch._int_mm`` on the card and an exact float64 product on the CPU).
+  Both give the same entries in the same order, bit for bit; the counters
+  ``scan.select.kernel`` and ``scan.select.matrix`` count shard calls by
+  route.
 
 Then, per shard: the top-W gather slice, the fused rescore in true f32 (f32
 mirror, or the two-level int8 residual reconstruction) and the shard's
@@ -35,7 +44,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.scan_top2 import NEG, top2_scan
+from ..ops.scan_top2 import MAX_WIDTH, NEG, scan_topk, top2_scan
 from ..parallel.mesh import (
     Mesh,
     ShardedRows,
@@ -115,6 +124,19 @@ def _score_block(qq, vecs, scales_rows, storage, q_scales=None):
         raw = _int8_dot(qq, vecs)
         return raw * q_scales[:, None] * scales_rows[None, :]
     return qq @ vecs.to(torch.float32).T
+
+
+def select_route(device_type: str, storage: str, score_dtype: str, width: int,
+                 dim: int) -> str:
+    """The exact route's select step: ``"kernel"`` (``scan_topk``) on a CUDA
+    card for int8 storage, float32 scores, a width of 1 to 64 rows and a
+    depth the kernel's 128-byte chunks divide; ``"matrix"`` (``_select_xla``)
+    for every other call: bf16/f32 storage (the kernel would round their f32
+    products), the f16 score option, wider selections, every CPU call."""
+    if (device_type == "cuda" and storage == "int8" and score_dtype == "float32"
+            and 1 <= width <= MAX_WIDTH and dim % 128 == 0):
+        return "kernel"
+    return "matrix"
 
 
 def _select_xla(qq, q_scales, vecs, nrm, vld, scl, storage, metric, fetch,
@@ -217,6 +239,10 @@ def exact_scan(
     if scan_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown scan_impl: {scan_impl}")
     q = q.to(torch.float32)
+    # the width the select step must return: the top-W slice's, when a
+    # rescore tier slices the fetch (the selection is sorted, so its first W
+    # are the slice), else the fetch
+    width = w if w and (rescore is not None or resid is not None) else fetch
     if storage == "int8":
         with tracing.span("scan.quantize"):
             qq, q_scales = quantize_queries_device(q)
@@ -239,7 +265,13 @@ def exact_scan(
             if scan_impl == "pallas":
                 s, pos = _select_pallas(qq_s, qs_s, v, nrm, vld, scl, storage,
                                         metric, fetch, k)
+            elif select_route(v.device.type, storage, score_dtype, width,
+                              v.shape[1]) == "kernel":
+                tracing.count("scan.select.kernel")
+                s, pos = scan_topk(v, scl, vld, nrm if metric == "l2" else None,
+                                   qq_s, qs_s, width)
             else:
+                tracing.count("scan.select.matrix")
                 s, pos = _select_xla(qq_s, qs_s, v, nrm, vld, scl, storage,
                                      metric, fetch, f16)
             s = s.to(torch.float32)

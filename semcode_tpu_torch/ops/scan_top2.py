@@ -35,13 +35,32 @@ kernel's entry point.
 
 On a CPU tensor the wrapper runs ``top2_scan_reference``, the plain torch
 version; on a CUDA tensor it launches the kernel or raises.
+
+``scan_topk`` runs the same stream over int8 rows with an exact top-``w``
+epilogue (``w`` <= 64): the best ``w`` rows of each query by
+
+    score[q, r] = valid[r] ? s : -3e38,  s = (raw * q_scales[q]) * scales[r]
+    (l2: 2 * s - norms[r]),
+
+ordered by the score's IEEE total order descending (-0 below +0), ties to
+the lowest row: what the exact route's full-matrix selection
+(``index/scan._select_xla``) returns, bit for bit, without its (Q, Rs)
+score matrix, int64 keys and radix top-k. It replaces no TPU kernel (the
+JAX exact route leaves the product and ``top_k`` to XLA). Its CUDA form is
+two launches, ``scan_topk_s8`` (each CTA keeps one query pair and writes
+each query's best ``w`` of its rows as a sorted list) and
+``scan_topk_merge`` (a warp a query merges the lists); bytes bound it at
+d 3072 (3.07 GB of rows at 1M), the products and the per-score epilogue
+and threshold test on the CUDA cores at d 384. ``scan_topk_reference`` is
+its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -147,6 +166,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     )
     lib.semcode_top2_scan.restype = ctypes.c_int
+    # eleven pointers; Rs, d, Q, w, l2, grid, stages, smem bytes, merge
+    # warps, merge smem bytes; stream
+    lib.semcode_scan_topk.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    )
+    lib.semcode_scan_topk.restype = ctypes.c_int
+    lib.semcode_scan_topk_attributes.argtypes = [ctypes.c_void_p]
+    lib.semcode_scan_topk_attributes.restype = ctypes.c_int
 
 
 _library = KernelLibrary("top2_scan", _bind)
@@ -307,3 +334,217 @@ def _launch(lib, vecs, mult, add, qq, q_scales):
     if err != 0:
         raise KernelError(f"top2_scan kernel launch failed: CUDA error {err}")
     return bmax, brow
+
+
+# scan_topk's geometry; csrc/top2_scan.cu holds the same constants
+MAX_WIDTH = 64  # widest selection the kernel takes
+ROUND_ROWS = 32  # rows of one query an offer round appends at most
+CTA_QUERIES = 2 * QUERY_TILE  # a CTA's query pair
+MASK_BYTES = 4 * (ROW_TILE // 32) * 4  # validity words of four row tiles
+HIST_BYTES = 8 * 128 * 4  # a 128-bin select histogram per consumer warp
+MAX_LISTS = 256  # CTAs per query pair
+MERGE_SMEM = 96 * 1024  # staged lists of one merge block at most
+SHALLOW_CHUNKS = 3  # item depths of at most 3 ring chunks (d <= 384) ...
+SHALLOW_STAGES = 2  # ... take a ring of 2 stages (topk_geometry)
+
+
+def topk_capacity(width: int) -> int:
+    """Candidate entries a query's buffer holds: ``width`` rounded up to 32
+    and one offer round."""
+    return -(-width // 32) * 32 + ROUND_ROWS
+
+
+@dataclass(frozen=True)
+class TopkGeometry:
+    """Launch geometry of ``scan_topk`` for one (Rs, d, Q, w).
+
+    Work items are ``scan_geometry``'s (a row tile x a query pair); the
+    grid is ``lists`` CTAs for each query pair, so CTA ``b`` keeps pair ``b
+    % n_query_pairs`` on every item and writes list ``b // n_query_pairs``
+    of each of its queries. ``capacity``: a query's candidate buffer. The
+    consumers read each row chunk together, without turns at the tensor
+    cores. ``merge_warps`` queries share a merge block of
+    ``merge_smem_bytes``."""
+
+    n_row_tiles: int
+    n_query_pairs: int
+    lists: int
+    grid: int
+    stages: int
+    capacity: int
+    smem_bytes: int
+    merge_warps: int
+    merge_smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def topk_geometry(rs: int, d: int, nq: int, sms: int, width: int) -> TopkGeometry:
+    """``scan_topk``'s grid, ring stages, shared memory and merge blocks for
+    ``nq`` queries at most ``sms * 128`` (more query pairs than SMs leave a
+    pair no CTA). Ring stages: SHALLOW_STAGES while an item's depth takes at
+    most SHALLOW_CHUNKS ring chunks, else as many as fit (measured on one
+    H100: at d 384 and Q 512 two stages took 2.12 ms against 2.59 ms for
+    three; at d 3072 and Q 256 three took 1.80 ms against 2.31 ms for
+    two)."""
+    n_query_pairs = -(-nq // CTA_QUERIES)
+    if (rs <= 0 or d <= 0 or d % DEPTH_CHUNK or sms <= 0 or nq <= 0
+            or not 1 <= width <= min(MAX_WIDTH, rs) or n_query_pairs > sms):
+        raise ValueError(f"no scan_topk geometry for Rs={rs} d={d} Q={nq} "
+                         f"w={width} on {sms} SMs")
+    n_row_tiles = -(-rs // ROW_TILE)
+    lists = min(sms // n_query_pairs, n_row_tiles, MAX_LISTS)
+    capacity = topk_capacity(width)
+    fixed = (SMEM_ALIGN + EPILOGUE_BYTES + MASK_BYTES + HIST_BYTES
+             + CTA_QUERIES * capacity * 8 + BARRIER_BYTES)
+    most = (SMEM_LIMIT - fixed) // STAGE_BYTES
+    stages = SHALLOW_STAGES if d // DEPTH_CHUNK <= SHALLOW_CHUNKS else most
+    per_warp = lists * width * 8
+    merge_warps = max(1, min(8, MERGE_SMEM // per_warp))
+    return TopkGeometry(
+        n_row_tiles=n_row_tiles,
+        n_query_pairs=n_query_pairs,
+        lists=lists,
+        grid=lists * n_query_pairs,
+        stages=stages,
+        capacity=capacity,
+        smem_bytes=fixed + stages * STAGE_BYTES,
+        merge_warps=merge_warps,
+        merge_smem_bytes=merge_warps * per_warp,
+    )
+
+
+def scan_topk_reference(
+    vecs: torch.Tensor,
+    scales: torch.Tensor,
+    valid: torch.Tensor,
+    norms: Optional[torch.Tensor],
+    qq: torch.Tensor,
+    q_scales: torch.Tensor,
+    width: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of ``scan_topk`` (same arguments).
+
+    raw in float64 (exact for int8 at any real dim), rounded to f32; the
+    epilogue's f32 operations one by one, then a stable descending sort of
+    the scores' total-order keys, so ties keep the lowest row."""
+    raw = (qq.to(torch.float64) @ vecs.to(torch.float64).T).to(torch.float32)
+    scores = raw * q_scales.reshape(-1, 1) * scales.reshape(1, -1)
+    if norms is not None:
+        scores = 2.0 * scores - norms.reshape(1, -1)
+    scores = torch.where(valid.reshape(1, -1), scores,
+                         torch.tensor(NEG, dtype=torch.float32, device=vecs.device))
+    bits = scores.view(torch.int32)
+    keys = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    rows = torch.sort(keys, dim=1, descending=True, stable=True).indices[:, :width]
+    return torch.gather(scores, 1, rows), rows
+
+
+def _check_topk_args(vecs, scales, valid, norms, qq, q_scales, width) -> None:
+    if vecs.dim() != 2 or qq.dim() != 2:
+        raise ValueError("vecs and qq must be 2-D")
+    rs, d = vecs.shape
+    if vecs.dtype != torch.int8 or qq.dtype != torch.int8 or qq.shape[1] != d:
+        raise TypeError(f"scan_topk takes int8 rows and ({qq.shape[0]}, {d}) int8 queries")
+    if d % DEPTH_CHUNK:
+        raise ValueError(f"scan_topk needs dim % {DEPTH_CHUNK} == 0, got {d}")
+    n_q = qq.shape[0]
+    for name, t, n in (("scales", scales, rs), ("q_scales", q_scales, n_q)) + (
+            (("norms", norms, rs),) if norms is not None else ()):
+        if t.dtype != torch.float32 or t.numel() != n:
+            raise TypeError(f"{name} must hold {n} float32 values")
+    if valid.dtype != torch.bool or valid.numel() != rs:
+        raise TypeError(f"valid must hold {rs} bools")
+    if not 1 <= width <= min(MAX_WIDTH, rs) or n_q == 0:
+        raise ValueError(f"scan_topk selects 1 to min({MAX_WIDTH}, Rs={rs}) rows "
+                         f"for at least one query, not {width} for {n_q}")
+    devs = {t.device for t in (vecs, scales, valid, qq, q_scales)
+            + ((norms,) if norms is not None else ())}
+    if len(devs) != 1:
+        raise ValueError(f"scan_topk inputs span devices {devs}")
+
+
+def scan_topk(
+    vecs: torch.Tensor,              # (Rs, d) int8
+    scales: torch.Tensor,            # (Rs,) f32 row scales
+    valid: torch.Tensor,             # (Rs,) bool: live and allowed rows
+    norms: Optional[torch.Tensor],   # (Rs,) f32 row sqnorms for l2, else None
+    qq: torch.Tensor,                # (Q, d) int8 queries
+    q_scales: torch.Tensor,          # (Q,) f32 query scales
+    width: int,                      # rows to select, 1..min(64, Rs)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (scores (Q, width) f32, rows (Q, width) int64), best first.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernels (one
+    pair of launches for every ``sms * 128`` queries)."""
+    _check_topk_args(vecs, scales, valid, norms, qq, q_scales, width)
+    if vecs.device.type == "cpu":
+        return scan_topk_reference(vecs, scales, valid, norms, qq, q_scales, width)
+    if vecs.device.type != "cuda":
+        raise ValueError(f"scan_topk: unsupported device {vecs.device}")
+    out, launches = _launch_topk(_library.get(), vecs, scales, valid, norms, qq,
+                                 q_scales, width)
+    scan_topk.launches += launches
+    return out
+
+
+scan_topk.launches = 0  # scan_topk_s8 launches (not plain-version calls)
+
+
+def scan_topk_probe(kind: str, vecs, scales, valid, norms, qq, q_scales, width):
+    """Launch a measurement build of ``scan_topk`` on the card (``TOP2_PROBE``;
+    "products" skips the selection, so its outputs are meaningless). No
+    launch of ``scan_topk`` is counted."""
+    _check_topk_args(vecs, scales, valid, norms, qq, q_scales, width)
+    if vecs.device.type != "cuda":
+        raise ValueError("scan_topk_probe runs the kernel on a CUDA card")
+    return _launch_topk(PROBE_LIBRARIES[kind].get(), vecs, scales, valid, norms, qq,
+                        q_scales, width)[0]
+
+
+def _launch_topk(lib, vecs, scales, valid, norms, qq, q_scales, width):
+    """The kernels' launches, one pair for every ``sms * 128`` queries:
+    ((scores, rows), launches)."""
+    rs, d = vecs.shape
+    n_q = qq.shape[0]
+    vecs, qq, scales, valid, q_scales = (
+        t.contiguous() for t in (vecs, qq, scales, valid, q_scales))
+    norms = norms.contiguous() if norms is not None else None
+    if vecs.data_ptr() % 16 or qq.data_ptr() % 16:
+        raise ValueError("scan_topk needs 16-byte aligned rows")
+    out_s = torch.empty((n_q, width), dtype=torch.float32, device=vecs.device)
+    out_i = torch.empty((n_q, width), dtype=torch.int64, device=vecs.device)
+    launches = 0
+    with torch.cuda.device(vecs.device):
+        sms = sm_count(torch.cuda.current_device())
+        stream = torch.cuda.current_stream(vecs.device).cuda_stream
+        step = sms * CTA_QUERIES
+        for lo in range(0, n_q, step):
+            nq = min(step, n_q - lo)
+            geom = topk_geometry(rs, d, nq, sms, width)
+            # the CTAs' lists (keys, rows) and the queries' bounds
+            scratch = torch.empty(2 * nq * geom.lists * width + nq,
+                                  dtype=torch.int32, device=vecs.device)
+            part = scratch.data_ptr()
+            n_part = nq * geom.lists * width
+            err = lib.semcode_scan_topk(
+                vecs.data_ptr(), scales.data_ptr(), valid.data_ptr(),
+                norms.data_ptr() if norms is not None else None,
+                qq.data_ptr() + lo * d, q_scales.data_ptr() + 4 * lo,
+                part, part + 4 * n_part, part + 8 * n_part,
+                out_s.data_ptr() + 4 * lo * width, out_i.data_ptr() + 8 * lo * width,
+                rs, d, nq, width, int(norms is not None), geom.grid, geom.stages,
+                geom.smem_bytes, geom.merge_warps, geom.merge_smem_bytes, stream,
+            )
+            if err != 0:
+                raise KernelError(f"scan_topk kernel launch failed: CUDA error {err}")
+            launches += 1
+    return (out_s, out_i), launches
+
+
+def scan_topk_attributes() -> Tuple[int, int]:
+    """(registers, local bytes) a thread of ``scan_topk_s8`` as built."""
+    attrs = (ctypes.c_int * 2)()
+    err = _library.get().semcode_scan_topk_attributes(ctypes.addressof(attrs))
+    if err != 0:
+        raise KernelError(f"scan_topk attributes: CUDA error {err}")
+    return attrs[0], attrs[1]

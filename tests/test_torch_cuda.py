@@ -7,7 +7,8 @@ imports nothing of JAX, so it runs on a card host that has no JAX:
 
 (``--noconftest``: the suite's conftest configures JAX's CPU mesh.)
 Comparisons hold each kernel against its plain torch version on the same
-card inputs: int8 bit-identical (dot_max, an integer maximum, in both
+card inputs: int8 bit-identical (scan_topk's scores as bits, so -0 and +0
+differ) (dot_max, an integer maximum, in both
 modes); bf16/f32 within rtol 1e-5 (f32 sums run in another order). Each
 kernel's launch geometry is also held against what its entry point accepts.
 The causal decoder's CUDA-graph decode step is held against its eager step
@@ -177,6 +178,81 @@ def test_top2_scan_geometry_is_what_the_library_accepts(cuda, storage):
     more = geom.smem_bytes + scan_top2.STAGE_BYTES
     assert call(geom.stages + 1, more) != 0
     assert call(geom.stages, geom.smem_bytes + 1024) != 0
+
+
+def _topk_operands(rs, d, nq, live_share, gen, device):
+    """int8 rows with exact duplicates (inside a tile, across a tile boundary
+    and far apart), row norms and a liveness mask."""
+    vecs, sc, _, qq, qs = _operands("int8", rs, d, nq, gen, device)
+    for dst, src, n in ((250, 0, 12), (rs // 2, 0, 64), (rs - 5, 3, 5)):
+        n = max(0, min(n, rs - dst, rs - src))
+        vecs[dst:dst + n] = vecs[src:src + n]
+        sc[dst:dst + n] = sc[src:src + n]
+    norms = (vecs.float() * sc[:, None]).pow(2).sum(dim=1)
+    valid = torch.rand(rs, generator=gen, device=device) < live_share
+    return vecs, sc, valid, norms, qq, qs
+
+
+@pytest.mark.parametrize("rs,d,nq,w,metric,live", [
+    (100, 128, 1, 1, "ip", 0.95),
+    (255, 384, 65, 10, "l2", 0.95),
+    (257, 384, 129, 64, "ip", 0.95),
+    (1000, 3072, 8, 33, "l2", 0.95),
+    (70001, 384, 512, 32, "ip", 0.95),   # more items than CTAs, rows shared
+    (40000, 3072, 256, 32, "ip", 0.95),  # one row load per consumer
+    (30000, 384, 70, 32, "ip", 0.0003),  # fewer live rows than w: a masked tail
+    (256, 384, 64, 32, "ip", 0.95),      # one row tile, one query tile
+    (5000, 128, 3, 64, "ip", 0.95),
+    (70001, 384, 700, 10, "l2", 0.95),   # query pairs past a multiple of the SMs' share
+    (70001, 768, 8, 32, "ip", 0.95),
+    (40000, 1024, 130, 20, "ip", 0.95),
+])
+def test_scan_topk_matches_plain_version(cuda, rs, d, nq, w, metric, live):
+    gen = torch.Generator(device=cuda).manual_seed(rs + d + nq + w)
+    vecs, sc, valid, norms, qq, qs = _topk_operands(rs, d, nq, live, gen, cuda)
+    nrm = norms if metric == "l2" else None
+    before = scan_top2.scan_topk.launches
+    s, p = scan_top2.scan_topk(vecs, sc, valid, nrm, qq, qs, w)
+    torch.cuda.synchronize()
+    assert scan_top2.scan_topk.launches == before + 1
+    rs_, rp = scan_top2.scan_topk_reference(vecs, sc, valid, nrm, qq, qs, w)
+    assert torch.equal(s.view(torch.int32), rs_.view(torch.int32))
+    assert torch.equal(p, rp)
+
+
+def test_scan_topk_geometry_is_what_the_library_accepts(cuda):
+    """topk_geometry's launch runs; one stage more than fit, other
+    shared-memory bytes, a grid that is no multiple of the query pairs or
+    other merge bytes are refused by the entry point (cudaErrorInvalidValue).
+    At d 512 (four ring chunks) the geometry takes as many stages as fit."""
+    rs, d, nq, w = 5000, 512, 200, 32
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    vecs, sc, valid, _, qq, qs = _topk_operands(rs, d, nq, 0.95, gen, cuda)
+    geom = scan_top2.topk_geometry(rs, d, nq, torch.cuda.get_device_properties(cuda)
+                                   .multi_processor_count, w)
+    part = torch.empty(2 * nq * geom.lists * w + nq, dtype=torch.int32, device=cuda)
+    out_s = torch.empty((nq, w), device=cuda)
+    out_i = torch.empty((nq, w), dtype=torch.int64, device=cuda)
+    lib = scan_top2._library.get()
+    n_part = nq * geom.lists * w
+
+    def call(grid=geom.grid, stages=geom.stages, smem=geom.smem_bytes,
+             merge=geom.merge_smem_bytes):
+        return lib.semcode_scan_topk(
+            vecs.data_ptr(), sc.data_ptr(), valid.data_ptr(), None, qq.data_ptr(),
+            qs.data_ptr(), part.data_ptr(), part.data_ptr() + 4 * n_part,
+            part.data_ptr() + 8 * n_part, out_s.data_ptr(), out_i.data_ptr(),
+            rs, d, nq, w, 0, grid, stages, smem, geom.merge_warps, merge,
+            torch.cuda.current_stream().cuda_stream)
+
+    assert call() == 0
+    torch.cuda.synchronize()
+    rs_, rp = scan_top2.scan_topk_reference(vecs, sc, valid, None, qq, qs, w)
+    assert torch.equal(out_s, rs_) and torch.equal(out_i, rp)
+    assert call(stages=geom.stages + 1, smem=geom.smem_bytes + scan_top2.STAGE_BYTES) != 0
+    assert call(smem=geom.smem_bytes + 1024) != 0
+    assert call(grid=geom.grid - 1) != 0
+    assert call(merge=geom.merge_smem_bytes + 8) != 0
 
 
 def _ivf_operands(storage, nlist, cmax, d, nq, nprobe, gen, device):
