@@ -14,13 +14,13 @@ are distinct corpus rows with ``query_noise`` noise.
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 # streams keyed off one run seed
-STREAMS = {"centers": 0, "rows": 1, "queries": 2, "sample": 3}
+STREAMS = {"centers": 0, "rows": 1, "queries": 2, "sample": 3, "writes": 4}
 
 
 def derive(seed: int, stream: str, index: int = 0) -> int:
@@ -57,12 +57,32 @@ def make_rows(cfg: dict, seed: int, device: torch.device) -> torch.Tensor:
     """The configuration's (rows, dim) f32 corpus for run ``seed``. Chunk i
     draws from its own generator, so the same seed gives the same bits."""
     n, d = int(cfg["rows"]), int(cfg["dim"])
-    centers = torch.randn(int(cfg["centers"]), d, device=device,
-                          generator=generator(device, derive(seed, "centers")))
+    centers = make_centers(cfg, seed, device)
     out = torch.empty(n, d, dtype=torch.float32, device=device)
     for i, lo, hi in chunk_bounds(n, chunk_rows(cfg)):
         gen = generator(device, derive(seed, "rows", i))
         out[lo:hi] = mixture_rows(gen, centers, hi - lo, float(cfg["noise"]))
+    return out
+
+
+def make_centers(cfg: dict, seed: int, device: torch.device) -> torch.Tensor:
+    """The mixture's (centers, dim) Gaussian centres for run ``seed``."""
+    return torch.randn(int(cfg["centers"]), int(cfg["dim"]), device=device,
+                       generator=generator(device, derive(seed, "centers")))
+
+
+def make_writes(cfg: dict, seed: int, batches: int, batch_rows: int,
+                device: torch.device) -> torch.Tensor:
+    """(batches * batch_rows, dim) f32 rows of a writer's stream for run
+    ``seed``: drawn from the corpus's mixture (its centres and ``noise``),
+    batch j from its own generator, so any batch can be made again alone."""
+    centers = make_centers(cfg, seed, device)
+    out = torch.empty(batches * batch_rows, int(cfg["dim"]), dtype=torch.float32,
+                      device=device)
+    for j in range(batches):
+        gen = generator(device, derive(seed, "writes", j))
+        out[j * batch_rows:(j + 1) * batch_rows] = mixture_rows(
+            gen, centers, batch_rows, float(cfg["noise"]))
     return out
 
 
@@ -71,13 +91,15 @@ def chunk_rows(cfg: dict) -> int:
     return max(1, int(cfg["ingest_chunk_bytes"]) // (4 * int(cfg["dim"])))
 
 
-def row_tags(cfg: dict) -> np.ndarray:
-    """(rows,) int32 tags: 1 on every ``tag_every``-th row (one repository
-    in ``tag_every``), 0 elsewhere; all 0 when the configuration tags none."""
-    n, every = int(cfg["rows"]), int(cfg.get("tag_every", 0))
+def row_tags(cfg: dict, first: int = 0, n: Optional[int] = None) -> np.ndarray:
+    """(n,) int32 tags of rows ``first`` to ``first + n`` (the corpus by
+    default; a writer's rows follow it): 1 on every ``tag_every``-th row (one
+    repository in ``tag_every``), 0 elsewhere; all 0 when the configuration
+    tags none."""
+    n, every = int(cfg["rows"]) if n is None else n, int(cfg.get("tag_every", 0))
     if every <= 0:
         return np.zeros(n, dtype=np.int32)
-    return (np.arange(n) % every == 0).astype(np.int32)
+    return (np.arange(first, first + n) % every == 0).astype(np.int32)
 
 
 def queries_near(gen: torch.Generator, x: torch.Tensor, nq: int,

@@ -22,6 +22,13 @@ defines the IVF answer set, is judged too: ``assign_off_nearest``,
 ``assign_far`` and ``centroid_excess`` (``reference.quantizer_numbers``).
 Each is held to its limit in ``limits/<workload>.json``.
 
+A mix with ``"writer"`` adds one writer thread beside the readers
+(``writer.py``): set-up writes for a second before the window, the window's
+writer runs with the readers, and each answer is judged against the rows it
+could see, with the read-back of every acknowledged batch after the window.
+A mix without it makes the same calls as before, and its answers are judged
+with every prefix of the stream empty.
+
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, ``breakdown`` (traced
 runs) and ``checks`` (each number compared, with its limit).
@@ -44,7 +51,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import corpus, kernels, reference, roofline, spec
+from . import corpus, kernels, program, reference, roofline, spec, writer
 from .trace import SPAN, Trace, from_profile
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "semcode_tpu")
@@ -88,16 +95,21 @@ class Setup:
     index: object
     pool: torch.Tensor
     build_s: float
+    writes: Optional[writer.Stream] = None
 
 
-def build(cell: spec.Cell, seed: int, device: torch.device) -> Setup:
+def build(cell: spec.Cell, seed: int, device: torch.device, seconds: float = 0.0) -> Setup:
     """The corpus and pool from ``seed``, then the index built from the
-    corpus in ingest chunks (only the port's calls are timed)."""
+    corpus in ingest chunks (only the port's calls are timed). A mix with a
+    writer makes its rows for a window of ``seconds`` too, and writes its
+    set-up batches into the built index."""
     from semcode_tpu_torch.index.ivf import IVFIndex
 
     cfg, ix = cell.config, cell.config["index"]
     t0 = time.perf_counter()
     rows = corpus.make_rows(cfg, seed, device)
+    writes = (writer.plan(cfg, cell.traffic, seed, device, seconds)
+              if "writer" in cell.traffic else None)
     pool = corpus.make_pool(cfg, cell.traffic, rows, seed)
     tags = corpus.row_tags(cfg)
     tagged = int(cfg.get("tag_every", 0)) > 0
@@ -124,7 +136,14 @@ def build(cell: spec.Cell, seed: int, device: torch.device) -> Setup:
     if tier != cfg["rescore_tier"]:
         raise RuntimeError(f"the index took the {tier} rescore tier; the "
                            f"configuration states {cfg['rescore_tier']}")
-    return Setup(index, pool, build_s)
+    if writes is not None:
+        t0 = time.perf_counter()
+        writes.write(index, t0, t0 + writer.SETUP_SECONDS)
+        sync(device)
+        log(f"set-up writes: {len(writes.done)} batches in "
+            f"{time.perf_counter() - t0:.3f} s; pending tail "
+            f"{writes.done[-1].pending if writes.done else 0} rows")
+    return Setup(index, pool, build_s, writes)
 
 
 # -- the window ----------------------------------------------------------------
@@ -138,12 +157,14 @@ class Window:
 
     batch: int
     seconds: float = 0.0
+    sent_s: List[float] = field(default_factory=list)
     latency_s: List[float] = field(default_factory=list)
     batch_of: List[int] = field(default_factory=list)
     answers: list = field(default_factory=list)
     errors: List[str] = field(default_factory=list)
     trace: Optional[Trace] = None
     lock: threading.Lock = field(default_factory=threading.Lock)
+    writer: Optional[dict] = None  # with a writer: what it did (writer.summary)
 
 
 def search_call(index, traffic: dict):
@@ -194,6 +215,7 @@ def client_loop(call, batches, first: int, stride: int, t_end: float, win: Windo
         t1 = time.perf_counter()
         with win.lock:
             c = len(win.batch_of)
+            win.sent_s.append(t0)
             win.latency_s.append(t1 - t0)
             win.batch_of.append(b)
             win.answers.append(out)
@@ -275,12 +297,15 @@ def run_window(setup: Setup, traffic: dict, seconds: float, trace: bool,
     batch, clients = int(traffic["batch"]), int(traffic.get("clients", 1))
     batches = batches_of(setup.pool, batch)
     win = Window(batch)
+    stream = setup.writes
+    before = program.totals() if stream is not None else None
     t_start = time.perf_counter()
     t_end = t_start + seconds
     tracer = Tracer(t_start, seconds, device) if trace else None
     threads = [threading.Thread(target=client_loop,
                                 args=(call, batches, c, clients, t_end, win))
                for c in range(1, clients)]
+    writing = stream.start(setup.index, t_start, t_end) if stream is not None else None
     for t in threads:
         t.start()
     client_loop(call, batches, 0, clients, t_end, win, tracer)
@@ -288,6 +313,12 @@ def run_window(setup: Setup, traffic: dict, seconds: float, trace: bool,
         t.join()
     sync(device)
     win.seconds = time.perf_counter() - t_start
+    if writing is not None:  # the readers' seconds end before the last add's wait
+        writing.join()
+        sync(device)
+        if stream.failure is not None:
+            raise RuntimeError(f"the writer failed:\n{stream.failure}")
+        win.writer = writer.summary(stream, t_end, program.delta(before, program.totals()))
     if tracer is not None:
         win.trace = tracer.finish()
     return win
@@ -304,92 +335,177 @@ class Answers:
     ids: np.ndarray     # (M, k) int64
     scores: np.ndarray  # (M, k) float32
     raised: int         # queries whose call raised
+    call: Optional[np.ndarray] = None  # (M,) the call number of each
 
     @classmethod
     def of(cls, win: Window, k: int) -> "Answers":
-        qidx, ids, scores, raised = [], [], [], 0
-        for b, out in zip(win.batch_of, win.answers):
+        qidx, ids, scores, raised, calls = [], [], [], 0, []
+        for c, (b, out) in enumerate(zip(win.batch_of, win.answers)):
             if out is None:
                 raised += win.batch
                 continue
             s, i = out
+            calls.append(np.full(win.batch, c))
             qidx.append(np.arange(b * win.batch, (b + 1) * win.batch))
             ids.append(i.numpy().astype(np.int64).reshape(win.batch, -1))
             scores.append(s.numpy().astype(np.float32).reshape(win.batch, -1))
         if not qidx:
             return cls(np.zeros(0, np.int64), np.zeros((0, k), np.int64),
-                       np.zeros((0, k), np.float32), raised)
+                       np.zeros((0, k), np.float32), raised, np.zeros(0, np.int64))
         return cls(np.concatenate(qidx), np.concatenate(ids),
-                   np.concatenate(scores), raised)
+                   np.concatenate(scores), raised, np.concatenate(calls))
 
 
-def malformed(ans: Answers, n: int, k: int, allowed: Optional[np.ndarray]) -> np.ndarray:
-    """(M,) bool: rows that are not k distinct live ids in range, with
-    finite scores in non-increasing order (and, under a filter, allowed)."""
-    ids, s = ans.ids, ans.scores
+def malformed(ids: np.ndarray, scores: np.ndarray, hi, k: int,
+              allowed: Optional[np.ndarray]) -> np.ndarray:
+    """(M,) bool: rows that are not k distinct ids in ``[0, hi)`` (one bound,
+    or one a row), with finite scores in non-increasing order (and, under a
+    filter, allowed)."""
     if ids.shape[1] != k:
         return np.ones(len(ids), dtype=bool)
-    bad = ~np.isfinite(s).all(axis=1) | ((ids < 0) | (ids >= n)).any(axis=1)
-    bad |= (np.diff(s, axis=1) > 0).any(axis=1)
+    hi = np.broadcast_to(np.asarray(hi), (len(ids),))[:, None]
+    bad = ~np.isfinite(scores).all(axis=1) | ((ids < 0) | (ids >= hi)).any(axis=1)
+    bad |= (np.diff(scores, axis=1) > 0).any(axis=1)
     srt = np.sort(ids, axis=1)
     bad |= (srt[:, 1:] == srt[:, :-1]).any(axis=1)
     if allowed is not None:
-        bad |= ~allowed[np.clip(ids, 0, n - 1)].all(axis=1)
+        bad |= ~allowed[np.clip(ids, 0, len(allowed) - 1)].all(axis=1)
     return bad
-
-
-def hits(ids: np.ndarray, ref: np.ndarray, sub: int = 1 << 17) -> np.ndarray:
-    """(M,) number of each row's ids that are in its reference row."""
-    out = np.empty(len(ids), dtype=np.int64)
-    for lo in range(0, len(ids), sub):
-        a, r = ids[lo:lo + sub], ref[lo:lo + sub]
-        out[lo:lo + sub] = (a[:, :, None] == r[:, None, :]).any(axis=2).sum(axis=1)
-    return out
 
 
 @dataclass
 class Judged:
     numbers: dict          # each of CHECKS
     recall_at_10: float
+    detail: Optional[dict] = None  # with a writer: where the unseen rows fell
 
 
 def judge(ans: Answers, refs: dict, rows: torch.Tensor, pool: torch.Tensor,
-          allowed: Optional[np.ndarray], k: int, quantizer: dict) -> Judged:
+          allowed: Optional[np.ndarray], k: int, quantizer: dict,
+          check: Optional[writer.Check] = None) -> Judged:
     """The window's answers against the reference's answer sets, and the
-    index's quantizer against the rows."""
-    n = rows.shape[0]
-    bad = malformed(ans, n, k, allowed)
+    index's quantizer against the rows it has placed.
+
+    With a writer (``check``), each answer may hold rows of the corpus and
+    of the writes begun before it returned, and is judged as covering the
+    corpus and the writes acknowledged before its call was sent, less the
+    pending tail an add was folding meanwhile (``writer.visibility``); the
+    quantizer is judged over the rows placed at the window's end, and the
+    read-back and ``ack_unseen`` join the numbers. With none, every prefix is
+    empty. A slot counts for ``miss_share`` where it is in the exact top-k
+    over either prefix; a row where the IVF top-k holds more of it, by that."""
+    n, dev = rows.shape[0], rows.device
+    vis = writer.visible(check, ans, n, rows.shape[1], dev, allowed)
+    writes = vis.writes
+    g = vis.rows_of(ans.ids, n)
+    allowed_all = np.concatenate([allowed, vis.allow]) if allowed is not None else None
+    bad = malformed(g, ans.scores, n + vis.b, k, allowed_all)
     ok = ~bad
-    qidx, ids, scores = ans.qidx[ok], ans.ids[ok], ans.scores[ok]
-    exact = refs["exact"][1].cpu().numpy()
-    got_exact = hits(ids, exact[qidx])
-    got = got_exact
+    qidx, g, scores, vis = ans.qidx[ok], g[ok], ans.scores[ok], vis.take(ok)
+    qd = torch.from_numpy(qidx).to(dev)
+    allow_w = torch.from_numpy(vis.allow).to(dev) if vis.allow is not None else None
+
+    def over_some(sel, upto, top=refs["exact"], member=None):
+        q = qd[sel]
+        return reference.prefix_topk((top[0][q], top[1][q]), pool, q, writes,
+                                     torch.from_numpy(upto).to(dev), k, base=n,
+                                     allow=allow_w, member=member)
+
+    def over(top, upto, member=None):
+        return over_some(slice(None), upto, top, member)
+
+    top_a = over(refs["exact"], vis.a, vis.unskipped)
+    ref_a = top_a[1].cpu().numpy()
+    in_a = writer.slot_in(g, ref_a)
+    got = (in_a | writer.slot_in(g, over(refs["exact"], vis.b)[1].cpu().numpy())).sum(axis=1)
+    ivf_a = None
     if "ivf" in refs:
-        got = np.maximum(got, hits(ids, refs["ivf"][1].cpu().numpy()[qidx]))
+        ivf_a = over(refs["ivf"], vis.a, ivf_member(vis, qd, check, quantizer))[1].cpu().numpy()
+        got = np.maximum(got, writer.slot_in(g, ivf_a).sum(axis=1))
+
+    all_rows = torch.cat([rows, writes]) if writes.shape[0] else rows
     total = len(ans.qidx) + ans.raised
     score_err = 0.0
+    ref_scores = np.zeros(g.shape, dtype=np.float32)
     if len(qidx):
-        keys = (qidx[:, None] * n + ids).ravel()
+        big = all_rows.shape[0]
+        keys = (qidx[:, None] * big + g).ravel()
         uniq, inv = np.unique(keys, return_inverse=True)
-        prod = reference.pair_scores(rows, pool, uniq // n, uniq % n)
+        prod = reference.pair_scores(all_rows, pool, uniq // big, uniq % big)
+        ref_scores = prod[inv].reshape(g.shape)
         score_err = float(np.abs(scores.ravel() - prod[inv]).max())
-    answered = max(len(qidx), 1)
-    recall = float(got_exact.sum() / (max(total, 1) * k))
-    return Judged(
-        numbers={"failed": int(bad.sum()) + ans.raised,
-                 "score_err": score_err,
-                 "miss_share": float(1.0 - got.sum() / (answered * k)) if len(qidx) else 1.0,
-                 "recall_miss": 1.0 - recall,
-                 **reference.quantizer_numbers(rows, quantizer["centroids"],
-                                               quantizer["assign"])},
-        recall_at_10=recall,
-    )
+    # recall against the top-k the answer is judged as covering; a written
+    # row outside it (begun later, or in a folding tail) that scores at or
+    # above that top-k's last counts as a hit
+    tenth = top_a[0][:, -1].cpu().numpy()
+    pos = g - n
+    outside = (pos >= vis.a[:, None]) | ((pos >= vis.skip_lo[:, None])
+                                          & (pos < vis.skip_hi[:, None]))
+    newer = (g >= n) & outside & (ref_scores >= tenth[:, None])
+    recall = float((in_a | newer).sum() / (max(total, 1) * k))
+    qrows, qassign = writer.placed_rows(all_rows, n, vis.pos_of, quantizer["assign"])
+    numbers = {"failed": int(bad.sum()) + ans.raised + vis.bad_rows,
+               "score_err": score_err,
+               "miss_share": float(1.0 - got.sum() / (max(len(qidx), 1) * k))
+               if len(qidx) else 1.0,
+               "recall_miss": 1.0 - recall,
+               **reference.quantizer_numbers(qrows, quantizer["centroids"], qassign)}
+    detail = None
+    if check is not None:
+        numbers["read_back_miss"] = check.back["missed"] + (0 if check.back["asked"] else 1)
+        numbers["ack_unseen"], detail = writer.unseen(
+            vis, ans.call[ok], g, n, ref_a, top_a[0].cpu().numpy(), ivf_a, ref_scores,
+            lambda upto, sel: over_some(torch.from_numpy(sel).to(dev), upto))
+    return Judged(numbers=numbers, recall_at_10=recall, detail=detail)
+
+
+def ivf_member(vis: writer.Visible, qd: torch.Tensor, check: Optional[writer.Check],
+               quantizer: dict):
+    """``reference.prefix_topk``'s ``member`` for the IVF answer set over
+    the stream's rows: a row placed in a probed cluster, or still pending
+    at the send (the pending tail is scanned whole), and not in a folding
+    tail; None with no writer."""
+    if check is None:
+        return None
+    dev = qd.device
+    assign = np.full(vis.writes.shape[0], -1, dtype=np.int64)
+    ids = writer.written(check.stream).ids
+    fin = quantizer["assign"]
+    inside = (ids >= 0) & (ids < len(fin))
+    assign[inside] = fin[ids[inside]]
+    aw = torch.from_numpy(assign).to(dev)
+    pf = torch.from_numpy(vis.pend_from).to(dev)
+    col = torch.arange(vis.writes.shape[0], device=dev)
+
+    def member(lo, hi):
+        placed = check.probes[qd[lo:hi]][:, aw.clamp(min=0)] & (aw >= 0)[None, :]
+        return (placed | (col[None, :] >= pf[lo:hi, None])) & vis.unskipped(lo, hi)
+
+    return member
+
+
+def checks_of(traffic: dict) -> tuple:
+    """The numbers that decide ``correct`` in a cell of this mix."""
+    return CHECKS + writer.CHECKS if "writer" in traffic else CHECKS
+
+
+def state_after(setup: Setup, cell: spec.Cell):
+    """What the check needs of the index before it is freed: its quantizer
+    and, with a writer, the read-back of every acknowledged batch (the
+    writer's rows are then dropped: the reference makes them again)."""
+    if setup.writes is None:
+        return state_of(setup.index, int(cell.config["rows"])), None
+    quantizer = state_of(setup.index, int(setup.index.rows_allocated))
+    back = writer.read_back(setup.index, setup.writes, cell.traffic)
+    setup.writes.rows = None
+    return quantizer, back
 
 
 def state_of(index, n: int) -> dict:
     """The index's quantizer, copied to the host before it is freed: the
     centroids and each row's cluster, judged against the rows and then
-    defining the IVF answer set."""
+    defining the IVF answer set (with a writer, ``n`` is every row the
+    index holds; a row still pending has cluster -1)."""
     return {"centroids": np.array(index.centroids, dtype=np.float32, copy=True),
             "assign": np.array(index._assign[:n], dtype=np.int64, copy=True)}
 
@@ -402,7 +518,7 @@ def references(cell: spec.Cell, seed: int, pool: torch.Tensor, quantizer: dict,
     rows = corpus.make_rows(cfg, seed, device)
     nprobe = int(traffic.get("nprobe") or cfg["index"]["nprobe"])
     probes = reference.probe_table(pool, quantizer["centroids"], nprobe)
-    assign = torch.from_numpy(quantizer["assign"]).to(device)
+    assign = torch.from_numpy(quantizer["assign"][:rows.shape[0]]).to(device)
     allowed = allowed_rows(cell)
     allow_dev = torch.from_numpy(allowed).to(device) if allowed is not None else None
     refs = reference.topk(rows, pool, int(traffic["k"]), allow=allow_dev,
@@ -444,14 +560,18 @@ def probed_per_call(win: Window, probes: torch.Tensor) -> List[int]:
     return [int(per_batch[win.batch_of[c]]) for c in win.trace.calls]
 
 
-def e2e_values(win: Window, judged: Judged, setup_s: float) -> dict:
+def e2e_values(win: Window, judged: Judged, setup_s: float,
+               writes: Optional[writer.Stream] = None) -> dict:
     done = sum(win.batch for a in win.answers if a is not None)
-    return {
+    values = {
         "qps": done / win.seconds,
         "p95_ms": float(np.percentile(np.asarray(win.latency_s), 95) * 1e3),
         "recall_at_10": judged.recall_at_10,
         "setup_s": setup_s,
     }
+    if writes is not None:
+        values["write_p95_ms"] = float(np.percentile(writer.lateness_ms(writes), 95))
+    return values
 
 
 def device_info(device: torch.device, count: int) -> dict:
@@ -487,7 +607,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     """One run of ``cell``; returns the result object (``t0``: the process's
     start on the host clock, where set-up begins)."""
     k = int(cell.traffic["k"])
-    setup = build(cell, seed, device)
+    setup = build(cell, seed, device, seconds)
     call = search_call(setup.index, cell.traffic)
     t_warm = time.perf_counter()
     if device.type == "cuda":
@@ -506,18 +626,24 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     log(f"window: {len(win.batch_of)} calls in {win.seconds:.3f} s; median ms a call "
         f"by quarter {[round(q, 4) for q in quarters]}")
     dev = device_info(device, cell.chips)
-    quantizer = state_of(setup.index, int(cell.config["rows"]))
-    pool, build_s = setup.pool, setup.build_s
+    if win.writer is not None:
+        log(f"writer: {win.writer}")
+    quantizer, back = state_after(setup, cell)
+    pool, build_s, writes = setup.pool, setup.build_s, setup.writes
     del setup, call
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     rows, refs, probes, allowed, _ = references(cell, seed, pool, quantizer, device)
-    judged = judge(Answers.of(win, k), refs, rows, pool, allowed, k, quantizer)
+    check = (writer.Check.of(writes, win, back, cell.config, seed, probes)
+             if writes is not None else None)
+    judged = judge(Answers.of(win, k), refs, rows, pool, allowed, k, quantizer, check)
     log(f"reference and check in {time.perf_counter() - t_ref:.3f} s")
     for err in sorted(set(win.errors))[:5]:
         log(f"a call raised: {err}")
+    for err in sorted({r.error for r in writes.done if r.error} if writes else ())[:5]:
+        log(f"an add raised: {err}")
     result = {"correct": False, "attempted": len(win.batch_of) * win.batch,
               "failed": judged.numbers["failed"]}
     if trace:
@@ -533,15 +659,21 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     else:
         # a metric split by the cells that report it (qps.serve, qps.bulk)
         # is the quantity its name starts with
-        values = e2e_values(win, judged, setup_s)
+        values = e2e_values(win, judged, setup_s, writes)
         metrics = {m["name"]: {"value": values[m["name"].split(".")[0]], "unit": m["unit"]}
                    for m in cell.end_to_end}
     result["metrics"] = metrics
     result["device"] = dev
     if trace and win.trace is not None:
         result["breakdown"] = win.trace.breakdown()
+    if win.writer is not None:
+        # the window's rates beside what the writer did: no bound holds them
+        # yet (PERF.md), so they are not among the cell's metrics
+        speeds = e2e_values(win, judged, setup_s, writes)
+        result["writer"] = {**win.writer, **(judged.detail or {}),
+                            **{k: speeds[k] for k in ("qps", "p95_ms", "write_p95_ms")}}
     checks = {name: {"value": judged.numbers[name], "limit": cell.limits.get(name)}
-              for name in CHECKS}
+              for name in checks_of(cell.traffic)}
     result["correct"] = all(c["limit"] is not None and c["value"] <= c["limit"]
                             for c in checks.values()) and result["attempted"] > 0
     result["checks"] = checks

@@ -25,6 +25,34 @@ def span_totals(name: str) -> Optional[dict]:
     return tot if tot and tot["count"] > 0 else None
 
 
+def totals() -> Optional[dict]:
+    """The program's counters and span totals now, or None."""
+    try:
+        from semcode_tpu_torch.utils import tracing
+
+        return tracing.snapshot()
+    except (ImportError, AttributeError):
+        return None
+
+
+def delta(before: Optional[dict], after: Optional[dict]) -> dict:
+    """What the program added to its totals between two ``totals()``:
+    ``{"counters": {name: n}, "spans": {name: {"count", "seconds"}}}``,
+    names that did not move left out."""
+    if before is None or after is None:
+        return {}
+    counters = {k: v - before["counters"].get(k, 0)
+                for k, v in after["counters"].items()}
+    spans = {}
+    for k, v in after["spans"].items():
+        was = before["spans"].get(k, {"count": 0, "seconds": 0.0})
+        if v["count"] > was["count"]:
+            spans[k] = {"count": v["count"] - was["count"],
+                        "seconds": v["seconds"] - was["seconds"]}
+    return {"counters": {k: v for k, v in counters.items() if v},
+            "spans": spans}
+
+
 def host_ms_per_call(ctx) -> Optional[float]:
     """Mean host milliseconds of the program's ``ivf.search`` span over the
     traced calls: routing and enqueueing one call, profiler-inflated like

@@ -99,6 +99,43 @@ def topk(rows: torch.Tensor, q: torch.Tensor, k: int, *,
     return out
 
 
+def prefix_topk(corpus_top: Tuple[torch.Tensor, torch.Tensor], pool: torch.Tensor,
+                qidx: torch.Tensor, writes: torch.Tensor, upto: torch.Tensor, k: int, *,
+                base: int, allow: Optional[torch.Tensor] = None, member=None,
+                control: bool = False, sub: int = 2048):
+    """Exact top-``k`` of each answer over the corpus and a prefix of a
+    writer's rows. Answer m asks query ``pool[qidx[m]]``; ``corpus_top``
+    (scores, ids), each (M, k), is its top-``k`` over the corpus; it may also
+    take the first ``upto[m]`` rows of ``writes`` (W, d), whose ids are
+    ``base`` plus their position. ``allow`` (W,) bool masks written rows out
+    (a tag filter); ``member(lo, hi)``, where given, returns the (hi - lo, W)
+    bool of the written rows answers ``lo:hi`` may take (an IVF answer set).
+    ``control`` rounds the operands to TF32, as ``topk`` does.
+
+    Returns (scores, ids), each (M, k), ids int64."""
+    qq = tf32(pool) if control else pool
+    ww = tf32(writes) if control else writes
+    cs, ci = corpus_top
+    if writes.shape[0] == 0:
+        return cs, ci
+    col = torch.arange(writes.shape[0], device=writes.device)
+    out_s, out_i = torch.empty_like(cs), torch.empty_like(ci)
+    for lo in range(0, qidx.shape[0], sub):
+        hi = min(lo + sub, qidx.shape[0])
+        s = f32_product(qq[qidx[lo:hi]], ww)
+        keep = col[None, :] < upto[lo:hi, None]
+        if allow is not None:
+            keep &= allow[None, :]
+        if member is not None:
+            keep &= member(lo, hi)
+        v, i = torch.topk(s.masked_fill_(~keep, NEG), min(k, s.shape[1]), dim=1)
+        v = torch.cat([cs[lo:hi], v], dim=1)
+        i = torch.cat([ci[lo:hi], i + base], dim=1)
+        v, pos = torch.topk(v, k, dim=1)
+        out_s[lo:hi], out_i[lo:hi] = v, torch.gather(i, 1, pos)
+    return out_s, out_i
+
+
 def quantizer_numbers(rows: torch.Tensor, centroids: np.ndarray, assign: np.ndarray,
                       m: int = 8, sub: int = 1 << 15) -> dict:
     """The index's quantizer held against the rows, as a k-means quantizer

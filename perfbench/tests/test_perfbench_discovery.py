@@ -60,6 +60,6 @@ def test_benchmark_cells_find_their_files():
         cell = spec.load(w["name"])
         assert cell.config["name"] == w["config"]
         assert cell.traffic["name"] == w["traffic"]
-        assert set(cell.limits) == set(harness.CHECKS)
+        assert set(cell.limits) == set(harness.checks_of(cell.traffic))
         for m in cell.per_layer:
             assert callable(cell.reader(m["name"]))
