@@ -27,7 +27,9 @@ A mix with ``"writer"`` adds one writer thread beside the readers
 writer runs with the readers, and each answer is judged against the rows it
 could see, with the read-back of every acknowledged batch after the window.
 A mix without it makes the same calls as before, and its answers are judged
-with every prefix of the stream empty.
+with every prefix of the stream empty. A mix whose ``"call"`` is another
+than ``IVFIndex.search_device`` is run by ``calls/<call>.py`` (``run``; a
+model's ``generate_tokens``: ``model.py``).
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, ``breakdown`` (traced
@@ -55,6 +57,8 @@ from . import corpus, kernels, program, reference, roofline, spec, writer
 from .trace import SPAN, Trace, from_profile
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "semcode_tpu")
+# the mixes this module runs; another "call" is run by calls/<call>.py
+SEARCH_CALL = "IVFIndex.search_device"
 # least warm-up: calls and seconds of the cell's own batch shape
 WARM_CALLS, WARM_SECONDS = 10, 1.0
 # the traced slice starts a third into the window and lasts this long
@@ -228,11 +232,14 @@ def client_loop(call, batches, first: int, stride: int, t_end: float, win: Windo
 
 class Tracer:
     """Runs ``torch.profiler`` over a slice of client 0's calls: from a
-    third into the window for TRACE_SECONDS, spans around each call."""
+    third into the window for ``slice_s`` and at least ``min_calls`` whole
+    calls, spans around each call."""
 
-    def __init__(self, t_start: float, seconds: float, device: torch.device):
+    def __init__(self, t_start: float, seconds: float, device: torch.device,
+                 slice_s: float = TRACE_SECONDS, min_calls: int = 3):
         self.t_on = t_start + seconds / 3
         self.t_off = None
+        self.slice_s, self.min_calls = slice_s, min_calls
         self.device = device
         self.prof = None
         self.calls: List[int] = []
@@ -263,7 +270,7 @@ class Tracer:
             self.prof.start()
             self.active = True
             self.t_began = time.perf_counter()
-            self.t_off = self.t_began + TRACE_SECONDS
+            self.t_off = self.t_began + self.slice_s
         if self.active:
             return torch.profiler.record_function(SPAN)
         return nullcontext()
@@ -272,7 +279,7 @@ class Tracer:
         if not self.active:
             return
         self.calls.append(call_no)
-        if t1 >= self.t_off and len(self.calls) >= 3:
+        if t1 >= self.t_off and len(self.calls) >= self.min_calls:
             self._stop()
 
     def _stop(self) -> None:
@@ -486,6 +493,8 @@ def ivf_member(vis: writer.Visible, qd: torch.Tensor, check: Optional[writer.Che
 
 def checks_of(traffic: dict) -> tuple:
     """The numbers that decide ``correct`` in a cell of this mix."""
+    if traffic["call"] != SEARCH_CALL:
+        return spec.call_module(traffic["call"]).checks_of(traffic)
     return CHECKS + writer.CHECKS if "writer" in traffic else CHECKS
 
 
@@ -543,14 +552,16 @@ def allowed_rows(cell: spec.Cell) -> Optional[np.ndarray]:
 @dataclass
 class ReadContext:
     """What a per-layer reader may read: the traced slice, the cell, for
-    each traced call the distinct clusters its batch probes, and the build's
-    seconds on the host clock."""
+    each traced call the distinct clusters its batch probes, the build's
+    seconds on the host clock, and every call's seconds on the host clock
+    (``Window.latency_s``, by call number)."""
 
     trace: Trace
     cell: spec.Cell
     probed: List[int]
     build_s: float
     roofline: object = roofline
+    latency_s: List[float] = field(default_factory=list)
 
 
 def probed_per_call(win: Window, probes: torch.Tensor) -> List[int]:
@@ -649,7 +660,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     if trace:
         metrics = {}
         if win.trace is not None:
-            ctx = ReadContext(win.trace, cell, probed_per_call(win, probes), build_s)
+            ctx = ReadContext(win.trace, cell, probed_per_call(win, probes), build_s,
+                              latency_s=win.latency_s)
             for m in cell.per_layer:
                 value = cell.reader(m["name"])(ctx)
                 if value is not None:
@@ -680,6 +692,15 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     return result
 
 
+def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: torch.device,
+        t0: float) -> dict:
+    """One run of ``cell`` by the path of its mix's ``"call"``: a search here,
+    another call by ``run_cell`` of ``calls/<call>.py``."""
+    call = cell.traffic["call"]
+    runner = run_cell if call == SEARCH_CALL else spec.call_module(call, cell.root).run_cell
+    return runner(cell, seed, seconds, trace, device, t0)
+
+
 def print_result(result: dict) -> None:
     for name, c in result["checks"].items():
         log(f"check {name}: {c['value']!r} (limit {c['limit']!r})")
@@ -704,8 +725,8 @@ def main(argv=None, t0: Optional[float] = None) -> int:
         log(f"{args.workload} needs {cell.chips} CUDA card(s); {avail} available")
         return 2
     try:
-        result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                          torch.device("cuda", 0), t0)
+        result = run(cell, args.seed, args.seconds, bool(args.trace),
+                     torch.device("cuda", 0), t0)
     except Exception:  # noqa: BLE001 - the run fails without a result
         traceback.print_exc()
         return 1

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+
 
 def search_roofline(ctx) -> Optional[float]:
     """The traced searches' least device time (``roofline.search_seconds``:
@@ -40,6 +42,17 @@ def idle_share(ctx) -> Optional[float]:
     if ctx.trace.wall_s <= 0 or not ctx.trace.device_ops:
         return None
     return 100.0 * (1.0 - ctx.trace.busy_s() / ctx.trace.wall_s)
+
+
+def untraced_p95_ms(ctx) -> Optional[float]:
+    """The 95th percentile, in ms, of the window's calls on the host clock,
+    those of the traced slice left out (the profiler slows them): a traced
+    run's reading of what ``p95_ms`` reads in an untraced one."""
+    traced = set(ctx.trace.calls)
+    lat = [s for c, s in enumerate(ctx.latency_s) if c not in traced]
+    if not lat:
+        return None
+    return float(np.percentile(np.asarray(lat), 95) * 1e3)
 
 
 def build_seconds(ctx) -> Optional[float]:

@@ -2,8 +2,9 @@
 
 The published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at
 its 700 W limit), copied here so that a change to the program cannot move
-them. The work does not depend on the route or kernel the program takes:
-a search of ``Q`` queries that probes ``U`` distinct clusters needs
+them (the bf16 peak is the model cells', ``model.mfu``). The work does not
+depend on the route or kernel the program takes: a search of ``Q`` queries
+that probes ``U`` distinct clusters needs
 
 - bytes, each read or written once: the centroids (nlist x d x 4), the
   queries (Q x d x 4), the stored int8 rows of the ``U`` probed clusters
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+BF16_FLOPS_PER_S = 989.4e12
 PEAK_POWER_W = 700.0
 
 # bytes a rescore row takes, by the index's rescore tier

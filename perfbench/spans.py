@@ -32,10 +32,9 @@ import torch
 from torch.autograd import DeviceType
 
 from . import harness, spec
-from .trace import SPAN, TOP, Trace, _innermost, from_profile
+from .trace import OUTSIDE, SPAN, TOP, Holders, Trace, from_profile
 
 PREFIX = "semcode."
-OUTSIDE = "host: outside any operator"
 Span = Tuple[float, float, str]
 
 
@@ -95,8 +94,7 @@ def gaps_by_span(trace: Trace, prof) -> List[list]:
     named after the innermost program span at its midpoint."""
     spans = [s for per in program_spans(prof).values() for s in per]
     spans.sort()
-    host = sorted(trace.host_ops)
-    starts = [s for s, _, _ in host]
+    holders = Holders(sorted(trace.host_ops))
     gaps: Dict[str, float] = {}
     edges = [(trace.start, trace.start)] + trace.busy + [(trace.end, trace.end)]
     for (_, prev_end), (nxt, _) in zip(edges, edges[1:]):
@@ -104,7 +102,7 @@ def gaps_by_span(trace: Trace, prof) -> List[list]:
         if hi <= lo:
             continue
         mid = (lo + hi) / 2
-        name = _innermost(host, starts, mid)
+        name = holders.innermost(mid)
         if name == OUTSIDE:
             held = innermost(spans, mid)
             name = f"span: {held}" if held else OUTSIDE

@@ -10,7 +10,10 @@ files of its own, found by the name the benchmark gives it:
 - ``perfbench/metrics/<metric>.py``: a reader ``read(ctx)`` that returns
   the per-layer metric's value, or None where it finds nothing to read;
 - ``perfbench/limits/<workload>.json``: the limit of each number that
-  decides the cell's ``correct``.
+  decides the cell's ``correct``;
+- ``perfbench/calls/<call>.py``: the path that runs a mix whose ``"call"``
+  is not the search's (``run_cell``, ``checks_of``); a model configuration
+  names its program and plain reference by file (``model.py``).
 
 A later change adds a cell, a configuration, a mix or a metric by adding
 such files and entries; no file here needs an edit.
@@ -44,11 +47,20 @@ class Cell:
     def reader(self, metric: str) -> Callable:
         """The ``read`` function of ``metrics/<metric>.py``."""
         path = self.root / "perfbench" / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(
-            f"perfbench_metric_{metric.replace('.', '_')}", path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return load_file(path, f"perfbench_metric_{metric}").read
+
+
+def load_file(path: Path, name: str):
+    """The module of the Python file ``path``, loaded under ``name``."""
+    spec = importlib.util.spec_from_file_location(name.replace(".", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def call_module(call: str, root: Path = ROOT):
+    """The module of ``calls/<call>.py``."""
+    return load_file(root / "perfbench" / "calls" / f"{call}.py", f"perfbench_call_{call}")
 
 
 def _json(path: Path) -> dict:

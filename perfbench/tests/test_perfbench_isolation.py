@@ -30,6 +30,19 @@ def test_reference_imports_nothing_of_the_program():
     assert not names & FORBIDDEN
 
 
+def test_model_references_import_nothing_of_the_program():
+    """A model configuration's plain reference (``models/*_reference.py``)
+    imports neither JAX nor the port, its kernels included, nor the
+    harness."""
+    paths = list((spec.PACKAGE / "models").glob("*_reference.py"))
+    assert paths
+    for path in paths:
+        names = imported(path)
+        assert not names & (FORBIDDEN | {"semcode_tpu_torch", "perfbench"}), path
+        assert not any(isinstance(n, ast.ImportFrom) and n.level > 0
+                       for n in ast.walk(ast.parse(path.read_text()))), path
+
+
 def test_no_harness_file_imports_jax_or_the_jax_package():
     for path in spec.PACKAGE.rglob("*.py"):
         assert not imported(path) & FORBIDDEN, path
