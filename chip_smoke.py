@@ -203,9 +203,13 @@ Phases (any failed check exits non-zero before the final line):
    registers and spills; against the matrix route (``index/scan._select_xla``,
    sliced to w) bit for bit, scores as bits and rows, at the cells' shapes,
    w 32: 1M x 384 at Q 512 and Q 8 and 1M x 3072 at Q 256 (ms per call
-   beside its bound, its plain version, the matrix route and its products
-   build), with a tag-filtered (1% of rows), an l2 and a duplicated-rows
-   case at 1M x 384 (the tile-edge cases are ``tests/test_torch_cuda.py``'s);
+   beside its time before the new epilogue and pooled bounds, its
+   bound, its plain version, the matrix route and its products build; the
+   kernel's counters of one call: append rounds a warp and item, cuts a
+   query and list), with a tag-filtered (1% of rows), an l2 and a
+   duplicated-rows case at 1M x 384 (the tile-edge cases are
+   ``tests/test_torch_cuda.py``'s); top2_scan_kernel<int8> on the same rows
+   (bit for bit, ms beside its earlier time);
    and ``exact_scan``'s whole output (f32 mirror at d 384, residual rescore
    at d 3072, and the filtered case) on the kernel route against the matrix route, bit for bit, with
    ``scan.select.kernel`` counted once a call and a call's ms on each route.
@@ -2910,6 +2914,10 @@ def dot_max_phase(vecs, qq, top2):
 # -- phase 4d: scan_topk, the exact route's int8 selection in one kernel --------
 
 TOPK_WIDTH = 32  # the exact route's auto top-W slice, max(3k, 32) at k 10
+# scan_topk before its in-test appends and pooled bounds (step 0: one
+# H100 80GB HBM3 at 700 W), and top2_scan_kernel<int8> at 1M x 384, Q 512
+TOPK_STEP0_MS = {"d384_q512": 2.125, "d384_q8": 0.372, "d3072_q256": 1.788}
+TOP2_INT8_STEP0_MS = 0.605
 
 
 def topk_rows(x, gen, dup: bool, live_share: float):
@@ -2949,16 +2957,20 @@ def topk_matches(tag, got, want) -> None:
              f"  want   {ws[q, :8].tolist()} {wi[q, :8].tolist()}")
 
 
-def time_topk(vecs, sc, valid, nrm, qq, qsc, fetch, label):
+def time_topk(vecs, sc, valid, nrm, qq, qsc, fetch, label, step0_ms=None):
     """scan_topk at one cell's shape, held to the matrix route bit for bit:
     ms per call (CUDA events) beside its plain version, the matrix route it
     replaces (library_ms: its product, keys and radix top-k, then the
-    slice), its products-and-ring build and its bound."""
+    slice), its products-and-ring build, its bound and (``step0_ms``) its
+    time before the in-test appends and pooled bounds; the kernel's
+    counters of one call: offer rounds that entered the append path (a
+    lane's 8 rows of one query) per warp and item, and cuts per query and
+    list."""
     import torch
 
     from semcode_tpu_torch.index.scan import _select_xla
     from semcode_tpu_torch.ops.scan_top2 import (
-        scan_topk, scan_topk_probe, scan_topk_reference, topk_geometry,
+        scan_topk, scan_topk_counts, scan_topk_probe, scan_topk_reference, topk_geometry,
     )
     from semcode_tpu_torch.tools._timing import cuda_ms
 
@@ -2970,6 +2982,7 @@ def time_topk(vecs, sc, valid, nrm, qq, qsc, fetch, label):
     matrix = (qq, qsc, vecs, nrm if nrm is not None else sc, valid, sc, "int8",
               metric, fetch, False)
     got = scan_topk(*args)
+    rounds, cuts = scan_topk_counts()
     ms, mp = _select_xla(*matrix)
     topk_matches(f"{label} vs matrix route", got, (ms[:, :w], mp[:, :w]))
     err = (got[0] - ms[:, :w]).abs().max().item()
@@ -2987,14 +3000,21 @@ def time_topk(vecs, sc, valid, nrm, qq, qsc, fetch, label):
     bound_by = "operations" if n_ops / PEAK_INT8_OPS >= n_bytes / PEAK_HBM_BYTES else "bytes"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     geom = topk_geometry(rows, d, nq, sms, w)
-    log(f"[topk] {label}: scan_topk {kernel_ms:.3f} ms per call (plain {plain_ms:.1f} "
-        f"ms, matrix route {library_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by}); "
-        f"grid {geom.grid} ({geom.lists} lists x {geom.n_query_pairs} pairs), "
-        f"{geom.stages} stages, {geom.smem_bytes} B; products and ring alone "
-        f"{probe_ms['products']:.3f} ms")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-            "stages": geom.stages, "products_ms": probe_ms["products"]}
+    warp_items = geom.n_row_tiles * geom.n_query_pairs * 8
+    log(f"[topk] {label}: scan_topk {kernel_ms:.3f} ms per call"
+        + (f" (step 0 {step0_ms:.3f} ms)" if step0_ms else "")
+        + f" (plain {plain_ms:.1f} ms, matrix route {library_ms:.3f} ms, bound {bound_ms:.3f} "
+        f"ms by {bound_by}); grid {geom.grid} ({geom.lists} lists x {geom.n_query_pairs} "
+        f"pairs), {geom.stages} stages, {geom.smem_bytes} B; products "
+        f"and ring alone {probe_ms['products']:.3f} ms; append rounds {rounds} "
+        f"({rounds / warp_items:.2f} a warp and item), cuts {cuts} "
+        f"({cuts / (nq * geom.lists):.2f} a query and list)")
+    return {"ms": kernel_ms, "step0_ms": step0_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "stages": geom.stages,
+            "products_ms": probe_ms["products"], "append_rounds": rounds, "cuts": cuts,
+            "append_rounds_per_warp_item": rounds / warp_items,
+            "cuts_per_query_list": cuts / (nq * geom.lists)}
 
 
 def exact_scan_both_routes(mesh, ops, q, fetch, label, **kw):
@@ -3056,8 +3076,11 @@ def topk_phase():
 
     from semcode_tpu_torch.index.flat import quantize_residual_device
     from semcode_tpu_torch.index.scan import quantize_queries_device
-    from semcode_tpu_torch.ops.scan_top2 import scan_topk, scan_topk_attributes
+    from semcode_tpu_torch.ops.scan_top2 import (
+        NEG, scan_topk, scan_topk_attributes, top2_scan, top2_scan_reference,
+    )
     from semcode_tpu_torch.parallel.mesh import make_mesh
+    from semcode_tpu_torch.tools._timing import cuda_ms
     from semcode_tpu_torch.tools._corpus import (
         mixture, mixture_centers, mixture_chunk, queries_near,
     )
@@ -3075,9 +3098,24 @@ def topk_phase():
     vecs, sc, valid, norms = topk_rows(x, gen, False, 1.0)
     qq, qsc = quantize_queries_device(q)
     out["d384_q512"] = time_topk(vecs, sc, valid, None, qq, qsc, 128,
-                                 f"{N_ROWS} x {DIM} Q={BATCH}")
+                                 f"{N_ROWS} x {DIM} Q={BATCH}", TOPK_STEP0_MS["d384_q512"])
     out["d384_q8"] = time_topk(vecs, sc, valid, None, qq[:SERVE_BATCH],
-                               qsc[:SERVE_BATCH], 128, f"{N_ROWS} x {DIM} Q={SERVE_BATCH}")
+                               qsc[:SERVE_BATCH], 128, f"{N_ROWS} x {DIM} Q={SERVE_BATCH}",
+                               TOPK_STEP0_MS["d384_q8"])
+    # top2_scan_kernel<int8> on the same rows and queries: its stream is
+    # scan_topk's, its code and answers stay as they were
+    add = torch.where(valid, 0.0, NEG).float()
+    top2_args = (vecs, sc, add, qq, qsc)
+    bm, br = top2_scan(*top2_args)
+    rm, rr = top2_scan_reference(*top2_args)
+    if not (torch.equal(bm, rm) and torch.equal(br, rr)):
+        fail("top2_scan int8 differs from its plain version at the scan_topk shape")
+    del bm, br, rm, rr
+    top2_ms = cuda_ms(lambda: top2_scan(*top2_args), iters=20)
+    log(f"[topk] top2_scan_kernel<int8> {N_ROWS} x {DIM} Q={BATCH}: {top2_ms:.3f} ms per "
+        f"call (step 0 {TOP2_INT8_STEP0_MS:.3f} ms), answers equal to its plain version")
+    out["top2_int8_ms"] = top2_ms
+    del add, top2_args
     # the tag-filtered (1% of rows allowed), l2 and tied cases at full size
     tags = (torch.arange(N_ROWS, device="cuda") % 100 == 0).to(torch.int32)
     time_topk(vecs, sc, valid & (tags == 1), None, qq, qsc, 128,
@@ -3119,7 +3157,7 @@ def topk_phase():
     valid = torch.ones(N_ROWS, dtype=torch.bool, device="cuda")
     qq, qsc = quantize_queries_device(q)
     out["d3072_q256"] = time_topk(vecs, sc, valid, None, qq, qsc, 96,
-                                  f"{N_ROWS} x {d} Q={nq}")
+                                  f"{N_ROWS} x {d} Q={nq}", TOPK_STEP0_MS["d3072_q256"])
     out["exact_d3072_q256"] = exact_scan_both_routes(
         mesh, (vecs, norms, valid, sc, None), q, 96,
         f"{N_ROWS} x {d} Q={nq}, residual rescore", rescore_width=TOPK_WIDTH,

@@ -61,7 +61,7 @@
 // replaces no TPU kernel: the JAX exact route leaves the product and top_k
 // to XLA, whose port (index/scan._select_xla) writes the (Q, Rs) score
 // matrix, builds int64 keys from it in seven elementwise passes and runs a
-// radix top-k (39 ms against this kernel's 2.1 ms at 1M x 384 and Q 512 on
+// radix top-k (40 ms against this kernel's 1.2 ms at 1M x 384 and Q 512 on
 // one H100) to keep 32 entries a query. It computes, for every query q, the
 // best w rows by
 //     score = valid[r] ? s : -3e38,  s = (float(raw) * qsc[q]) * scale[r]
@@ -77,23 +77,39 @@
 // Design: grid = lists x query pairs, so each CTA keeps one query pair over
 // all its work items and carries each query's best w across its row tiles
 // (item u's pair is u % pairs = b % pairs). The consumers read each row
-// chunk together, without turns: the selection outlasts the products, and
-// the rows are read from L2 once a CTA at any depth (at d 3072 those reads
-// bound it). Each query keeps a threshold, the w-th (key, row) of its
-// candidates, in registers of the quad that owns its accumulator row. A
-// score that could beat it, and the query's bound that other CTAs publish
-// (atomicMax of their w-th key; ties at the bound pass, so the answer does
-// not depend on which CTA publishes first), is appended with its exact key
-// to the query's buffer in shared memory, 32 rows of the query an offer
-// round; the test is a float compare that keeps ties. A buffer that a
-// round's entries would overflow is first cut to its w best by one warp (a
-// histogram over the keys finds the w-th's bin, whose entries are ranked
-// exactly), which raises the threshold, and the round's entries are
-// filtered again: a cut every cap - w appends. The quad alone writes its
-// queries' buffers, so no CTA-wide barrier is needed. After its last item
-// each CTA writes each query's w best, sorted, as one list; scan_topk_merge
-// (a warp a query) merges the lists by (key desc, row asc) into the (Q, w)
-// scores and int64 rows.
+// chunk together, without turns: rows deeper than the ring are read from
+// L2 once a CTA at any depth (at d 3072 those reads bound it), and the
+// epilogue, bound by its latency, runs faster with both consumers in it at
+// once than beside the other's products (at d 384, Q 512 on one H100:
+// 1.324 ms with turns against 1.316 without, both with three stages). At
+// Q <= 64 the second
+// consumer has no tile and reads nothing. Each query keeps a threshold, the w-th (key, row) of its
+// candidates, a count and its candidate buffer in shared memory; the limit
+// an entry must beat is the larger of the threshold and the query's bound.
+// The epilogue (offer_topk) tests every score of the item against the
+// limits at the item's start, branch-free on the FMA pipe; a lane with
+// entries in a round takes their slots in the query's buffer by one
+// shared-memory atomic and writes them from the scores in its registers,
+// predicated, a warp vote skipping the rounds where no lane has one. Only
+// a lane that finds no room (a scan's first items, then every cap - w
+// appends of a query) sends the warp to the counted path, which cuts the
+// buffer to its w best by one warp (a histogram over the keys finds the
+// w-th's bin, whose entries are ranked exactly), raising the threshold,
+// and goes on from the round that did not fit. The bounds: each CTA
+// publishes the w-th key at a cut (atomicMax; ties at a bound pass, so the
+// answer does not depend on which CTA publishes first) and its best key
+// appended of each query; the producer's idle warps fold the least of the
+// lists' best keys (lists >= w distinct entries reach it) into the
+// published bounds, which each CTA reads at every item, one list CTA
+// computing a query's; in a CTA's first item the least of each quad's 32
+// lane-round maxima is a bound too. A query's limit rises fastest that way:
+// at 1M x 384 and Q 512 the cuts fall from 7.3 a query and list to 2.0.
+// What bounds the epilogue is then its per-score test and its latency: one
+// H100 runs the kernel in 1.19 ms against 0.34 ms for the products and
+// ring alone (2.13 ms before this design). After
+// its last item each CTA writes each query's w best, sorted, as one list;
+// scan_topk_merge (a warp a query) merges the lists by (key desc, row asc)
+// into the (Q, w) scores and int64 rows.
 //
 // Plain C interface (loaded with ctypes): each entry point returns the
 // cudaError_t of its launches; the caller allocates the outputs, owns the
@@ -193,6 +209,10 @@ constexpr int kMaskWords = kRowTile / 32;  // validity words of one row tile
 constexpr int kMaskBytes = kEpiSlots * kMaskWords * 4;
 constexpr int kBins = 128;          // histogram bins of one warp's select
 constexpr int kHistBytes = 8 * kBins * 4;
+// append rounds and cuts of each consumer warp; the consumer warps that are done
+constexpr int kTallyBytes = 8 * 2 * 4 + 16;
+// each query's threshold (key, row), count and best key appended
+constexpr int kStateBytes = kCtaQueries * 16;
 constexpr int kMaxLists = 256;      // CTAs per query pair
 constexpr int kNoRow = 0x7fffffff;
 
@@ -201,7 +221,8 @@ __host__ __device__ constexpr int topk_cap(int w) {
 }
 constexpr int topk_smem_bytes(int w, int stages) {
   return kSmemAlign + stages * kStageBytes + kEpiSlots * kEpiBytes + kMaskBytes +
-         kHistBytes + kCtaQueries * topk_cap(w) * 8 + kBarrierBytes;
+         kHistBytes + kTallyBytes + kStateBytes + kCtaQueries * topk_cap(w) * 8 +
+         kBarrierBytes;
 }
 constexpr int topk_max_stages(int w) {
   return (kSmemLimit - topk_smem_bytes(w, 0)) / kStageBytes;
@@ -223,6 +244,8 @@ struct Args {
   unsigned* qbound;
   int rs, d, nq, stages, n_qtiles, n_qpairs, n_units;
   int w, cap, lists;
+  int* counts;      // the call's append rounds and cuts
+  unsigned* best;   // (nq, lists): each CTA's best key appended of each query
 };
 
 // the accumulator as the epilogue reads it: s32 converted, f32 as summed
@@ -335,8 +358,9 @@ __device__ __forceinline__ bool kbetter(int a, int i, int b, int j) {
   return a > b || (a == b && i < j);
 }
 
-// One warp keeps the best `keep` of buffer qb's n entries (keep < n <= 32 E),
-// compacted in place to qb[0, keep) in no order, and returns the worst kept
+// One warp keeps the best `keep` of buffer qb's n entries (keep <= n <= 32 E;
+// each a score's float bits and its row, ranked by the score's total-order
+// key), compacted in place to qb[0, keep) in no order, and returns the worst kept
 // entry (the keep-th best) on every lane. Exact: a histogram of the keys'
 // distance below the largest, cut to 128 bins by a shift (a bin never holds
 // a better key than an earlier bin), finds the bin of the keep-th entry;
@@ -349,8 +373,8 @@ __device__ __forceinline__ void select_keys(int2* qb, int n, int keep, int* hist
 #pragma unroll
   for (int i = 0; i < E; ++i) {
     const int e = i * 32 + lane;
-    const int2 v = e < n ? qb[e] : make_int2(INT_MIN, kNoRow);
-    s[i] = v.x;
+    const int2 v = e < n ? qb[e] : make_int2(0, kNoRow);
+    s[i] = e < n ? ordered(__int_as_float(v.x)) : INT_MIN;
     r[i] = v.y;
     if (e < n) { hi = max(hi, s[i]); lo = min(lo, s[i]); }
   }
@@ -426,7 +450,7 @@ __device__ __forceinline__ void select_keys(int2* qb, int n, int keep, int* hist
   __syncwarp();
 #pragma unroll
   for (int i = 0; i < E; ++i)
-    if (kept[i]) qb[at[i]] = make_int2(s[i], r[i]);
+    if (kept[i]) qb[at[i]] = make_int2(__float_as_int(unordered(s[i])), r[i]);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const int os = __shfl_xor_sync(0xffffffffu, wk, off);
@@ -436,9 +460,9 @@ __device__ __forceinline__ void select_keys(int2* qb, int n, int keep, int* hist
   __syncwarp();
 }
 
-// Not inlined: the offer rounds call it from 16 places, rarely; one copy
-// keeps their unrolled code small. Returns the keep-th (key, row) by value,
-// so no stack slot (local memory, with little L1 beside the ring) is used.
+// Not inlined: called rarely, from a few places. Returns the keep-th
+// (key, row) by value, so no stack slot (local memory, with little L1
+// beside the ring) is used.
 __device__ __noinline__ int2 select_any(int2* qb, int n, int keep, int* hist, int lane) {
   int wk, wr;
   if (n <= 64) select_keys<2>(qb, n, keep, hist, lane, wk, wr);
@@ -478,148 +502,356 @@ __device__ __forceinline__ void sort64(int (&k)[2], int (&r)[2], int lane) {
   }
 }
 
-// A consumer thread's two queries (accumulator rows g and g + 8 of its
-// warp), the same over every item of the CTA: the threshold (the w-th
-// (key, row) after the buffer's last cut), the buffer's count (the same in
-// the four threads of the quad), the query's scale and published bound.
-// A query past Q keeps the threshold (INT_MAX, -1), which nothing beats.
-struct TopkState {
-  int thr_k[2], thr_r[2], cnt[2], bnd[2];
-  float qs[2];
-};
+// The epilogue's f32 score of one accumulator element, as the matrix route
+// computes it (unfused): (raw * qsc) * scale, for l2 2 s - norm.
+template <bool L2>
+__device__ __forceinline__ float topk_score(int raw, float qs, float scale, float norm) {
+  const float s = __fmul_rn(__fmul_rn(__int2float_rn(raw), qs), scale);
+  return L2 ? __fsub_rn(__fmul_rn(2.f, s), norm) : s;
+}
+
+// The float a limit key stands for in the tests: INT_MIN lets everything
+// pass, INT_MAX nothing but NaN.
+__device__ __forceinline__ float limit_float(int lim_k) {
+  return lim_k == INT_MIN ? -INFINITY : lim_k == INT_MAX ? INFINITY : unordered(lim_k);
+}
+
+// 1.0 where x >= lim or either is NaN (the test !(x < lim)), else 0.0: a
+// float result, so a round's pass bits add up on the FMA pipe.
+__device__ __forceinline__ float geu(float x, float lim) {
+  float d;
+  asm("set.geu.f32.f32 %0, %1, %2;" : "=f"(d) : "f"(x), "f"(lim));
+  return d;
+}
+
+// x passed through an opaque move: scores computed again from it (the
+// counted path's) are not taken from the hot test's conversions, which the
+// compiler would otherwise keep (in local memory: the accumulator holds the
+// registers).
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(x));
+  return x;
+}
+
+// This thread's 8 accumulator elements of offer round r of query i, for a
+// runtime round (one switch over the 16 (r, i): the code of the counted
+// path exists once), through an opaque move.
+__device__ __forceinline__ void round_raw(const int (&acc)[128], int r, int i, int (&a)[8]) {
+  switch (2 * r + i) {
+#define SCAN_TOPK_ROUND(R, I)                                             \
+  case 2 * R + I:                                                         \
+    _Pragma("unroll") for (int b = 0; b < 8; ++b)                         \
+        a[b] = acc[4 * (4 * R + (b >> 1)) + 2 * I + (b & 1)];              \
+    break;
+    SCAN_TOPK_ROUND(0, 0) SCAN_TOPK_ROUND(0, 1) SCAN_TOPK_ROUND(1, 0) SCAN_TOPK_ROUND(1, 1)
+    SCAN_TOPK_ROUND(2, 0) SCAN_TOPK_ROUND(2, 1) SCAN_TOPK_ROUND(3, 0) SCAN_TOPK_ROUND(3, 1)
+    SCAN_TOPK_ROUND(4, 0) SCAN_TOPK_ROUND(4, 1) SCAN_TOPK_ROUND(5, 0) SCAN_TOPK_ROUND(5, 1)
+    SCAN_TOPK_ROUND(6, 0) SCAN_TOPK_ROUND(6, 1) SCAN_TOPK_ROUND(7, 0) SCAN_TOPK_ROUND(7, 1)
+#undef SCAN_TOPK_ROUND
+  }
+#pragma unroll
+  for (int b = 0; b < 8; ++b) a[b] = opaque(a[b]);
+}
+
+// Of a round's pass bits (bit 2jj + c: tile row 32r + 8jj + 2t + c), those
+// of rows below Rs (all but in the last tile's tail).
+__device__ __forceinline__ uint32_t in_rows(uint32_t bits, int nexist, int r, int t) {
+  if (nexist < kRoundRows * (r + 1)) {  // warp-uniform
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      if (kRoundRows * r + 8 * (b >> 1) + 2 * t + (b & 1) >= nexist) bits &= ~(1u << b);
+  }
+  return bits;
+}
+
+// The pass bits of one round's 8 entries of a query from the hot test's sum
+// of powers of two: the live rows that pass, the masked rows where `neg` is
+// 0xff, no row past Rs.
+__device__ __forceinline__ uint32_t round_bits(float hot, uint32_t live, uint32_t neg,
+                                               int nexist, int r, int t) {
+  return in_rows(((__float_as_uint(hot + 8388608.f) & live) | (neg & ~live)) & 0xffu, nexist, r, t);
+}
 
 // scan_topk's epilogue of one consumer warpgroup's 64 queries x 256 rows:
 // 8 offer rounds of 32 rows a query (accumulator column blocks 4r .. 4r + 3).
-// A round's passing entries go to the query's buffer; a buffer they would
-// overflow is first cut to its w best (raising the threshold, publishing the
-// w-th key as the query's bound), and its quad filters them again. So a cut
-// comes once every cap - w appends, not every round. The buffers of warp
-// `warp`'s queries start at slot slot0 + 16 warp.
+// Query row qr of the CTA (slot0 + 16 warp + g + 8i for this thread's i)
+// keeps its threshold at qthr[qr] (the w-th (key, row) after the buffer's
+// last cut; key INT_MAX past Q, which nothing beats), its buffer at cbuf +
+// qr * cap (a score's float bits and its row an entry) and the buffer's
+// count at qcnt[qr], which the lanes of the quad that scores the query
+// raise by atomics to take their slots. bnd[i]: the query's bound, read at
+// the item's start. tally[0], tally[1] count the warp's offer rounds that
+// entered the append path (a lane's 8 rows of one query) and its cuts.
 //
 // The limit an entry must beat is the larger of the query's bound (keys at
 // it pass) and its threshold. The hot test is a float compare that keeps
 // every entry that could beat it (ties, -0 against +0 and NaN included:
-// entries appended in excess only take room), and only appended entries get
-// their exact total-order keys, which the cuts rank.
+// entries appended in excess only take room); masked rows, which all tie at
+// -3e38, pass by the exact rule (at a bound, or before the threshold's row
+// where the threshold is -3e38). The cuts rank entries by their exact
+// total-order keys.
+//
+// The hot test of every score of the item against the limits at the item's
+// start runs branch-free on the FMA pipe, and a lane with entries in a
+// round takes their slots by one shared-memory atomic and writes them right
+// there, predicated, from the scores in its registers: no offsets to agree
+// on across the quad, no warp-collective step. A lane whose slots would
+// pass the buffer's end writes nothing from that round on, and notes where
+// its slots began (every slot below the first such start was written). One
+// warp vote an item then asks whether a lane found no room. Only then (a
+// scan's first items, and every cap - w appends of a query after) the
+// counted path runs: the quads that lack room are cut to their w best
+// (raising the threshold, publishing the w-th key as the query's bound),
+// and the lanes go on from the round that did not fit, against the current
+// limit.
 template <bool L2>
 __device__ __forceinline__ void offer_topk(const int (&acc)[128],
                                            const float4* __restrict__ epi,
-                                           const uint32_t* __restrict__ mask,
-                                           int2* cbuf, int* hist, TopkState& st,
-                                           const Args& p, int row0, int q0, int slot0,
-                                           int warp, int lane) {
+                                           const uint32_t* __restrict__ mask, int2* cbuf,
+                                           int2* qthr, int* qcnt, int* qbest, int* hist,
+                                           int* tally,
+                                           const int (&bnd)[2], const Args& p, int row0,
+                                           int q0, int slot0, bool first, int warp,
+                                           int lane) {
   const int g = lane / 4, t = lane % 4;
   const int nexist = p.rs - row0;  // rows of the tile below Rs
-  // {scale, scale, norm, norm} of tile rows 8j + 2t, + 1 at epi[4j + t],
-  // read where used: few registers stay free beside the accumulator
+  // {scale, scale, norm, norm} of tile rows 8j + 2t, + 1 at epi[4j + t]
   const float2* en = reinterpret_cast<const float2*>(epi);
+  const int qr0 = slot0 + warp * 16 + g;  // query row of i = 0 in the CTA; i = 1: + 8
+  const int kneg = ordered(kNeg);
+  int skip[2], fail[2];  // the first round that found no room (8: none); where its slots began
+  int beff[2];           // the bounds
+  float lim[2], qs_[2];  // the limits as floats, the scales
+  uint32_t neg[2], qon_[2];
+  int appended = 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = qr0 + 8 * i;
+    const uint32_t qon = q0 - slot0 + qr < p.nq ? 0xffu : 0u;
+    const int thr = qthr[qr].x;
+    const float qs = qon ? __ldg(p.qsc + q0 - slot0 + qr) : 0.f;
+    beff[i] = bnd[i];
+    if (first && p.w <= kRoundRows && nexist >= kRowTile) {  // warp-uniform
+      // a CTA's first item: every entry would pass. The least of the quad's
+      // 32 lane-round maxima (as keys: -0 below +0) is a key that 32 >= w
+      // distinct entries reach, a bound for every CTA
+      int least = INT_MAX;
+#pragma unroll
+      for (int r = 0; r < kRowTile / kRoundRows; ++r) {
+        asm volatile("" ::: "memory");
+        const uint32_t live = (mask[r] >> (8 * t)) & 0xffu;
+        int most = INT_MIN;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float2 sc = en[2 * (4 * (4 * r + jj) + t)];
+          const float2 nm = L2 ? en[2 * (4 * (4 * r + jj) + t) + 1] : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float x = topk_score<L2>(opaque(acc[4 * (4 * r + jj) + 2 * i + c]), qs,
+                                           c ? sc.y : sc.x, c ? nm.y : nm.x);
+            most = max(most, ordered((live >> (2 * jj + c)) & 1 ? x : kNeg));
+          }
+        }
+        least = min(least, most);
+      }
+      least = min(least, __shfl_xor_sync(0xffffffffu, least, 1));
+      least = min(least, __shfl_xor_sync(0xffffffffu, least, 2));
+      if (qon && least > beff[i]) {
+        beff[i] = least;
+        // (a bound at or below -3e38 would only let the masked rows' ties pass)
+        if (t == 0 && least > kneg)
+          atomicMax(p.qbound + q0 - slot0 + qr, (unsigned)least ^ 0x80000000u);
+      }
+    }
+    const int lim_k = max(beff[i], thr);
+    lim[i] = limit_float(lim_k);
+    // masked rows: the threshold's row lies in an earlier item
+    neg[i] = kneg > lim_k || (kneg == lim_k && beff[i] > thr) ? qon : 0u;
+    qon_[i] = qon;
+    qs_[i] = qs;
+    skip[i] = 8;
+    fail[i] = p.cap;
+  }
+  // the hot test, a round at a time for both queries (one load of the
+  // round's scales), and the appends of the rounds where a lane has an entry
+  bool wput[2] = {false, false};         // the warp appended for query row i
+  float top[2] = {-INFINITY, -INFINITY};  // the best score this lane appended
 #pragma unroll
   for (int r = 0; r < kRowTile / kRoundRows; ++r) {
-    // liveness of this thread's rows 32r + 8jj + 2t + c at bit 8jj + c
-    const uint32_t vw = mask[r] >> (2 * t);
-    // bit 2jj + c: the row lies below Rs (all but in the last tile's tail)
-    uint32_t exist = 0xff;
-    if (nexist < kRoundRows * (r + 1)) {  // warp-uniform
-      exist = 0;
+    float x[2][8];
+    float pairs[2][4];  // the pass bits of entries 2jj, 2jj + 1 as 0..3
 #pragma unroll
-      for (int b = 0; b < 8; ++b)
-        exist |= (uint32_t)(kRoundRows * r + 8 * (b >> 1) + 2 * t + (b & 1) < nexist) << b;
+    for (int jj = 0; jj < 4; ++jj) {
+      const float2 sc = en[2 * (4 * (4 * r + jj) + t)];
+      const float2 nm = L2 ? en[2 * (4 * (4 * r + jj) + t) + 1] : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          x[i][2 * jj + c] = topk_score<L2>(acc[4 * (4 * r + jj) + 2 * i + c], qs_[i],
+                                            c ? sc.y : sc.x, c ? nm.y : nm.x);
+        pairs[i][jj] = __fmaf_rn(geu(x[i][2 * jj + 1], lim[i]), 2.f, geu(x[i][2 * jj], lim[i]));
+      }
     }
+    float hot[2];  // the round's pass bits as sums of powers of two
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      hot[i] = __fmaf_rn(__fmaf_rn(pairs[i][3], 4.f, pairs[i][2]), 16.f,
+                         __fmaf_rn(pairs[i][1], 4.f, pairs[i][0]));
+    const uint32_t live_r = (mask[r] >> (8 * t)) & 0xffu;
+    uint32_t put[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      put[i] = skip[i] == 8 ? round_bits(hot[i], live_r & qon_[i], neg[i], nexist, r, t) : 0u;
+    if (!__any_sync(0xffffffffu, (put[0] | put[1]) != 0)) continue;  // warp-uniform: most rounds
+    const int rb = row0 + kRoundRows * r + 2 * t;  // the row of bit 0
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      // the start's (INT_MIN, no row) lets all pass; a query past Q, none
-      const int lim_k = max(st.bnd[i], st.thr_k[i]);
-      const float lim = lim_k == INT_MIN ? -INFINITY
-                        : lim_k == INT_MAX ? INFINITY : unordered(lim_k);
-      // masked rows, which all tie at -3e38, by the exact rule: after a
-      // threshold row, which lies in an earlier round, only a greater key
-      // passes; at a bound or at no row, an equal key too
-      const int kneg = ordered(kNeg);
-      const bool neg_pass = kneg > lim_k ||
-          (kneg == lim_k && (st.bnd[i] > st.thr_k[i] ||
-                             st.thr_r[i] >= row0 + kRoundRows * (r + 1)));
-      float v[8];
-      uint32_t pass = 0;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = 4 * r + jj;
-        const float2 sc = en[2 * (4 * j + t)];
-        float2 nm;
-        if (L2) nm = en[2 * (4 * j + t) + 1];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float x = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * i + c]), st.qs[i]),
-                              c ? sc.y : sc.x);
-          if (L2) x = __fsub_rn(__fmul_rn(2.f, x), c ? nm.y : nm.x);
-          const bool live = (vw >> (8 * jj + c)) & 1;
-          v[2 * jj + c] = live ? x : kNeg;
-          if (live ? !(x < lim) : neg_pass) pass |= 1u << (2 * jj + c);
-        }
+      const int qr = qr0 + 8 * i;
+      wput[i] |= __any_sync(0xffffffffu, put[i] != 0);
+      const int k = __popc(put[i]);
+      const int at = k ? atomicAdd(qcnt + qr, k) : 0;
+      if (at + k > p.cap) {  // no room: nothing from this round on
+        skip[i] = r;
+        fail[i] = at;
+        put[i] = 0;
       }
-      pass &= exist;
-      if (!__any_sync(0xffffffffu, pass != 0)) continue;  // warp-uniform
-      // the quad's passing entries, counted in lane order
-      int mine = __popc(pass), incl, total;
-      auto count = [&]() {
-        incl = mine;
-        const int up1 = __shfl_up_sync(0xffffffffu, incl, 1, 4);
-        if (t >= 1) incl += up1;
-        const int up2 = __shfl_up_sync(0xffffffffu, incl, 2, 4);
-        if (t >= 2) incl += up2;
-        total = __shfl_sync(0xffffffffu, incl, 3, 4);
-      };
-      count();
-      unsigned m = __ballot_sync(0xffffffffu, t == 0 && st.cnt[i] + total > p.cap);
-      if (m) {  // warp-uniform
-        bool cut = false;
-        while (m) {
-          const int src = __ffs(m) - 1;
-          m &= m - 1;
-          const int gq = src / 4, qr = warp * 16 + gq + 8 * i;
-          const int n = __shfl_sync(0xffffffffu, st.cnt[i], src);
-          const int2 kr = select_any(cbuf + (slot0 + qr) * p.cap, n, p.w, hist, lane);
-          if (g == gq) {
-            st.thr_k[i] = kr.x;
-            st.thr_r[i] = kr.y;
-            st.cnt[i] = p.w;
-            cut = true;
-          }
-          if (lane == 0) atomicMax(p.qbound + q0 + qr, (unsigned)kr.x ^ 0x80000000u);
-        }
-        // against the raised threshold
-        if (cut) {
-          const float tl = unordered(st.thr_k[i]);
+      appended += put[i] != 0;
+      int2* dst = cbuf + qr * p.cap + at;
 #pragma unroll
-          for (int b = 0; b < 8; ++b)
-            if (v[b] < tl) pass &= ~(1u << b);
+      for (int b = 0; b < 8; ++b) {
+        const bool on = (put[i] >> b) & 1;
+        const float v = (live_r >> b) & 1 ? x[i][b] : kNeg;
+        if (on) {
+          *dst = make_int2(__float_as_int(v), rb + 8 * (b >> 1) + (b & 1));
+          top[i] = fmaxf(top[i], v);
         }
-        mine = __popc(pass);
-        count();
+        dst += on;
       }
-      int2* dst = cbuf + (slot0 + warp * 16 + g + 8 * i) * p.cap + st.cnt[i] + incl - mine;
-#pragma unroll
-      for (int b = 0; b < 8; ++b)
-        if ((pass >> b) & 1)
-          *dst++ = make_int2(ordered(v[b]), row0 + 8 * (4 * r + (b >> 1)) + 2 * t + (b & 1));
-      st.cnt[i] += total;
-      __syncwarp();
     }
   }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (wput[i]) {  // warp-uniform: publish the list's best key of the query where it rose
+      const int qr = qr0 + 8 * i;
+      float tb = fmaxf(top[i], __shfl_xor_sync(0xffffffffu, top[i], 1));
+      tb = fmaxf(tb, __shfl_xor_sync(0xffffffffu, tb, 2));
+      const int key = ordered(tb);
+      if (t == 0 && key > qbest[qr]) {
+        qbest[qr] = key;
+        p.best[(size_t)(q0 - slot0 + qr) * p.lists + blockIdx.x / p.n_qpairs] =
+            (unsigned)key ^ 0x80000000u;
+      }
+    }
+  }
+  if (appended) atomicAdd(tally, appended);
+  if (!__any_sync(0xffffffffu, skip[0] < 8 || skip[1] < 8)) return;  // warp-uniform
+  appended = 0;
+
+  // the counted path: cut the quads that lack room, then go on from the
+  // rounds that did not fit; until every lane has appended its item
+#pragma unroll 1
+  for (int i = 0; i < 2; ++i) {
+    const int qr = qr0 + 8 * i;
+    const uint32_t qon = q0 - slot0 + qr < p.nq ? 0xffu : 0u;
+    const float qs = qon ? __ldg(p.qsc + q0 - slot0 + qr) : 0.f;
+    const int q_bnd = i ? beff[1] : beff[0];
+    int2* qb = cbuf + qr * p.cap;
+    int from = i ? skip[1] : skip[0];
+    int start = i ? fail[1] : fail[0];
+    while (__any_sync(0xffffffffu, from < 8)) {  // warp-uniform
+      // the buffer ends where the quad's first slots that found no room began
+      int end = start, want = from < 8;
+      end = min(end, __shfl_xor_sync(0xffffffffu, end, 1));
+      end = min(end, __shfl_xor_sync(0xffffffffu, end, 2));
+      want |= __shfl_xor_sync(0xffffffffu, want, 1);
+      want |= __shfl_xor_sync(0xffffffffu, want, 2);
+      __syncwarp();
+      const int cnt = min(qcnt[qr], end);
+      __syncwarp();
+      if (t == 0) qcnt[qr] = cnt;
+      // cut the quads with a lane that lacks room (those holding more than w:
+      // a cut of the rest would raise nothing; they have room for a round of
+      // each lane)
+      unsigned m = __ballot_sync(0xffffffffu, t == 0 && want && cnt > p.w);
+      __syncwarp();  // every lane's appends, before one warp reads a buffer
+      while (m) {
+        const int src = __ffs(m) - 1;
+        m &= m - 1;
+        const int sr = qr - g + src / 4;
+        const int2 kr = select_any(cbuf + sr * p.cap, __shfl_sync(0xffffffffu, cnt, src), p.w,
+                                   hist, lane);
+        if (lane == 0) {
+          qthr[sr] = kr;
+          qcnt[sr] = p.w;
+          if (kr.x > kneg) atomicMax(p.qbound + q0 - slot0 + sr, (unsigned)kr.x ^ 0x80000000u);
+          tally[1] += 1;
+        }
+      }
+      __syncwarp();
+      const int2 th = qthr[qr];
+      const int lim_k = max(q_bnd, th.x);
+      const float tl = limit_float(lim_k);
+      start = p.cap;
+      while (from < 8) {  // this lane's rounds from `from`, as long as they fit
+        const int r = from;
+        const uint32_t live = (mask[r] >> (8 * t)) & qon;
+        int a[8];
+        round_raw(acc, r, i, a);
+        const int rb = row0 + kRoundRows * r + 2 * t;
+        float v[8];
+        uint32_t bits = 0;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float2 sc = en[2 * (4 * (4 * r + jj) + t)];
+          const float2 nm = L2 ? en[2 * (4 * (4 * r + jj) + t) + 1] : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int b = 2 * jj + c;
+            v[b] = topk_score<L2>(a[b], qs, c ? sc.y : sc.x, c ? nm.y : nm.x);
+            // masked rows by the exact rule, the threshold's row now perhaps
+            // in this item
+            const bool pass = (live >> b) & 1
+                ? !(v[b] < tl)
+                : kneg > lim_k || (kneg == lim_k && (q_bnd > th.x || rb + 8 * jj + c < th.y));
+            bits |= (uint32_t)pass << b;
+          }
+        }
+        bits = in_rows(bits, nexist, r, t) & qon;
+        const int k = __popc(bits);
+        const int at = k ? atomicAdd(qcnt + qr, k) : 0;
+        if (at + k > p.cap) {
+          start = at;
+          break;
+        }
+        appended += k != 0;
+        int2* dst = qb + at;
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          if ((bits >> b) & 1)
+            *dst++ = make_int2(__float_as_int((live >> b) & 1 ? v[b] : kNeg),
+                               rb + 8 * (b >> 1) + (b & 1));
+        ++from;
+      }
+    }
+  }
+  if (appended) atomicAdd(tally, appended);
 }
 
 // After the CTA's last item: each of the warp's live queries' w best,
 // sorted, to its list `list` (entries past the buffer's count: INT_MIN /
 // kNoRow, below every score).
-__device__ __forceinline__ void finish_topk(int2* cbuf, int* hist, const TopkState& st,
+__device__ __forceinline__ void finish_topk(int2* cbuf, const int* qcnt, int* hist,
                                             const Args& p, int q0, int slot0, int list,
                                             int warp, int lane) {
+  __syncwarp();  // every lane's appends, before one warp reads a buffer
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     for (int gq = 0; gq < 8; ++gq) {
       const int qr = warp * 16 + gq + 8 * i;
       if (q0 + qr >= p.nq) continue;  // warp-uniform
       int2* qb = cbuf + (slot0 + qr) * p.cap;
-      int n = __shfl_sync(0xffffffffu, st.cnt[i], gq * 4);
+      int n = qcnt[slot0 + qr];
       if (n > p.w) {
         select_any(qb, n, p.w, hist, lane);
         n = p.w;
@@ -628,8 +860,8 @@ __device__ __forceinline__ void finish_topk(int2* cbuf, int* hist, const TopkSta
 #pragma unroll
       for (int ii = 0; ii < 2; ++ii) {
         const int e = ii * 32 + lane;
-        const int2 v = e < n ? qb[e] : make_int2(INT_MIN, kNoRow);
-        k[ii] = v.x;
+        const int2 v = e < n ? qb[e] : make_int2(0, kNoRow);
+        k[ii] = e < n ? ordered(__int_as_float(v.x)) : INT_MIN;
         r[ii] = v.y;
       }
       sort64(k, r, lane);
@@ -668,12 +900,16 @@ __device__ __forceinline__ void scan_body(const CUtensorMap* rows_map,
   uint8_t* raw = smem + stages * kStageBytes;  // f32: kRawStages row stages
   float4* epi = reinterpret_cast<float4*>(raw + raw_bytes(STORAGE));
   uint8_t* past_epi = reinterpret_cast<uint8_t*>(epi) + kEpiSlots * kEpiBytes;
-  // scan_topk: validity words of each slot, histograms, candidate buffers
+  // scan_topk: validity words of each slot, histograms, counters, candidate buffers
   uint32_t* mask = reinterpret_cast<uint32_t*>(past_epi);
   int* hist_all = reinterpret_cast<int*>(past_epi + kMaskBytes);
-  int2* cbuf = reinterpret_cast<int2*>(past_epi + kMaskBytes + kHistBytes);
+  int* tally_all = reinterpret_cast<int*>(past_epi + kMaskBytes + kHistBytes);
+  int2* qthr = reinterpret_cast<int2*>(past_epi + kMaskBytes + kHistBytes + kTallyBytes);
+  int* qcnt = reinterpret_cast<int*>(qthr + kCtaQueries);
+  int* qbest = qcnt + kCtaQueries;
+  int2* cbuf = reinterpret_cast<int2*>(qbest + kCtaQueries);
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      TOPK ? past_epi + kMaskBytes + kHistBytes + kCtaQueries * p.cap * 8 : past_epi);
+      TOPK ? reinterpret_cast<uint8_t*>(cbuf + kCtaQueries * p.cap) : past_epi);
   uint64_t* empty = full + stages;
   uint64_t* epi_full = empty + stages;
   uint64_t* epi_empty = epi_full + kEpiSlots;
@@ -689,24 +925,33 @@ __device__ __forceinline__ void scan_body(const CUtensorMap* rows_map,
   // the kernel, so the consumers read each converted chunk together, with
   // no turns, and every row chunk is rounded once per item.
   // scan_topk: no turns, both consumers reading each row chunk together
-  // (its selection outlasts the products, so a turn would only wait; and
-  // rows deeper than the ring are read from L2 once, not once a consumer)
+  // (rows deeper than the ring are read from L2 once, not once a consumer;
+  // and its epilogue, bound by latency, runs faster with both consumers in
+  // it at once than beside the other's products). Its pair is the same on
+  // every item, so a consumer whose tile lies past Q reads nothing.
   constexpr bool kTurns = STORAGE != 2 && !TOPK;
   const bool share = !kTurns || n_k <= stages;
   const int wg = threadIdx.x / 128;
+  // scan_topk: the CTA's pair has a second tile below Q (else only consumer
+  // 0 reads the stages)
+  bool pair2 = false;
+  if constexpr (TOPK) pair2 = 2 * (blockIdx.x % p.n_qpairs) + 1 < p.n_qtiles;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       // f32: the queries' TMA bytes and every converter thread's rows
       mbar_init(full + s, STORAGE == 2 ? 1 + kConvThreads : 1);
-      mbar_init(empty + s, share ? 256 : 128);
+      if constexpr (TOPK) mbar_init(empty + s, pair2 ? 256 : 128);
+      else mbar_init(empty + s, share ? 256 : 128);
     }
     for (int e = 0; e < kEpiSlots; ++e) {
       mbar_init(epi_full + e, 32);
-      mbar_init(epi_empty + e, 256);
+      if constexpr (TOPK) mbar_init(epi_empty + e, pair2 ? 256 : 128);
+      else mbar_init(epi_empty + e, 256);
     }
     mbar_init(turn, 128);
     mbar_init(turn + 1, 128);
+    if constexpr (TOPK) tally_all[16] = 0;
     for (int r = 0; r < kRawStages; ++r) {
       mbar_init(raw_full + r, 1);
       mbar_init(raw_empty + r, kConvThreads);
@@ -790,11 +1035,45 @@ __device__ __forceinline__ void scan_body(const CUtensorMap* rows_map,
           dst[(r >> 1) * 4 + (r & 1)] = m[i];
           dst[(r >> 1) * 4 + 2 + (r & 1)] = a[i];
           if constexpr (TOPK) {
-            const unsigned bits = __ballot_sync(0xffffffffu, v[i]);
+            // row 8jj + 2t + c of the word at bit 8t + 2jj + c: byte t holds
+            // quad lane t's rows in its pass-bit order
+            const int at = 8 * ((lane >> 1) & 3) + 2 * (lane >> 3) + (lane & 1);
+            const unsigned bits = __reduce_or_sync(0xffffffffu, (unsigned)v[i] << at);
             if (lane == 0) mask[e * kMaskWords + i] = bits;
           }
         }
         mbar_arrive(epi_full + e);
+      }
+    } else if (TOPK && warp >= 2 && p.lists >= p.w) {
+      // warps 2-3: the pooled bounds, again and again until the consumers
+      // are done. The least of the lists' best keys of a query, once every
+      // list has one, is a key that lists >= w distinct entries reach, so no
+      // key below it is among the w best. It goes to the published bounds,
+      // which every CTA reads at each item, so one CTA of the pair computes
+      // it: list l takes the pair's queries l, l + lists, ..., a thread each
+      const int qi = blockIdx.x / p.n_qpairs + (threadIdx.x - 256 - 64) * p.lists;
+      const int q = 2 * (blockIdx.x % p.n_qpairs) * kQueryTile + qi;
+      const int done = pair2 ? 8 : 4;  // consumer warps
+      // (a bound at or below -3e38 would only let the masked rows' ties pass)
+      int last = ordered(kNeg);
+      while (*reinterpret_cast<volatile int*>(tally_all + 16) < done) {
+        if (qi < kCtaQueries && q < p.nq) {
+          const unsigned* b = p.best + (size_t)q * p.lists;
+          int least = INT_MAX;
+          for (int l = 0; l < p.lists; l += 4) {
+            int k[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              k[j] = l + j < p.lists ? (int)(__ldcg(b + l + j) ^ 0x80000000u) : INT_MAX;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) least = min(least, k[j]);
+          }
+          if (least > last) {
+            last = least;
+            atomicMax(p.qbound + q, (unsigned)least ^ 0x80000000u);
+          }
+        }
+        __nanosleep(5000);
       }
     } else if (STORAGE == 2 && warp >= 2) {
       // warps 2-3: round each position's two f32 row stages to bf16 into
@@ -823,25 +1102,30 @@ __device__ __forceinline__ void scan_body(const CUtensorMap* rows_map,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
     const int c = wg;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    if constexpr (TOPK) {
+      if (c == 1 && !pair2) return;
+    }
     Acc acc[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = Acc(0);
     // scan_topk: the CTA's query pair is the same on every item (the grid
     // is a multiple of the pairs), so each query's state lives across items
-    TopkState st;
+    int* tally = tally_all + 2 * (threadIdx.x / 32);
+    int bnd[2] = {INT_MIN, INT_MIN};
     const int tq0 = (2 * (blockIdx.x % p.n_qpairs) + c) * kQueryTile;
     if constexpr (TOPK) {
+      // each query's threshold key (every entry passes INT_MIN; none but NaN
+      // passes INT_MAX) and this thread's counts
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int q = tq0 + warp * 16 + lane / 4 + 8 * i;
-        const bool live = q < p.nq;
-        st.qs[i] = live ? p.qsc[q] : 0.f;
-        // every entry beats (INT_MIN, no row); none beats (INT_MAX, -1)
-        st.thr_k[i] = live ? INT_MIN : INT_MAX;
-        st.thr_r[i] = live ? kNoRow : -1;
-        st.cnt[i] = 0;
-        st.bnd[i] = INT_MIN;
+        const int qr = warp * 16 + lane / 4 + 8 * i;
+        qthr[c * kQueryTile + qr] = tq0 + qr < p.nq ? make_int2(INT_MIN, kNoRow)
+                                                    : make_int2(INT_MAX, -1);
+        qcnt[c * kQueryTile + qr] = 0;
+        qbest[c * kQueryTile + qr] = INT_MIN;
       }
+      if (lane == 0) tally[0] = tally[1] = 0;
+      __syncwarp();
     }
     int n = 0, pos = 0;
     for (int u = blockIdx.x; u < p.n_units; u += gridDim.x, ++n) {
@@ -855,7 +1139,7 @@ __device__ __forceinline__ void scan_body(const CUtensorMap* rows_map,
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int q = q0 + warp * 16 + lane / 4 + 8 * i;
-          if (q < p.nq) st.bnd[i] = (int)(__ldcg(p.qbound + q) ^ 0x80000000u);
+          if (q < p.nq) bnd[i] = (int)(__ldcg(p.qbound + q) ^ 0x80000000u);
         }
       }
       // a consumer that reads a stage also multiplies it, even when its
@@ -896,18 +1180,24 @@ __device__ __forceinline__ void scan_body(const CUtensorMap* rows_map,
       mbar_wait(epi_full + e, (n / kEpiSlots) & 1);
       if (TOP2_PROBE != 1 && live && q0 + warp * 16 < p.nq) {  // warp-uniform
         if constexpr (TOPK)
-          offer_topk<L2>(acc, epi + e * (kRowTile / 2), mask + e * kMaskWords, cbuf,
-                     hist_all + (threadIdx.x / 32) * kBins, st, p, row0, q0, c * kQueryTile,
-                     warp, lane);
+          offer_topk<L2>(acc, epi + e * (kRowTile / 2), mask + e * kMaskWords, cbuf, qthr,
+                         qcnt, qbest, hist_all + (threadIdx.x / 32) * kBins, tally, bnd, p, row0,
+                         q0, c * kQueryTile, n == 0, warp, lane);
         else
           select_top2(acc, epi + e * (kRowTile / 2), p, row0, q0, warp, lane);
       }
       mbar_arrive(epi_empty + e);
     }
     if constexpr (TOPK) {
+      if (lane == 0) atomicAdd(tally_all + 16, 1);  // done: the pooled bounds may stop
       if (tq0 + warp * 16 < p.nq)  // warp-uniform
-        finish_topk(cbuf, hist_all + (threadIdx.x / 32) * kBins, st, p, tq0,
+        finish_topk(cbuf, qcnt, hist_all + (threadIdx.x / 32) * kBins, p, tq0,
                     c * kQueryTile, blockIdx.x / p.n_qpairs, warp, lane);
+      // the counters: each warp's, once, at its end
+      if (lane == 0) {
+        atomicAdd(p.counts, tally[0]);
+        atomicAdd(p.counts + 1, tally[1]);
+      }
     }
   }
 }
@@ -1066,14 +1356,17 @@ extern "C" int semcode_top2_scan(const void* vecs, const float* mult,
   }
 }
 
-// The exact top-w (1 <= w <= min(64, rs)) of int8 rows: clears the nq bounds
-// in `qbound`, launches scan_topk_s8 with the caller's geometry (`grid` a
-// multiple of the query pairs, at most 256 lists a pair and no more than the
-// row tiles; `stages` ring stages; exactly topk_smem_bytes(w, stages) bytes)
-// writing the (nq, grid / pairs, w) lists to part_key / part_row, then
-// scan_topk_merge with `merge_warps` queries a block and merge_smem =
-// merge_warps * lists * w * 8 bytes into out_s (nq, w) f32 and out_i (nq, w)
-// int64 shard rows. `norm` is read when l2 is set.
+// The exact top-w (1 <= w <= min(64, rs)) of int8 rows: clears `qbound`
+// (nq bounds; the call's two counters: offer rounds that entered the append
+// path and cuts; then nq x lists best keys, one of each CTA for each of its
+// queries), launches
+// scan_topk_s8 with the caller's geometry (`grid` a multiple of the query
+// pairs, at most 256 lists a pair and no more than the row tiles; `stages`
+// ring stages; exactly topk_smem_bytes(w, stages) bytes) writing the (nq, grid /
+// pairs, w) lists to part_key / part_row, then scan_topk_merge with
+// `merge_warps` queries a block and merge_smem = merge_warps * lists * w * 8
+// bytes into out_s (nq, w) f32 and out_i (nq, w) int64 shard rows. `norm`
+// is read when l2 is set.
 extern "C" int semcode_scan_topk(const void* vecs, const float* scale,
                                  const uint8_t* valid, const float* norm,
                                  const void* qq, const float* qsc, int* part_key,
@@ -1100,7 +1393,8 @@ extern "C" int semcode_scan_topk(const void* vecs, const float* scale,
       !tile_map(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, qq, d, nq, kQueryTile))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(qbound, 0, (size_t)nq * sizeof(unsigned), s);
+  cudaError_t err =
+      cudaMemsetAsync(qbound, 0, (size_t)(nq + 2 + nq * lists) * sizeof(unsigned), s);
   if (err != cudaSuccess) return err;
   auto kernel = l2 ? scan_topk_s8<true> : scan_topk_s8<false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -1113,6 +1407,8 @@ extern "C" int semcode_scan_topk(const void* vecs, const float* scale,
   args.part_key = part_key;
   args.part_row = part_row;
   args.qbound = qbound;
+  args.counts = reinterpret_cast<int*>(qbound + nq);
+  args.best = qbound + nq + 2;
   args.rs = rs;
   args.d = d;
   args.nq = nq;

@@ -52,7 +52,8 @@ each query's best ``w`` of its rows as a sorted list) and
 ``scan_topk_merge`` (a warp a query merges the lists); bytes bound it at
 d 3072 (3.07 GB of rows at 1M), the products and the per-score epilogue
 and threshold test on the CUDA cores at d 384. ``scan_topk_reference`` is
-its plain version.
+its plain version; ``scan_topk_counts`` reads the last call's counters
+(offer rounds that entered the append path, cuts).
 """
 
 from __future__ import annotations
@@ -342,10 +343,13 @@ ROUND_ROWS = 32  # rows of one query an offer round appends at most
 CTA_QUERIES = 2 * QUERY_TILE  # a CTA's query pair
 MASK_BYTES = 4 * (ROW_TILE // 32) * 4  # validity words of four row tiles
 HIST_BYTES = 8 * 128 * 4  # a 128-bin select histogram per consumer warp
+TALLY_BYTES = 8 * 2 * 4 + 16  # append rounds and cuts of each consumer warp; a done count
+STATE_BYTES = 2 * QUERY_TILE * 16  # each query's threshold (key, row), count, best key
 MAX_LISTS = 256  # CTAs per query pair
 MERGE_SMEM = 96 * 1024  # staged lists of one merge block at most
+COUNTERS = 2  # ints after the queries' bounds: append rounds, cuts
 SHALLOW_CHUNKS = 3  # item depths of at most 3 ring chunks (d <= 384) ...
-SHALLOW_STAGES = 2  # ... take a ring of 2 stages (topk_geometry)
+SHALLOW_STAGES = 2  # ... at Q > 64 take a ring of 2 stages (topk_geometry)
 
 
 def topk_capacity(width: int) -> int:
@@ -382,10 +386,12 @@ def topk_geometry(rs: int, d: int, nq: int, sms: int, width: int) -> TopkGeometr
     """``scan_topk``'s grid, ring stages, shared memory and merge blocks for
     ``nq`` queries at most ``sms * 128`` (more query pairs than SMs leave a
     pair no CTA). Ring stages: SHALLOW_STAGES while an item's depth takes at
-    most SHALLOW_CHUNKS ring chunks, else as many as fit (measured on one
-    H100: at d 384 and Q 512 two stages took 2.12 ms against 2.59 ms for
-    three; at d 3072 and Q 256 three took 1.80 ms against 2.31 ms for
-    two)."""
+    most SHALLOW_CHUNKS ring chunks and Q fills both tiles of a pair (the
+    epilogue bounds those), else as many as fit (the rows' reads bound a
+    deeper item, and Q <= 64, whose CTAs multiply one tile). Measured on one
+    H100, ms per call: at d 384 and Q 512 two stages 1.225 against 1.316 for
+    three; at Q 8 0.301 against 0.285 (and, for the epilogue before the
+    pooled bounds, at d 3072 and Q 256 three stages 1.80 against 2.31)."""
     n_query_pairs = -(-nq // CTA_QUERIES)
     if (rs <= 0 or d <= 0 or d % DEPTH_CHUNK or sms <= 0 or nq <= 0
             or not 1 <= width <= min(MAX_WIDTH, rs) or n_query_pairs > sms):
@@ -394,10 +400,11 @@ def topk_geometry(rs: int, d: int, nq: int, sms: int, width: int) -> TopkGeometr
     n_row_tiles = -(-rs // ROW_TILE)
     lists = min(sms // n_query_pairs, n_row_tiles, MAX_LISTS)
     capacity = topk_capacity(width)
-    fixed = (SMEM_ALIGN + EPILOGUE_BYTES + MASK_BYTES + HIST_BYTES
-             + CTA_QUERIES * capacity * 8 + BARRIER_BYTES)
+    fixed = (SMEM_ALIGN + EPILOGUE_BYTES + MASK_BYTES + HIST_BYTES + TALLY_BYTES
+             + STATE_BYTES + CTA_QUERIES * capacity * 8 + BARRIER_BYTES)
     most = (SMEM_LIMIT - fixed) // STAGE_BYTES
-    stages = SHALLOW_STAGES if d // DEPTH_CHUNK <= SHALLOW_CHUNKS else most
+    shallow = d // DEPTH_CHUNK <= SHALLOW_CHUNKS and nq > QUERY_TILE
+    stages = SHALLOW_STAGES if shallow else most
     per_warp = lists * width * 8
     merge_warps = max(1, min(8, MERGE_SMEM // per_warp))
     return TopkGeometry(
@@ -488,6 +495,18 @@ def scan_topk(
 
 
 scan_topk.launches = 0  # scan_topk_s8 launches (not plain-version calls)
+_last_counts: List[Tuple[torch.Tensor, int]] = []  # the last call's (scratch, offset)s
+
+
+def scan_topk_counts() -> Tuple[int, int]:
+    """(offer rounds that entered the append path, cuts) of the last
+    ``scan_topk`` call on the card, summed over its launches: an offer
+    round here is one lane's 8 rows of one query (an item holds 32 lanes x
+    2 queries x 8 rounds a warp), a cut one query's buffer cut to its ``w``
+    best. Reading them waits for the call (a synchronising copy), so only
+    tests and ``chip_smoke.py`` do."""
+    counts = [t[at:at + COUNTERS].tolist() for t, at in _last_counts]
+    return sum(c[0] for c in counts), sum(c[1] for c in counts)
 
 
 def scan_topk_probe(kind: str, vecs, scales, valid, norms, qq, q_scales, width):
@@ -513,7 +532,7 @@ def _launch_topk(lib, vecs, scales, valid, norms, qq, q_scales, width):
         raise ValueError("scan_topk needs 16-byte aligned rows")
     out_s = torch.empty((n_q, width), dtype=torch.float32, device=vecs.device)
     out_i = torch.empty((n_q, width), dtype=torch.int64, device=vecs.device)
-    launches = 0
+    launches, counts = 0, []
     with torch.cuda.device(vecs.device):
         sms = sm_count(torch.cuda.current_device())
         stream = torch.cuda.current_stream(vecs.device).cuda_stream
@@ -521,9 +540,10 @@ def _launch_topk(lib, vecs, scales, valid, norms, qq, q_scales, width):
         for lo in range(0, n_q, step):
             nq = min(step, n_q - lo)
             geom = topk_geometry(rs, d, nq, sms, width)
-            # the CTAs' lists (keys, rows) and the queries' bounds
-            scratch = torch.empty(2 * nq * geom.lists * width + nq,
-                                  dtype=torch.int32, device=vecs.device)
+            # the CTAs' lists (keys, rows), the queries' bounds, the counters,
+            # each CTA's best key of each query
+            scratch = torch.empty(2 * nq * geom.lists * width + nq + COUNTERS
+                                  + nq * geom.lists, dtype=torch.int32, device=vecs.device)
             part = scratch.data_ptr()
             n_part = nq * geom.lists * width
             err = lib.semcode_scan_topk(
@@ -538,6 +558,8 @@ def _launch_topk(lib, vecs, scales, valid, norms, qq, q_scales, width):
             if err != 0:
                 raise KernelError(f"scan_topk kernel launch failed: CUDA error {err}")
             launches += 1
+            counts.append((scratch, 2 * n_part + nq))
+    _last_counts[:] = counts
     return (out_s, out_i), launches
 
 

@@ -180,16 +180,34 @@ def test_top2_scan_geometry_is_what_the_library_accepts(cuda, storage):
     assert call(geom.stages, geom.smem_bytes + 1024) != 0
 
 
-def _topk_operands(rs, d, nq, live_share, gen, device):
+def _topk_operands(rs, d, nq, live, gen, device):
     """int8 rows with exact duplicates (inside a tile, across a tile boundary
-    and far apart), row norms and a liveness mask."""
+    and far apart), row norms and a liveness mask: each row live with
+    probability ``live``, or by name: "equal" (every row the same row, so
+    every score ties and every row of an item passes), "rising" (every row
+    above all earlier ones, so each offer round cuts its buffers: cuts in
+    consecutive rounds), "words" (95% live, with whole 32-row words masked:
+    every other word of the first tiles and every third further on)."""
     vecs, sc, _, qq, qs = _operands("int8", rs, d, nq, gen, device)
     for dst, src, n in ((250, 0, 12), (rs // 2, 0, 64), (rs - 5, 3, 5)):
         n = max(0, min(n, rs - dst, rs - src))
         vecs[dst:dst + n] = vecs[src:src + n]
         sc[dst:dst + n] = sc[src:src + n]
+    if live == "equal":
+        vecs[:] = vecs[0]
+        sc[:] = sc[0]
+    elif live == "rising":
+        # one direction, a scale rising with the row: for queries on that
+        # side of it, each row scores above every earlier row
+        vecs[:] = vecs[0]
+        sc = sc[0] * (1.0 + torch.arange(rs, device=device, dtype=torch.float32) / rs)
+        qq[: nq // 2] = vecs[0]
     norms = (vecs.float() * sc[:, None]).pow(2).sum(dim=1)
-    valid = torch.rand(rs, generator=gen, device=device) < live_share
+    share = live if isinstance(live, float) else 1.0 if live != "words" else 0.95
+    valid = torch.rand(rs, generator=gen, device=device) < share
+    if live == "words":
+        words = torch.arange(rs, device=device) // 32
+        valid &= ~(((words < 64) & (words % 2 == 0)) | (words % 3 == 1))
     return vecs, sc, valid, norms, qq, qs
 
 
@@ -206,9 +224,27 @@ def _topk_operands(rs, d, nq, live_share, gen, device):
     (70001, 384, 700, 10, "l2", 0.95),   # query pairs past a multiple of the SMs' share
     (70001, 768, 8, 32, "ip", 0.95),
     (40000, 1024, 130, 20, "ip", 0.95),
+    # the epilogue's edges: buffers that fill in every round, masked words,
+    # second query tiles with one query or none, each width class
+    (70001, 384, 512, 32, "ip", "equal"),    # every row of an item passes
+    (70001, 384, 512, 32, "l2", "equal"),
+    (70001, 384, 130, 64, "ip", "equal"),
+    (70001, 384, 256, 32, "ip", "rising"),   # cuts in consecutive rounds
+    (70001, 384, 256, 33, "l2", "rising"),
+    (30000, 3072, 130, 32, "ip", "rising"),
+    (70001, 384, 512, 32, "ip", "words"),    # whole 32-row words masked
+    (70001, 384, 65, 64, "l2", "words"),
+    (70001, 384, 65, 32, "ip", 0.95),        # the second tile holds one query
+    (70001, 384, 129, 32, "l2", 0.95),       # one pair's second tile past Q: its consumer idles
+    (70001, 384, 129, 1, "ip", 0.95),
+    (70001, 384, 512, 1, "l2", 0.95),
+    (70001, 384, 512, 33, "ip", 0.95),
+    (70001, 384, 512, 64, "l2", 0.95),
+    (70001, 384, 8, 64, "ip", 0.95),
 ])
 def test_scan_topk_matches_plain_version(cuda, rs, d, nq, w, metric, live):
-    gen = torch.Generator(device=cuda).manual_seed(rs + d + nq + w)
+    salt = 0 if isinstance(live, float) else len(live)  # the named cases' own seeds
+    gen = torch.Generator(device=cuda).manual_seed(rs + d + nq + w + salt)
     vecs, sc, valid, norms, qq, qs = _topk_operands(rs, d, nq, live, gen, cuda)
     nrm = norms if metric == "l2" else None
     before = scan_top2.scan_topk.launches
@@ -230,7 +266,8 @@ def test_scan_topk_geometry_is_what_the_library_accepts(cuda):
     vecs, sc, valid, _, qq, qs = _topk_operands(rs, d, nq, 0.95, gen, cuda)
     geom = scan_top2.topk_geometry(rs, d, nq, torch.cuda.get_device_properties(cuda)
                                    .multi_processor_count, w)
-    part = torch.empty(2 * nq * geom.lists * w + nq, dtype=torch.int32, device=cuda)
+    part = torch.empty(2 * nq * geom.lists * w + nq + scan_top2.COUNTERS + nq * geom.lists,
+                       dtype=torch.int32, device=cuda)
     out_s = torch.empty((nq, w), device=cuda)
     out_i = torch.empty((nq, w), dtype=torch.int64, device=cuda)
     lib = scan_top2._library.get()
@@ -253,6 +290,45 @@ def test_scan_topk_geometry_is_what_the_library_accepts(cuda):
     assert call(smem=geom.smem_bytes + 1024) != 0
     assert call(grid=geom.grid - 1) != 0
     assert call(merge=geom.merge_smem_bytes + 8) != 0
+
+
+def test_scan_topk_counters(cuda):
+    """The kernel's counters on constructed cases: a tie storm (every row
+    the same) appends in every offer round and cuts every buffer at least
+    once an item; rows that never beat an established limit (each CTA's
+    rows falling, so after its first item nothing passes) add no append
+    round and no cut: at most one item's rounds a warp and one cut a query a
+    list."""
+    d, nq, w = 384, 256, 32
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for case in ("ties", "falling"):
+        lists = scan_top2.topk_geometry(10**6, d, nq, sms, w).lists
+        rs = 256 * lists * 6  # six items a CTA
+        geom = scan_top2.topk_geometry(rs, d, nq, sms, w)
+        assert geom.lists == lists
+        vecs, sc, valid, _, qq, qs = _topk_operands(rs, d, nq, "equal", gen, cuda)
+        valid[:] = True
+        if case == "falling":
+            # tile j of list l holds rows that score below every row of its
+            # earlier tiles
+            tile = torch.arange(rs, device=cuda) // 256
+            sc = sc[0] * (2.0 - (tile // lists).float() / 8 - (torch.arange(rs, device=cuda) % 256) / 4096)
+            qq[:] = vecs[0]
+        s, p = scan_top2.scan_topk(vecs, sc, valid, None, qq, qs, w)
+        rounds, cuts = scan_top2.scan_topk_counts()
+        rs_, rp = scan_top2.scan_topk_reference(vecs, sc, valid, None, qq, qs, w)
+        assert torch.equal(s.view(torch.int32), rs_.view(torch.int32)) and torch.equal(p, rp)
+        items = rs // 256 // lists
+        warp_items = geom.grid * 8 * items
+        # an append round: one lane's 8 rows of one query (32 lanes x 2
+        # queries x 8 rounds in a warp's item)
+        if case == "ties":
+            assert rounds == 512 * warp_items
+            assert cuts >= nq * lists * items
+        else:
+            assert 0 < rounds <= 512 * geom.grid * 8
+            assert 0 < cuts <= nq * lists
 
 
 def _ivf_operands(storage, nlist, cmax, d, nq, nprobe, gen, device):

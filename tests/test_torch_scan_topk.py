@@ -197,13 +197,36 @@ def test_topk_geometry_fits_and_keeps_one_pair_a_cta(rs, d, nq, width):
     assert 1 <= geom.lists <= min(256, geom.n_row_tiles, 132 // pairs)
     assert geom.capacity == topk_capacity(width) >= width + 32
     assert geom.smem_bytes <= SMEM_LIMIT
-    if d // 128 <= scan_top2.SHALLOW_CHUNKS:
+    if d // 128 <= scan_top2.SHALLOW_CHUNKS and nq > 64:
         assert geom.stages == scan_top2.SHALLOW_STAGES
     else:  # as many stages as fit
         assert geom.smem_bytes + STAGE_BYTES > SMEM_LIMIT
         assert geom.stages >= (3 if width <= 32 else 2)
     assert geom.merge_smem_bytes == geom.merge_warps * geom.lists * width * 8
     assert 1 <= geom.merge_warps <= 8 and geom.merge_smem_bytes <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("rs,d,nq,width,stages", [
+    (1_000_000, 384, 512, 32, 2),     # d384-bulk512: the epilogue bounds it
+    (1_000_000, 384, 8, 32, 3),       # d384-serve8: one query tile, bytes bound it
+    (1_000_000, 384, 64, 32, 3),
+    (1_000_000, 384, 65, 32, 2),      # a second tile of one query
+    (1_000_000, 384, 512, 64, 2),     # wider buffers leave two stages anyway
+    (1_000_000, 3072, 256, 32, 3),    # d3072-bulk256: 24 chunks, the rows' reads
+    (1_000_000, 3072, 256, 64, 2),
+    (1_000_000, 512, 512, 32, 3),     # four chunks: as many as fit
+    (1_000_000, 128, 512, 32, 2),
+])
+def test_topk_geometry_stages_follow_the_shape(rs, d, nq, width, stages):
+    """Stages at the cells' shapes and beside them: the smem budget of
+    232,448 bytes holds the ring, the buffers and the rest."""
+    geom = topk_geometry(rs, d, nq, 132, width)
+    assert geom.stages == stages
+    fixed = (scan_top2.SMEM_ALIGN + scan_top2.EPILOGUE_BYTES + scan_top2.MASK_BYTES
+             + scan_top2.HIST_BYTES + scan_top2.TALLY_BYTES + scan_top2.STATE_BYTES
+             + scan_top2.BARRIER_BYTES)
+    assert geom.smem_bytes == fixed + CTA_QUERIES * geom.capacity * 8 + stages * STAGE_BYTES
+    assert geom.smem_bytes <= SMEM_LIMIT == 232_448
 
 
 def test_topk_geometry_rejects_what_the_kernel_cannot_run():
@@ -223,6 +246,14 @@ def test_topk_constants_match_the_source():
     assert const["kMaxLists"] == scan_top2.MAX_LISTS
     assert 8 * const["kBins"] * 4 == scan_top2.HIST_BYTES
     assert const["kEpiSlots"] * (const["kRowTile"] // 32) * 4 == scan_top2.MASK_BYTES
+    assert const["kSmemLimit"] == SMEM_LIMIT and const["kChunk"] == scan_top2.DEPTH_CHUNK
+    assert const["kBarrierBytes"] == scan_top2.BARRIER_BYTES
+    assert const["kSmemAlign"] == scan_top2.SMEM_ALIGN
+    assert 8 * 2 * 4 + 16 == scan_top2.TALLY_BYTES and "kTallyBytes = 8 * 2 * 4 + 16;" in src
+    assert "kStateBytes = kCtaQueries * 16;" in src
+    assert scan_top2.STATE_BYTES == CTA_QUERIES * 16
+    # the entry point clears the bounds and the counters in one call
+    assert "(nq + 2 + nq * lists) * sizeof(unsigned)" in src and scan_top2.COUNTERS == 2
 
 
 def test_scan_topk_refuses_what_it_cannot_select():
