@@ -6,9 +6,10 @@ over the mesh's row axes (``parallel/mesh.py``; capacity stays a multiple
 of ``lcm(n_shards * 8, 128)`` so every shard holds the same rows). Each
 shard's rows sit in tensors of their own on the shard's device
 (``ShardedRows``), and a process holds its own shards' rows and no others.
-A query batch is one sharded exact scan (``scan.exact_scan``: each shard
-scans its rows with a fused f32 rescore, then the shards' candidates
-merge). The host keeps the authoritative f32 buffer, whole in every
+A query batch is one sharded exact scan through the exact route the IVF
+index's exact mode takes too (``scan.ExactRoute`` over ``scan.exact_scan``:
+each shard scans its rows with a fused f32 rescore, then the shards'
+candidates merge). The host keeps the authoritative f32 buffer, whole in every
 process, so snapshots and growth never read back from the device.
 
 Device state is one tuple of per-shard containers swapped as a whole, and
@@ -29,15 +30,9 @@ import torch
 
 from ..device import DeviceLike, round_up, storage_dtype, storage_name
 from ..parallel.mesh import Mesh, ShardedRows, n_shards, resolve_mesh
-from .scan import exact_scan, exact_scan_batched, resolve_rescore_width
+from .scan import ExactRoute, ExactRows, route_option
 
 _NEG_INF = np.float32(-3.0e38)
-
-# above this f32-mirror footprint the fused device rescore falls back to the
-# two-level int8 residual mirror (auto mode), and above the residual budget
-# to host rescoring (device-memory budget guards, as the reference)
-DEVICE_RESCORE_MAX_BYTES = 4 << 30
-RESIDUAL_RESCORE_MAX_BYTES = 6 << 30
 
 
 def quantize_rows(x: np.ndarray):
@@ -67,30 +62,6 @@ def quantize_residual_device(x: torch.Tensor, qx: torch.Tensor,
     return rq.to(torch.int8), rs.to(torch.float32)
 
 
-def split_rescore(payload):
-    """Normalize a rescore payload (None | f32 mirror | (resid, rscales))
-    into the (rescore, resid, rscales) operand triple exact_scan takes."""
-    if payload is None:
-        return None, None, None
-    if isinstance(payload, tuple):
-        return None, payload[0], payload[1]
-    return payload, None, None
-
-
-def pad_allow(allow) -> np.ndarray:
-    """Pad an allowed-tag list to a power-of-two bucket with -1 sentinels
-    (tags are >= 0, so -1 never matches)."""
-    a = np.asarray(allow, dtype=np.int32).ravel()
-    if a.size == 0:
-        raise ValueError("allow_tags must be non-empty (empty = no results)")
-    n = 8
-    while n < a.size:
-        n *= 2
-    out = np.full((n,), -1, dtype=np.int32)
-    out[: a.size] = a
-    return out
-
-
 def _sqnorms(x: np.ndarray) -> np.ndarray:
     return np.sum(x.astype(np.float32) ** 2, axis=1)
 
@@ -106,6 +77,13 @@ class FlatIndex:
     exists only on a TPU, so those options have no counterpart here."""
 
     kind = "flat"
+    # the exact route's options, held on ``_route``
+    fetch_width = route_option("fetch_width")
+    rescore_width = route_option("rescore_width")
+    score_dtype = route_option("score_dtype")
+    scan_impl = route_option("scan_impl")
+    rescore_mode = route_option("rescore_mode")
+    _device_rescore = route_option("device_rescore")
 
     def __init__(
         self,
@@ -123,26 +101,18 @@ class FlatIndex:
         mesh: Optional[Mesh] = None,
         device: DeviceLike = None,
     ):
-        if metric not in ("ip", "cosine", "l2"):
-            raise ValueError(f"unknown metric: {metric}")
-        if score_dtype not in ("auto", "float32", "float16"):
-            raise ValueError(f"unknown score_dtype: {score_dtype}")
-        if scan_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unknown scan_impl: {scan_impl}")
-        if rescore_mode not in ("auto", "f32", "residual", "off"):
-            raise ValueError(f"unknown rescore_mode: {rescore_mode}")
+        self._dtype = storage_dtype(dtype)
+        self._route = ExactRoute(
+            metric, storage_name(self._dtype), int(dim),
+            fetch_width=fetch_width, rescore_width=rescore_width,
+            score_dtype=score_dtype, scan_impl=scan_impl,
+            rescore_mode=rescore_mode, device_rescore=device_rescore,
+        )
         self.dim = int(dim)
         self.metric = metric
         self.mesh = resolve_mesh(mesh, device)
         self.device = self.mesh.home
         self.n_shards = n_shards(self.mesh)
-        self._dtype = storage_dtype(dtype)
-        self._device_rescore = device_rescore
-        self.rescore_mode = rescore_mode
-        self.score_dtype = score_dtype
-        self.fetch_width = int(fetch_width)
-        self.rescore_width = int(rescore_width)
-        self.scan_impl = scan_impl
         # rows split evenly across shards (8-row multiples, the int8 GEMM's
         # rule) and the whole stays 128-aligned, as the reference's
         self._row_multiple = math.lcm(self.n_shards * 8, 128)
@@ -153,46 +123,11 @@ class FlatIndex:
         self._alive = np.zeros((self.capacity,), dtype=bool)
         # int32 row tags for device-side filtered search (0 = untagged)
         self._tags = np.zeros((self.capacity,), dtype=np.int32)
-        # device state: one atomically-swapped tuple of ShardedRows
-        # (vecs, norms, valid, scales-or-None, rescore-or-None, tags); a
-        # residual rescore is a (resid, rscales) pair
-        self._dev: Optional[tuple] = None
+        # device state: one atomically-swapped ExactRows
+        self._dev: Optional[ExactRows] = None
         self._dirty = True  # device tensors need (re)materialization
 
     # -- host <-> device ------------------------------------------------------
-
-    def _score_dtype(self, rescore) -> str:
-        """fp16 score matrix only where the fused f32 rescore re-orders the
-        fetched candidates; auto is float32 (as the reference)."""
-        if self.score_dtype == "float16" and rescore is None:
-            return "float32"
-        if self.score_dtype != "auto":
-            return self.score_dtype
-        return "float32"
-
-    def _rescore_kind(self) -> str:
-        """Fused device-rescore policy: 'f32' (exact mirror), 'residual'
-        (two-level int8, int8 storage only), or 'none' (flat.py:178-207)."""
-        if self._dtype == torch.float32:
-            return "none"  # storage is already exact
-        if self.rescore_mode == "off":
-            return "none"
-        if self.rescore_mode == "f32":
-            return "f32"
-        if self.rescore_mode == "residual":
-            return "residual" if self._dtype == torch.int8 else "f32"
-        if self._device_rescore is False:
-            return "none"
-        if self._device_rescore is True:
-            return "f32"
-        if self.capacity * self.dim * 4 <= DEVICE_RESCORE_MAX_BYTES:
-            return "f32"
-        if (
-            self._dtype == torch.int8
-            and self.capacity * (self.dim + 4) <= RESIDUAL_RESCORE_MAX_BYTES
-        ):
-            return "residual"
-        return "none"
 
     def _materialize(self) -> tuple:
         """Push the host buffer to the shards' tensors: each local shard
@@ -207,7 +142,7 @@ class FlatIndex:
         # squared norms summed on the host, in the reference's (numpy) order
         norms = ShardedRows.from_host(mesh, _sqnorms(self._host))
         valid = ShardedRows.from_host(mesh, self._alive)
-        kind = self._rescore_kind()
+        kind = self._route.rescore_kind(self.capacity)
         if kind == "f32":
             rescore = x
         elif kind == "residual":
@@ -215,7 +150,7 @@ class FlatIndex:
         else:
             rescore = None
         tags = ShardedRows.from_host(mesh, self._tags)
-        dev = (vecs, norms, valid, scales, rescore, tags)
+        dev = ExactRows(vecs, norms, valid, scales, rescore, tags)
         self._dev = dev  # single atomic swap
         self._dirty = False
         return dev
@@ -226,8 +161,8 @@ class FlatIndex:
         so the store skips its host-side rescore."""
         dev = self._dev
         if dev is not None:
-            return dev[4] is not None
-        return self._rescore_kind() != "none"
+            return dev.frescore is not None
+        return self._route.rescore_kind(self.capacity) != "none"
 
     def _ensure_device(self) -> tuple:
         dev = self._dev
@@ -317,8 +252,7 @@ class FlatIndex:
         self.n_live -= int(rows.size)
         dev = self._dev
         if not self._dirty and dev is not None:
-            valid = dev[2].fill_rows(rows, False)
-            self._dev = (dev[0], dev[1], valid, dev[3], dev[4], dev[5])
+            self._dev = dev._replace(fvalid=dev.fvalid.fill_rows(rows, False))
 
     def _write_device(self, rows: np.ndarray, x: np.ndarray, tags) -> None:
         """Incremental scatter into the owner shards' tensors (rows another
@@ -352,7 +286,7 @@ class FlatIndex:
             vecs = vecs.set_rows(at, x_d)
         if rescore is not None and not isinstance(rescore, tuple):
             rescore = rescore.set_rows(at, x_d)  # f32 mirror in lockstep
-        self._dev = (vecs, norms, valid, scl, rescore, tags_dev)
+        self._dev = ExactRows(vecs, norms, valid, scl, rescore, tags_dev)
 
     # -- search -----------------------------------------------------------------
 
@@ -363,65 +297,6 @@ class FlatIndex:
     def rows_allocated(self) -> int:
         """Upper bound (exclusive) of valid row ids, tombstones included."""
         return self.size
-
-    def _scan_impl(self) -> str:
-        """Exact-scan routing (flat.py:405-417): 'pallas' runs the fused
-        top-2 kernel (its plain version on a CPU device) when dim % 128 ==
-        0; everything else, 'auto' included, runs the full-matrix route."""
-        if self.scan_impl != "pallas" or self.dim % 128 != 0:
-            return "xla"
-        return "pallas"
-
-    def _fetch_width(self, k: int, n_rows: int, rescore) -> int:
-        """Candidate width: over-fetch when the fused rescore re-ranks."""
-        if rescore is None:
-            return min(k, n_rows)
-        if self.fetch_width > 0:
-            return min(max(self.fetch_width, k), n_rows)
-        if isinstance(rescore, tuple):
-            return min(max(4 * k, 96), n_rows)
-        return min(max(4 * k, 128), n_rows)
-
-    def _rescore_width(self, k: int, rescore) -> int:
-        return resolve_rescore_width(
-            self.rescore_width, self.fetch_width, k, rescore
-        )
-
-    def _allow_dev(self, allow_tags):
-        if allow_tags is None:
-            return None
-        return torch.from_numpy(pad_allow(allow_tags)).to(self.device)
-
-    def _scan(self, dev, q_dev, k, k_out, allow_tags, batched=False):
-        """The sharded scan: ``k`` (the caller's width) is capped per shard
-        by the shard's rows; the merged pool holds n_shards * k_shard
-        candidates, so ``k_out`` up to that is servable."""
-        vecs, norms, valid, scales, rescore, tags = dev
-        shard_rows = vecs.shard_rows
-        k_shard = min(k, shard_rows)
-        resc_f32, resid, rscl = split_rescore(rescore)
-        fn = exact_scan_batched if batched else exact_scan
-        return fn(
-            self.mesh,
-            vecs,
-            norms,
-            valid,
-            scales if scales is not None else norms,
-            resc_f32,
-            q_dev,
-            k_shard,
-            self._fetch_width(k, shard_rows, rescore),
-            self.metric,
-            self._storage_name(),
-            k_out=k_out,
-            score_dtype=self._score_dtype(rescore),
-            tags=tags if allow_tags is not None else None,
-            allow=self._allow_dev(allow_tags),
-            scan_impl=self._scan_impl(),
-            resid=resid,
-            rscales=rscl,
-            rescore_width=self._rescore_width(k, rescore),
-        )
 
     def search(
         self, queries: np.ndarray, k: int = 10, allow_tags=None
@@ -441,13 +316,11 @@ class FlatIndex:
             )
         if self.metric == "cosine":
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
-        dev = self._ensure_device()
-        # shapes come from the snapshot, not live attributes (lock-free reads)
-        shard_rows = dev[0].shard_rows
-        k_eff = min(k, min(k, shard_rows) * self.n_shards)
-        scores, ids = self._scan(
-            dev, torch.from_numpy(q).to(self.device), k, k_eff, allow_tags
+        scores, ids = self._route.scan(
+            self.mesh, self._ensure_device(), torch.from_numpy(q).to(self.device),
+            k, allow_tags, merged=True,
         )
+        k_eff = scores.shape[1]
         scores = scores.cpu().numpy().astype(np.float32)
         ids = ids.cpu().numpy().astype(np.int64)
         invalid = ids >= self.size
@@ -464,16 +337,14 @@ class FlatIndex:
         ``q_dev``: (Q, dim) tensor on this index's device, already
         metric-normalized. Returns device tensors (scores, ids) with
         min(k, shard rows) columns, as the reference's."""
-        dev = self._ensure_device()
-        k = min(k, dev[0].shard_rows)
-        return self._scan(dev, q_dev, k, None, allow_tags)
+        return self._route.scan(self.mesh, self._ensure_device(), q_dev, k,
+                                allow_tags)
 
     def search_device_batched(self, qs_dev: torch.Tensor, k: int, allow_tags=None):
         """``search_device`` over B batches: qs_dev (B, Q, dim); returns
         (scores (B, Q, k), ids (B, Q, k)) device tensors."""
-        dev = self._ensure_device()
-        k = min(k, dev[0].shard_rows)
-        return self._scan(dev, qs_dev, k, None, allow_tags, batched=True)
+        return self._route.scan(self.mesh, self._ensure_device(), qs_dev, k,
+                                allow_tags, batched=True)
 
     # -- maintenance ---------------------------------------------------------------
 

@@ -31,8 +31,8 @@ scans the probed clusters it owns and contributes a local top-k, and the
   scores the shard's probed rows; after the merge an exact f32 rescore
   (each shard gathering the candidates its mirror range holds) re-orders
   the merged candidates.
-- **Exact mode** scans the flat mirror through the sharded
-  ``scan.exact_scan``.
+- **Exact mode** scans the flat mirror through the exact route the flat
+  index takes (``scan.ExactRoute``, over the sharded ``scan.exact_scan``).
 - **Streaming inserts**: nearest cluster with a free slot; layout rebuilds
   (cluster overflow / retrain) are amortized; past a device-memory
   threshold inserts land in a small exact-scanned pending tail.
@@ -69,21 +69,15 @@ from ..parallel.mesh import (
     resolve_mesh,
 )
 from ..utils import tracing
-from .flat import (
-    DEVICE_RESCORE_MAX_BYTES,
-    RESIDUAL_RESCORE_MAX_BYTES,
-    pad_allow,
-    quantize_residual_device,
-    quantize_rows_device,
-    split_rescore,
-)
+from .flat import quantize_residual_device, quantize_rows_device
 from .scan import (
-    exact_scan,
-    exact_scan_batched,
+    ExactRoute,
+    ExactRows,
+    allow_device,
     quantize_queries_device,
     rescore_global,
     rescore_global_residual,
-    resolve_rescore_width,
+    route_option,
     stable_topk,
 )
 
@@ -91,32 +85,22 @@ log = get_logger("index.ivf")
 
 # One atomically-swapped device snapshot (lock-free readers). The padded
 # cluster layout (data/ids/sqnorms/scales/centroids) serves the probing path;
-# the flat row-major mirror (f*, position == global row id) serves the exact
-# path and is the authoritative storage. Every field but the replicated
-# centroids is ShardedRows, split by cluster (layout) or by row (mirror):
+# the flat row-major mirror (the ``ExactRows`` fields, position == global row
+# id) serves the exact path and is the authoritative storage. Every field
+# but the replicated centroids is ShardedRows, split by cluster (layout) or
+# by row (mirror):
 #   data       (nlist, cmax, d) storage dtype
 #   ids        (nlist, cmax) int32 row ids, -1 = empty/tombstone
 #   sqnorms    (nlist, cmax) f32
 #   scales     (nlist, cmax) f32 or None (int8 only)
 #   centroids  (nlist, d) f32
-#   fvecs      (R, d) storage dtype flat mirror
-#   fvalid     (R,) bool
-#   fnorms     (R,) f32
-#   fscales    (R,) f32 (int8) or zeros
-#   frescore   (R, d) f32, or (int8 residual (R, d), f32 scales (R,)), or None
-#   ftags      (R,) int32 row tags (device-side filtered search)
+#   f*         the mirror (see ``scan.ExactRows``)
 _Dev = collections.namedtuple(
     "_Dev",
     [
         "data", "ids", "sqnorms", "scales", "centroids",
         "fvecs", "fvalid", "fnorms", "fscales", "frescore", "ftags",
     ],
-)
-
-# The mirror half on its own (writer-side working state; _Dev references the
-# same tensors, so swapping _Dev snapshots stays atomic for readers).
-_Mirror = collections.namedtuple(
-    "_Mirror", ["fvecs", "fvalid", "fnorms", "fscales", "frescore", "ftags"]
 )
 
 _NEG_INF = np.float32(-3.0e38)
@@ -153,6 +137,13 @@ class IVFIndex:
     counterpart here: every selection is exact."""
 
     kind = "ivf"
+    # the exact route's options, held on ``_route``
+    fetch_width = route_option("fetch_width")
+    rescore_width = route_option("rescore_width")
+    score_dtype = route_option("score_dtype")
+    scan_impl = route_option("scan_impl")
+    rescore_mode = route_option("rescore_mode")
+    device_rescore = route_option("device_rescore")
 
     def __init__(
         self,
@@ -175,14 +166,13 @@ class IVFIndex:
         mesh: Optional[Mesh] = None,
         device: DeviceLike = None,
     ):
-        if metric not in ("ip", "cosine", "l2"):
-            raise ValueError(f"unknown metric: {metric}")
-        if score_dtype not in ("auto", "float32", "float16"):
-            raise ValueError(f"unknown score_dtype: {score_dtype}")
-        if scan_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unknown scan_impl: {scan_impl}")
-        if rescore_mode not in ("auto", "f32", "residual", "off"):
-            raise ValueError(f"unknown rescore_mode: {rescore_mode}")
+        self._dtype = storage_dtype(dtype)
+        self._route = ExactRoute(
+            metric, storage_name(self._dtype), int(dim),
+            fetch_width=fetch_width, rescore_width=rescore_width,
+            score_dtype=score_dtype, scan_impl=scan_impl,
+            rescore_mode=rescore_mode, device_rescore=device_rescore,
+        )
         if use_pallas not in ("auto", "always", "never"):
             raise ValueError(f"unknown use_pallas: {use_pallas}")
         self.dim = int(dim)
@@ -197,13 +187,6 @@ class IVFIndex:
         self.seed = seed
         self.use_pallas = use_pallas
         self.balance_cap = float(balance_cap)
-        self._dtype = storage_dtype(dtype)
-        self.device_rescore = device_rescore
-        self.rescore_mode = rescore_mode
-        self.score_dtype = score_dtype
-        self.fetch_width = int(fetch_width)
-        self.rescore_width = int(rescore_width)
-        self.scan_impl = scan_impl
         # mirror rows split evenly across shards and stay 128-aligned
         self._row_multiple = math.lcm(self.n_shards * 8, 128)
         self._mirror_cap = 0  # flat-mirror rows currently materialized
@@ -223,7 +206,7 @@ class IVFIndex:
 
         # device state: the authoritative mirror + one atomically-swapped
         # _Dev snapshot so lock-free readers always see consistent tensors
-        self._mir: Optional[_Mirror] = None
+        self._mir: Optional[ExactRows] = None
         self._dev: Optional[_Dev] = None
         self._dirty = True
         # host f32 copy, maintained incrementally ONLY when no device rescore
@@ -328,30 +311,6 @@ class IVFIndex:
     def _sharded(self, rows: int, tail, dtype, fill=0) -> ShardedRows:
         return ShardedRows.full(self.mesh, rows, tail, dtype, fill)
 
-    def _rescore_kind(self, mirror_rows: int) -> str:
-        """Fused device-rescore policy: 'f32', 'residual' (two-level int8,
-        int8 storage only) or 'none' (see FlatIndex._rescore_kind)."""
-        if self._dtype == torch.float32:
-            return "none"  # storage is already exact
-        if self.rescore_mode == "off":
-            return "none"
-        if self.rescore_mode == "f32":
-            return "f32"
-        if self.rescore_mode == "residual":
-            return "residual" if self._dtype == torch.int8 else "f32"
-        if self.device_rescore is False:
-            return "none"
-        if self.device_rescore is True:
-            return "f32"
-        if mirror_rows * self.dim * 4 <= DEVICE_RESCORE_MAX_BYTES:
-            return "f32"
-        if (
-            self._dtype == torch.int8
-            and mirror_rows * (self.dim + 4) <= RESIDUAL_RESCORE_MAX_BYTES
-        ):
-            return "residual"
-        return "none"
-
     def _ensure_mirror(self, need_rows: int, *, exact: bool = False) -> None:
         """Create or grow the device mirror to hold ``need_rows`` rows.
 
@@ -375,8 +334,8 @@ class IVFIndex:
             return None
 
         if self._mir is None:
-            kind = self._rescore_kind(mcap)
-            self._mir = _Mirror(
+            kind = self._route.rescore_kind(mcap)
+            self._mir = ExactRows(
                 fvecs=self._sharded(mcap, (self.dim,), self._dtype),
                 fvalid=self._sharded(mcap, (), torch.bool),
                 fnorms=self._sharded(mcap, (), torch.float32),
@@ -392,7 +351,7 @@ class IVFIndex:
             self._mirror_cap = mcap
             return
         mir = self._mir
-        new_kind = self._rescore_kind(mcap) if mir.frescore is not None else "none"
+        new_kind = self._route.rescore_kind(mcap) if mir.frescore is not None else "none"
         is_resid = isinstance(mir.frescore, tuple)
         old_kind = "none" if mir.frescore is None else (
             "residual" if is_resid else "f32"
@@ -425,7 +384,7 @@ class IVFIndex:
             frescore = (rq.grow(mcap), rs.grow(mcap))
         else:
             frescore = None
-        grown = _Mirror(
+        grown = ExactRows(
             fvecs=mir.fvecs.grow(mcap),
             fvalid=mir.fvalid.grow(mcap),
             fnorms=mir.fnorms.grow(mcap),
@@ -485,8 +444,8 @@ class IVFIndex:
                 else:
                     cache[rows[lo:hi]] = xc
 
-    def _write_mirror(self, mir: _Mirror, xd: torch.Tensor, rows: np.ndarray,
-                      tags: np.ndarray, inplace: bool) -> _Mirror:
+    def _write_mirror(self, mir: ExactRows, xd: torch.Tensor, rows: np.ndarray,
+                      tags: np.ndarray, inplace: bool) -> ExactRows:
         """Quantize rows ``xd`` (f32, not yet metric-normalized) and write
         them to mirror rows ``rows`` of their owner shards."""
         at = mir.fvecs.route(rows)  # one upload of the indices for all fields
@@ -512,7 +471,7 @@ class IVFIndex:
         elif frescore is not None:
             frescore = frescore.set_rows(at, xd, inplace=inplace)
         ftags = mir.ftags.set_rows(at, tags_d, inplace=inplace)
-        return _Mirror(fvecs, fvalid, fnorms, fscales, frescore, ftags)
+        return ExactRows(fvecs, fnorms, fvalid, fscales, frescore, ftags)
 
     def _f32_chunk(self, rows: np.ndarray) -> torch.Tensor:
         """Gather f32(-grade) rows from the mirror by row id (int numpy) onto
@@ -759,35 +718,24 @@ class IVFIndex:
         if place:
             self._stream_place(rows)
 
-    def _allow_dev(self, allow_tags):
-        if allow_tags is None:
-            return None
-        return self._to_dev(pad_allow(allow_tags))
-
     def _merge_pending_into(self, scores, ids, q_dev, allow_tags=None):
-        """Chain the pending-tail exact scan onto in-flight (scores, ids)."""
+        """Chain the pending-tail exact scan onto in-flight (scores, ids);
+        with a leading batch dimension (``q_dev`` (B, Q, dim)) batch by
+        batch."""
         pend = self._pend
         if pend is None or pend[3] == 0:
             return scores, ids
         vecs, pids, ptags, _ = pend
         with tracing.span("ivf.pending"):
-            return _pending_merge(scores, ids, q_dev, vecs, pids, ptags,
-                                  self.metric, self._allow_dev(allow_tags))
+            allow = allow_device(allow_tags, self.device)
 
-    def _merge_pending_into_batched(self, scores, ids, qs_dev, allow_tags=None):
-        pend = self._pend
-        if pend is None or pend[3] == 0:
-            return scores, ids
-        vecs, pids, ptags, _ = pend
-        with tracing.span("ivf.pending"):
-            allow = self._allow_dev(allow_tags)
-            outs = [
-                _pending_merge(scores[b], ids[b], qs_dev[b], vecs, pids, ptags,
-                               self.metric, allow)
-                for b in range(qs_dev.shape[0])
-            ]
-            return (torch.stack([o[0] for o in outs]),
-                    torch.stack([o[1] for o in outs]))
+            def merge(s, i, q):
+                return _pending_merge(s, i, q, vecs, pids, ptags, self.metric,
+                                      allow)
+
+            if q_dev.dim() == 3:
+                return _stacked(merge(*b) for b in zip(scores, ids, q_dev))
+            return merge(scores, ids, q_dev)
 
     def remove(self, rows: np.ndarray) -> None:
         """Tombstone rows (device slots masked via ids == -1)."""
@@ -965,7 +913,7 @@ class IVFIndex:
         mir = self._mir
         if mir is not None:
             return mir.frescore is not None
-        return self._rescore_kind(max(self._n_rows, 1)) != "none"
+        return self._route.rescore_kind(max(self._n_rows, 1)) != "none"
 
     def _ensure_device(self) -> tuple:
         """Reader-side snapshot. Materialization is a writer responsibility
@@ -991,39 +939,11 @@ class IVFIndex:
     def _storage_name(self) -> str:
         return storage_name(self._dtype)
 
-    def _fetch_width(self, k: int, rows: int, rescore) -> int:
-        """Candidate width for the exact path (see FlatIndex)."""
-        if rescore is None:
-            return min(k, rows)
-        if self.fetch_width > 0:
-            return min(max(self.fetch_width, k), rows)
-        if isinstance(rescore, tuple):
-            return min(max(4 * k, 96), rows)
-        return min(max(4 * k, 128), rows)
-
-    def _rescore_width(self, k: int, rescore) -> int:
-        return resolve_rescore_width(
-            self.rescore_width, self.fetch_width, k, rescore
-        )
-
-    def _score_dtype(self, rescore) -> str:
-        if self.score_dtype == "float16" and rescore is None:
-            return "float32"  # nothing re-orders the quantized fp16 scores
-        if self.score_dtype != "auto":
-            return self.score_dtype
-        return "float32"
-
     @property
     def rows_allocated(self) -> int:
         """Upper bound (exclusive) of valid row ids, tombstoned rows
         included (``size`` counts live rows only)."""
         return self._n_rows
-
-    def _scan_impl(self) -> str:
-        """Exact-scan routing (see FlatIndex._scan_impl)."""
-        if self.scan_impl != "pallas" or self.dim % 128 != 0:
-            return "xla"
-        return "pallas"
 
     def _pallas_mode(self) -> str:
         """'off' | 'compiled' | 'plain': the probing kernel on a CUDA device,
@@ -1057,28 +977,6 @@ class IVFIndex:
             return "exact"
         return "ivf"
 
-    def _exact(self, dev, q_dev, k, k_out, allow_tags, batched=False):
-        """The sharded exact scan over the flat mirror; ``k`` is capped per
-        shard by the shard's rows."""
-        shard_rows = dev.fvecs.shard_rows
-        k_shard = min(k, shard_rows)
-        resc_f32, resid, rscl = split_rescore(dev.frescore)
-        fn = exact_scan_batched if batched else exact_scan
-        return fn(
-            self.mesh, dev.fvecs, dev.fnorms, dev.fvalid, dev.fscales,
-            resc_f32, q_dev, k_shard,
-            self._fetch_width(k, shard_rows, dev.frescore), self.metric,
-            self._storage_name(),
-            k_out=k_out,
-            score_dtype=self._score_dtype(dev.frescore),
-            tags=dev.ftags if allow_tags is not None else None,
-            allow=self._allow_dev(allow_tags),
-            scan_impl=self._scan_impl(),
-            resid=resid,
-            rscales=rscl,
-            rescore_width=self._rescore_width(k, dev.frescore),
-        )
-
     def _probe(self, dev, q_dev, k, np_probe):
         """Probing path + merged exact rescore; returns (scores, ids) with
         ``k_eff`` columns."""
@@ -1100,6 +998,37 @@ class IVFIndex:
         )
         scores, ids = self._rescore_merged(dev, q_dev, scores, ids)
         return scores[:, :k_eff], ids[:, :k_eff]
+
+    def _search(self, q_dev, k: int, nprobe: Optional[int], mode: str,
+                allow_tags, *, merged: bool = False, batched: bool = False):
+        """The routed search under all three entries: the snapshot, the route
+        (tags force the exact one; auto asks ``_pick_mode``), its counter and
+        span, the scan, then the pending tail. ``q_dev``: (Q, dim), or (B, Q,
+        dim) when ``batched``, metric-normalized on this index's device;
+        ``merged`` as ``ExactRoute.scan``. Returns device (scores, ids)."""
+        dev = self._ensure_device()
+        np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
+        if allow_tags is not None:
+            # tag masking lives on the flat mirror; the probing layout is
+            # cluster-addressed and unfiltered, so filtered searches take
+            # the exact path
+            mode = "exact"
+        if mode == "auto":
+            mode = self._pick_mode(pad_bucket(q_dev.shape[-2]), np_probe, k)
+        if mode == "exact":
+            tracing.count("ivf.route.exact")
+            with tracing.span("ivf.exact"):
+                scores, ids = self._route.scan(self.mesh, dev, q_dev, k, allow_tags,
+                                               merged=merged, batched=batched)
+        else:
+            tracing.count("ivf.route.probe")
+            with tracing.span("ivf.probe"):
+                if batched:
+                    scores, ids = _stacked(self._probe(dev, q, k, np_probe)
+                                           for q in q_dev)
+                else:
+                    scores, ids = self._probe(dev, q_dev, k, np_probe)
+        return self._merge_pending_into(scores, ids, q_dev, allow_tags)
 
     def search(
         self,
@@ -1126,30 +1055,11 @@ class IVFIndex:
         if self.metric == "cosine":
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
         with tracing.span("ivf.search"):
-            dev = self._ensure_device()
-            np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
-            q_dev = self._to_dev(q)
-            if allow_tags is not None:
-                # tag masking lives on the flat mirror; the probing layout is
-                # cluster-addressed and unfiltered, so filtered searches take
-                # the exact path
-                mode = "exact"
-            if mode == "auto":
-                mode = self._pick_mode(pad_bucket(n_q), np_probe, k)
-            if mode == "exact":
-                tracing.count("ivf.route.exact")
-                with tracing.span("ivf.exact"):
-                    shard_rows = dev.fvecs.shard_rows
-                    k_eff = min(k, min(k, shard_rows) * self.n_shards)
-                    scores, ids = self._exact(dev, q_dev, k, k_eff, allow_tags)
-            else:
-                tracing.count("ivf.route.probe")
-                with tracing.span("ivf.probe"):
-                    scores, ids = self._probe(dev, q_dev, k, np_probe)
-                k_eff = scores.shape[1]
-            scores, ids = self._merge_pending_into(scores, ids, q_dev, allow_tags)
+            scores, ids = self._search(self._to_dev(q), k, nprobe, mode,
+                                       allow_tags, merged=True)
             scores = scores.cpu().numpy().astype(np.float32)
             ids = ids.cpu().numpy().astype(np.int64)
+        k_eff = scores.shape[1]
         bad = (ids < 0) | (scores <= _NEG_INF / 2)
         scores = np.where(bad, _NEG_INF, scores)
         ids = np.where(bad, -1, ids)
@@ -1183,22 +1093,7 @@ class IVFIndex:
         ``q_dev`` (Q, dim) metric-normalized on this index's device; returns
         device tensors (scores, ids)."""
         with tracing.span("ivf.search"):
-            dev = self._ensure_device()
-            np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
-            if allow_tags is not None:
-                mode = "exact"  # see search(): tag masking rides the flat mirror
-            if mode == "auto":
-                mode = self._pick_mode(pad_bucket(q_dev.shape[0]), np_probe, k)
-            if mode == "exact":
-                tracing.count("ivf.route.exact")
-                with tracing.span("ivf.exact"):
-                    k = min(k, dev.fvecs.shard_rows)
-                    scores, ids = self._exact(dev, q_dev, k, None, allow_tags)
-            else:
-                tracing.count("ivf.route.probe")
-                with tracing.span("ivf.probe"):
-                    scores, ids = self._probe(dev, q_dev, k, np_probe)
-            return self._merge_pending_into(scores, ids, q_dev, allow_tags)
+            return self._search(q_dev, k, nprobe, mode, allow_tags)
 
     def search_device_batched(
         self, qs_dev, k: int, allow_tags=None, mode: str = "exact",
@@ -1215,25 +1110,8 @@ class IVFIndex:
                 f"all B batches to one path)"
             )
         with tracing.span("ivf.search"):
-            dev = self._ensure_device()
-            if allow_tags is not None:
-                mode = "exact"  # tag masking rides the flat mirror (see search())
-            if mode == "exact":
-                tracing.count("ivf.route.exact")
-                with tracing.span("ivf.exact"):
-                    k = min(k, dev.fvecs.shard_rows)
-                    scores, ids = self._exact(dev, qs_dev, k, None, allow_tags,
-                                              batched=True)
-            else:
-                tracing.count("ivf.route.probe")
-                with tracing.span("ivf.probe"):
-                    np_probe = min(nprobe or self.nprobe, dev.data.shape[0])
-                    outs = [self._probe(dev, qs_dev[b], k, np_probe)
-                            for b in range(qs_dev.shape[0])]
-                    scores = torch.stack([o[0] for o in outs])
-                    ids = torch.stack([o[1] for o in outs])
-            return self._merge_pending_into_batched(scores, ids, qs_dev,
-                                                    allow_tags)
+            return self._search(qs_dev, k, nprobe, mode, allow_tags,
+                                batched=True)
 
     # -- maintenance / persistence -------------------------------------------------
 
@@ -1314,7 +1192,7 @@ class IVFIndex:
                                                  inplace=True)
             ftags = nm.ftags.set_rows(dst, self._to_dev(self._tags[src_ids]),
                                       inplace=True)
-            nm = _Mirror(fvecs, fvalid, fnorms, fscales, frescore, ftags)
+            nm = ExactRows(fvecs, fnorms, fvalid, fscales, frescore, ftags)
             if cache is not None:
                 if self._host_cache is not None:
                     cache[lo:hi] = self._host_cache[live[lo:hi]]
@@ -1388,6 +1266,13 @@ class IVFIndex:
             # re-normalize (a no-op for unit rows) on the device
             idx.add(vecs, tags=tags)
         return idx
+
+
+def _stacked(pairs):
+    """Per-batch (scores, ids) pairs stacked into (B, Q, k) tensors."""
+    pairs = list(pairs)
+    return (torch.stack([p[0] for p in pairs]),
+            torch.stack([p[1] for p in pairs]))
 
 
 def _resort(scores, ids):

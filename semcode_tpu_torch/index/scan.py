@@ -36,12 +36,20 @@ lowest index like ``jax.lax.top_k`` (corpora with duplicated chunks tie
 exactly). The JAX step's ``approx_max_k`` selection exists only on a TPU
 and the reference runs exact ``top_k`` everywhere else; this step is always
 exact.
+
+``ExactRoute`` is the one caller of the step for both indexes: it holds an
+index's options and decides from them the rescore tier, the candidate
+widths, the score dtype and the scan impl, and ``ExactRows`` names the row
+operands both indexes hand it.
 """
 
 from __future__ import annotations
 
+import collections
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.scan_top2 import MAX_WIDTH, NEG, scan_topk, top2_scan
@@ -58,6 +66,26 @@ from ..utils import tracing
 _NEG_F16 = -6.0e4
 # bound on the (query chunk x rows) score matrix of the xla route
 _SCORE_BLOCK_ELEMS = 1 << 27
+
+# above this f32-mirror footprint the fused device rescore falls back to the
+# two-level int8 residual mirror (auto mode), and above the residual budget
+# to host rescoring (device-memory budget guards, as the reference)
+DEVICE_RESCORE_MAX_BYTES = 4 << 30
+RESIDUAL_RESCORE_MAX_BYTES = 6 << 30
+
+# The exact scan's row operands, swapped as one tuple: the flat index's
+# device snapshot and the IVF index's flat mirror (whose snapshot carries the
+# same fields by name). Every field is ShardedRows, split by row:
+#   fvecs     (R, d) storage dtype
+#   fnorms    (R,) f32 squared norms
+#   fvalid    (R,) bool liveness
+#   fscales   (R,) f32 int8 row scales; other storage: zeros (IVF) or None
+#   frescore  (R, d) f32 mirror, or (int8 residual (R, d), f32 scales (R,)),
+#             or None: the fused rescore's tier
+#   ftags     (R,) int32 row tags (device-side filtered search)
+ExactRows = collections.namedtuple(
+    "ExactRows", ["fvecs", "fnorms", "fvalid", "fscales", "frescore", "ftags"]
+)
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,23 +104,6 @@ def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         keys = (ordered << 32) | (0xFFFFFFFF - col)
         _, idx = torch.topk(keys, k, dim=1, sorted=True)
         return torch.gather(x, 1, idx), idx
-
-
-def resolve_rescore_width(rescore_width: int, fetch_width: int, k: int,
-                          rescore) -> int:
-    """Shared auto policy for the top-W gather slice (scan.py:58-80):
-
-    - explicit ``rescore_width`` > 0: clamp to >= k and use it;
-    - ``rescore_width`` < 0 (or no rescore tier): full fetch, no slice;
-    - auto (0): max(3k, 32), unless the caller explicitly widened
-      ``fetch_width`` (then the full fetch is gathered)."""
-    if rescore is None or rescore_width < 0:
-        return 0
-    if rescore_width > 0:
-        return max(rescore_width, k)
-    if fetch_width > 0:
-        return 0
-    return max(3 * k, 32)
 
 
 def quantize_queries_device(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -387,3 +398,147 @@ def exact_scan_batched(mesh, vecs, norms, valid, scales, rescore, qs, k,
     ]
     return (torch.stack([o[0] for o in outs]),
             torch.stack([o[1] for o in outs]))
+
+
+def allow_device(allow_tags, device) -> Optional[torch.Tensor]:
+    """An allowed-tag list as the scan's int32 operand on ``device``, padded
+    to a power-of-two bucket with -1 sentinels (tags are >= 0, so -1 never
+    matches); None (no filter) stays None."""
+    if allow_tags is None:
+        return None
+    a = np.asarray(allow_tags, dtype=np.int32).ravel()
+    if a.size == 0:
+        raise ValueError("allow_tags must be non-empty (empty = no results)")
+    n = 8
+    while n < a.size:
+        n *= 2
+    out = np.full((n,), -1, dtype=np.int32)
+    out[: a.size] = a
+    return torch.from_numpy(out).to(device)
+
+
+def route_option(name: str) -> property:
+    """An index attribute kept on the index's ``ExactRoute`` (``_route``):
+    the route is built once, and a caller that sets ``index.scan_impl``
+    after construction still steers it."""
+    return property(lambda self: getattr(self._route, name),
+                    lambda self, value: setattr(self._route, name, value))
+
+
+@dataclass
+class ExactRoute:
+    """The exact route of the flat index and of the IVF index's exact mode:
+    its policy (the rescore tier, the candidate widths, the score dtype, the
+    scan impl) and its one call of ``exact_scan``, built once from an
+    index's options."""
+
+    metric: str                # ip | cosine | l2
+    storage: str               # int8 | bfloat16 | float32
+    dim: int
+    fetch_width: int = 0       # 0 = auto (max(4k, 128)); rescore candidate pool
+    rescore_width: int = 0     # top-W gather slice; 0 = auto, -1 = full fetch
+    score_dtype: str = "auto"  # auto | float32 | float16
+    scan_impl: str = "auto"    # auto | xla | pallas (exact-scan kernel)
+    rescore_mode: str = "auto"  # auto | f32 | residual | off
+    device_rescore: Optional[bool] = None  # None = auto by memory budget
+
+    def __post_init__(self):
+        for name, known in (("metric", ("ip", "cosine", "l2")),
+                            ("score_dtype", ("auto", "float32", "float16")),
+                            ("scan_impl", ("auto", "xla", "pallas")),
+                            ("rescore_mode", ("auto", "f32", "residual", "off"))):
+            if getattr(self, name) not in known:
+                raise ValueError(f"unknown {name}: {getattr(self, name)}")
+        self.fetch_width = int(self.fetch_width)
+        self.rescore_width = int(self.rescore_width)
+
+    def rescore_kind(self, rows: int) -> str:
+        """The fused device rescore's tier for ``rows`` allocated rows:
+        'f32' (exact mirror), 'residual' (two-level int8, int8 storage only)
+        or 'none' (the reference's flat.py:178-207). An explicit
+        ``rescore_mode`` wins, then ``device_rescore``, then the
+        device-memory budgets."""
+        if self.storage == "float32":
+            return "none"  # storage is already exact
+        if self.rescore_mode == "off":
+            return "none"
+        if self.rescore_mode == "f32":
+            return "f32"
+        if self.rescore_mode == "residual":
+            return "residual" if self.storage == "int8" else "f32"
+        if self.device_rescore is False:
+            return "none"
+        if self.device_rescore is True:
+            return "f32"
+        if rows * self.dim * 4 <= DEVICE_RESCORE_MAX_BYTES:
+            return "f32"
+        if (self.storage == "int8"
+                and rows * (self.dim + 4) <= RESIDUAL_RESCORE_MAX_BYTES):
+            return "residual"
+        return "none"
+
+    def widths(self, k: int, shard_rows: int, rescore) -> Tuple[int, int]:
+        """``(fetch, W)`` for a query width ``k`` over a tier payload
+        ``rescore``. ``fetch``, the per-shard candidate pool, over-fetches
+        when the fused rescore re-ranks: ``fetch_width`` when set, else
+        max(4k, 96) for the residual tier and max(4k, 128) for the f32
+        mirror. ``W``, the top-W gather slice (the reference's
+        scan.py:58-80): an explicit ``rescore_width`` > 0 clamped to >= k;
+        < 0, or no tier, 0 (gather the whole fetch); auto max(3k, 32),
+        unless ``fetch_width`` was widened (then the whole fetch)."""
+        if rescore is None:
+            return min(k, shard_rows), 0
+        if self.fetch_width > 0:
+            fetch = min(max(self.fetch_width, k), shard_rows)
+        else:
+            floor = 96 if isinstance(rescore, tuple) else 128
+            fetch = min(max(4 * k, floor), shard_rows)
+        if self.rescore_width < 0:
+            return fetch, 0
+        if self.rescore_width > 0:
+            return fetch, max(self.rescore_width, k)
+        return fetch, 0 if self.fetch_width > 0 else max(3 * k, 32)
+
+    def select_dtype(self, rescore) -> str:
+        """The select step's score dtype: fp16 only where the fused f32
+        rescore re-orders the fetched candidates; auto is float32 (as the
+        reference)."""
+        if self.score_dtype == "auto" or rescore is None:
+            return "float32"
+        return self.score_dtype
+
+    def impl(self) -> str:
+        """'pallas' runs the fused top-2 kernel (its plain version on a CPU
+        device) when dim % 128 == 0 (the reference's flat.py:405-417);
+        everything else, 'auto' included, the 'xla' route."""
+        if self.scan_impl == "pallas" and self.dim % 128 == 0:
+            return "pallas"
+        return "xla"
+
+    def scan(self, mesh: Mesh, rows, q: torch.Tensor, k: int, allow_tags=None,
+             *, merged: bool = False, batched: bool = False):
+        """The exact scan of ``rows`` (an ``ExactRows``, or a snapshot with
+        its fields) for ``q`` (Q, d), or (B, Q, d) when ``batched``,
+        metric-normalized on the mesh's home device. The result's width is
+        the merged pool's min(k, n_shards * min(k, shard rows)) when
+        ``merged`` (the host searches), else min(k, shard rows) (the device
+        entries, as the reference's). Returns device (scores, ids)."""
+        shard_rows = rows.fvecs.shard_rows
+        k_shard = min(k, shard_rows)
+        fetch, w = self.widths(k, shard_rows, rows.frescore)
+        residual = isinstance(rows.frescore, tuple)
+        resid, rscales = rows.frescore if residual else (None, None)
+        fn = exact_scan_batched if batched else exact_scan
+        return fn(
+            mesh, rows.fvecs, rows.fnorms, rows.fvalid, rows.fscales,
+            None if residual else rows.frescore, q, k_shard, fetch,
+            self.metric, self.storage,
+            k_out=min(k, k_shard * mesh_shards(mesh)) if merged else k_shard,
+            score_dtype=self.select_dtype(rows.frescore),
+            tags=rows.ftags if allow_tags is not None else None,
+            allow=allow_device(allow_tags, mesh.home),
+            scan_impl=self.impl(),
+            resid=resid,
+            rscales=rscales,
+            rescore_width=w,
+        )

@@ -160,7 +160,7 @@ def main(argv: Optional[Sequence[str]] = None,
         elif mode == "dotseltop":
             timed(lambda: dotsel(True), "dotseltop")
         elif mode == "norescore":
-            idx._dev = state[:4] + (None, state[5])
+            idx._dev = state._replace(frescore=None)
             timed(lambda: idx.search_device_batched(qs, K), "norescore", batched=True)
             idx._dev = state
         elif mode == "full":

@@ -15,9 +15,11 @@ import pytest
 import torch
 
 from semcode_tpu.index.flat import FlatIndex as JaxFlat
+from semcode_tpu.index.ivf import IVFIndex as JaxIVF
 from semcode_tpu.parallel.mesh import make_mesh
 from semcode_tpu_torch.index.convert import flat_from_jax_state, flat_to_jax_state
 from semcode_tpu_torch.index.flat import FlatIndex, quantize_rows, quantize_rows_device
+from semcode_tpu_torch.index.ivf import IVFIndex
 from semcode_tpu_torch.index.scan import stable_topk
 
 DIM = 128
@@ -40,13 +42,16 @@ def _data(seed, n=300, nq=6):
     return x, tags, q
 
 
-def _pair(mesh1, **kw):
+def _pair(mesh1, kind="flat", **kw):
+    if kind == "ivf":  # searched with mode="exact": the flat mirror's scan
+        return (JaxIVF(DIM, mesh=mesh1, nlist=8, **kw),
+                IVFIndex(DIM, nlist=8, device="cpu", **kw))
     return JaxFlat(DIM, mesh=mesh1, **kw), FlatIndex(DIM, device="cpu", **kw)
 
 
-def _same(a, b, q, k=10, allow=None):
-    sa, ia = a.search(q, k, allow_tags=allow)
-    sb, ib = b.search(q, k, allow_tags=allow)
+def _same(a, b, q, k=10, allow=None, **kw):
+    sa, ia = a.search(q, k, allow_tags=allow, **kw)
+    sb, ib = b.search(q, k, allow_tags=allow, **kw)
     np.testing.assert_array_equal(ib, ia)
     np.testing.assert_allclose(sb, sa, rtol=1e-5, atol=1e-5)
 
@@ -61,22 +66,24 @@ def test_search_matches_jax(mesh1, dtype, metric, scan_impl, rescore_mode):
                  rescore_mode=rescore_mode)
     a.add(x, tags)
     b.add(x, tags)
-    assert a._rescore_kind() == b._rescore_kind()
+    assert a._rescore_kind() == b._route.rescore_kind(b.capacity)
     a.remove(np.arange(0, 300, 7))
     b.remove(np.arange(0, 300, 7))
     _same(a, b, q)
     _same(a, b, q, allow=[1, 2])
 
 
+@pytest.mark.parametrize("kind", ["flat", "ivf"])
 @pytest.mark.parametrize("scan_impl", ["xla", "pallas"])
 @pytest.mark.parametrize("rescore_width,fetch_width", [(-1, 0), (12, 0), (0, 64)])
-def test_rescore_width_and_fetch_width(mesh1, scan_impl, rescore_width, fetch_width):
+def test_rescore_width_and_fetch_width(mesh1, kind, scan_impl, rescore_width,
+                                       fetch_width):
     x, tags, q = _data(seed=11, n=600)
-    a, b = _pair(mesh1, dtype="int8", scan_impl=scan_impl,
+    a, b = _pair(mesh1, kind, dtype="int8", scan_impl=scan_impl,
                  rescore_width=rescore_width, fetch_width=fetch_width)
     a.add(x, tags)
     b.add(x, tags)
-    _same(a, b, q, k=8)
+    _same(a, b, q, k=8, **({"mode": "exact"} if kind == "ivf" else {}))
 
 
 @pytest.mark.parametrize("scan_impl", ["xla", "pallas"])

@@ -20,10 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+from semcode_tpu.index.flat import FlatIndex as JaxFlat
 from semcode_tpu.index.ivf import IVFIndex as JaxIVF
 from semcode_tpu.ops import kmeans as jk
 from semcode_tpu.parallel.mesh import make_mesh
 from semcode_tpu_torch.index.convert import ivf_from_jax_state, ivf_to_jax_state
+from semcode_tpu_torch.index.flat import FlatIndex
 from semcode_tpu_torch.index.ivf import IVFIndex
 from semcode_tpu_torch.ops import kmeans as tk
 
@@ -251,6 +253,47 @@ def test_search_device_batched(mesh1, mode):
     np.testing.assert_array_equal(ib.numpy(), np.asarray(ia))
     with pytest.raises(ValueError, match="'exact' or 'probe'"):
         b.search_device_batched(torch.from_numpy(qs), 5, mode="auto")
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+@pytest.mark.parametrize("rescore_mode", ["auto", "residual", "off"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+def test_flat_and_ivf_exact_share_one_route(mesh1, dtype, rescore_mode, metric):
+    """The flat index and the IVF index's exact mode run one exact route:
+    over the same rows they return equal (scores, ids), and the route's
+    rescore tier, widths and score dtype are each JAX index's."""
+    rng = np.random.default_rng(9)
+    x = _clustered(rng, 600)
+    q = torch.from_numpy(_clustered(rng, 8))
+    kw = dict(metric=metric, dtype=dtype, rescore_mode=rescore_mode)
+    flat = FlatIndex(D, device="cpu", **kw)
+    ivf = IVFIndex(D, nlist=8, device="cpu", **kw)
+    flat.add(x)
+    ivf.add(x)
+    sf, idf = flat.search_device(q, 10)
+    si, idi = ivf.search_device(q, 10, mode="exact")
+    np.testing.assert_array_equal(idi.numpy(), idf.numpy())
+    if metric == "l2":
+        # the flat index sums the row norms on the host (numpy), the IVF
+        # index on the device: l2 scores may differ in the last bit
+        np.testing.assert_allclose(si.numpy(), sf.numpy(), rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(si.numpy(), sf.numpy())
+    jax_flat = JaxFlat(D, mesh=mesh1, **kw)
+    jax_ivf = JaxIVF(D, mesh=mesh1, nlist=8, **kw)
+    # at d 128: inside the f32 mirror's budget, past it, past the residual's
+    for rows in (600, 12_000_000, 60_000_000):
+        jax_flat.capacity = rows
+        assert flat._route.rescore_kind(rows) == jax_flat._rescore_kind()
+        assert ivf._route.rescore_kind(rows) == jax_ivf._rescore_kind(rows)
+    # tier payloads: none, the f32 mirror, the (residual, scales) pair
+    for payload in (None, object(), (None, None)):
+        for k, shard_rows in ((1, 2048), (10, 2048), (40, 2048), (10, 100)):
+            for idx, ref in ((flat, jax_flat), (ivf, jax_ivf)):
+                fetch, w = idx._route.widths(k, shard_rows, payload)
+                assert fetch == ref._fetch_width(k, shard_rows, payload)
+                assert w == ref._rescore_width(k, payload)
+                assert idx._route.select_dtype(payload) == ref._score_dtype(payload)
 
 
 def test_pick_mode_regimes_match_reference(mesh1):
