@@ -212,7 +212,12 @@ Phases (any failed check exits non-zero before the final line):
    (bit for bit, ms beside its earlier time);
    and ``exact_scan``'s whole output (f32 mirror at d 384, residual rescore
    at d 3072, and the filtered case) on the kernel route against the matrix route, bit for bit, with
-   ``scan.select.kernel`` counted once a call and a call's ms on each route.
+   ``scan.select.kernel`` counted once a call and a call's ms on each route;
+   then ``ExactRoute.scan`` on the same operands at d 384 Q 8 and Q 512 and
+   at d 3072 Q 256: the eager, the capturing and the graphed call's ms
+   (synchronised each call), their answers bit for bit, the graph's hit
+   share over 200 calls of a new key (``scan.graph.*`` counters), and the
+   bytes of the route's graph pools.
 
 9. the row-sharded engine on the one card (run after phase 4b; shards placed
    with ``make_mesh((4,), devices=[cuda:0] * 4)``): 9a. phase 3's
@@ -3065,6 +3070,75 @@ def exact_scan_both_routes(mesh, ops, q, fetch, label, **kw):
     return {"call_ms": kernel_ms, "matrix_call_ms": matrix_ms}
 
 
+def graphed_route(mesh, ops, q, label, allow_tags=None, tags=None, route=None):
+    """``ExactRoute.scan`` on phase 4d's operands (``ops``: vecs, norms,
+    valid, scales, and the f32 mirror or the (residual, scales) pair):
+    eager (the graph turned away) against graphed, bit for bit; each one's
+    ms a call, synchronised each call; the capturing call's ms; the replay
+    share of 200 calls of a new key; and the bytes of the route's graph
+    pools. Pass ``route`` to add a key to a route.
+    Returns (figures, route)."""
+    import torch
+
+    from semcode_tpu_torch.index import scan
+    from semcode_tpu_torch.parallel.mesh import ShardedRows
+    from semcode_tpu_torch.utils import tracing
+
+    vecs, norms, valid, sc, tier = ops
+
+    def split(t):
+        return ShardedRows.of(mesh, t)
+
+    if tags is None:
+        tags = torch.zeros(vecs.shape[0], dtype=torch.int32, device=vecs.device)
+    rows = scan.ExactRows(split(vecs), split(norms), split(valid), split(sc),
+                          tuple(map(split, tier)) if isinstance(tier, tuple) else split(tier),
+                          split(tags))
+    route = route or scan.ExactRoute("ip", "int8", vecs.shape[1])
+
+    def call():
+        return route.scan(mesh, rows, q, 10, allow_tags)
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    real = scan.ExactRoute._graphed
+    scan.ExactRoute._graphed = lambda *_: False
+    try:
+        want = call()
+        eager_ms = timed(50)
+    finally:
+        scan.ExactRoute._graphed = real
+    names = ("scan.graph.capture", "scan.graph.replay", "scan.graph.eager")
+    before = tracing.snapshot()["counters"]
+    got = [call() for _ in range(scan.SCAN_CAPTURE_CALLS - 1)]  # eager, the key's first
+    capture_ms = timed(1)
+    got += [call()]
+    graph_ms = timed(199 - scan.SCAN_CAPTURE_CALLS)
+    after = tracing.snapshot()["counters"]
+    cap, rep, eag = (after.get(n, 0) - before.get(n, 0) for n in names)
+    share = rep / max(cap + rep + eag, 1)
+    for g in got + [call()]:
+        if not (torch.equal(g[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(g[1], want[1])):
+            fail(f"ExactRoute.scan {label}: the graphed answers differ from the eager ones")
+    if (cap, eag) != (1, scan.SCAN_CAPTURE_CALLS - 1):
+        fail(f"ExactRoute.scan {label}: {cap} captures and {eag} eager calls in 200")
+    pool_bytes = sum(e.bytes for e in route._graphs.graphs.values())
+    log(f"[topk] ExactRoute.scan {label}: graphed answers equal the eager ones bit for "
+        f"bit; a call {eager_ms:.3f} ms eager vs {graph_ms:.3f} ms graphed, the capturing "
+        f"call {capture_ms:.2f} ms; hit share {share:.3f} over 200 calls ({cap} capture, "
+        f"{rep} replays, {eag} eager); the graph pools of the route's "
+        f"{len(route._graphs.graphs)} key(s) {pool_bytes / 2**20:.1f} MiB")
+    return {"eager_ms": eager_ms, "graph_ms": graph_ms, "capture_ms": capture_ms,
+            "hit_share": share, "pool_bytes": pool_bytes}, route
+
+
 def topk_phase():
     """Phase 4d: scan_topk against the matrix route at the cells' shapes
     (1M x 384 at Q 512 and Q 8, 1M x 3072 at Q 256, w 32; a tag-filtered,
@@ -3135,6 +3209,13 @@ def topk_phase():
     exact_scan_both_routes(mesh, ops, q, 128, f"{N_ROWS} x {DIM} Q={BATCH}, tag 1 (1%)",
                            rescore_width=TOPK_WIDTH, tags=tags,
                            allow=torch.tensor([1], dtype=torch.int32, device="cuda"))
+    out["graph_d384_q512"], route = graphed_route(mesh, ops, q,
+                                                  f"{N_ROWS} x {DIM} Q={BATCH}")
+    out["graph_d384_q8"], _ = graphed_route(mesh, ops, q[:SERVE_BATCH],
+                                            f"{N_ROWS} x {DIM} Q={SERVE_BATCH}", route=route)
+    graphed_route(mesh, ops, q, f"{N_ROWS} x {DIM} Q={BATCH}, tag 1 (1%)",
+                  allow_tags=[1], tags=tags)
+    del route
     del x, q, vecs, sc, valid, norms, qq, qsc, ops, tags
     gc.collect()
     torch.cuda.empty_cache()
@@ -3162,6 +3243,9 @@ def topk_phase():
         mesh, (vecs, norms, valid, sc, None), q, 96,
         f"{N_ROWS} x {d} Q={nq}, residual rescore", rescore_width=TOPK_WIDTH,
         resid=resid, rscales=rscl)
+    out["graph_d3072_q256"], _ = graphed_route(
+        mesh, (vecs, norms, valid, sc, (resid, rscl)), q,
+        f"{N_ROWS} x {d} Q={nq}, residual rescore")
     # the launches of this phase's own calls; the main path's are phase 4b's
     out["smoke_launches"] = scan_topk.launches - launches0
     del vecs, sc, norms, resid, rscl, valid, q, qq, qsc
@@ -3257,6 +3341,7 @@ def ivf_scale_phase():
     from semcode_tpu_torch.ops.scan_top2 import scan_topk
     from semcode_tpu_torch.tools._corpus import mixture, oracle_topk, queries_near
     from semcode_tpu_torch.tools._timing import cuda_ms
+    from semcode_tpu_torch.utils import tracing
 
     gc.collect()
     torch.cuda.empty_cache()  # phase 4's flat index is gone
@@ -3334,11 +3419,15 @@ def ivf_scale_phase():
     # route, whose int8 selection is scan_topk (its launches counted from 0)
     mode = index._pick_mode(BATCH, index.nprobe, 10)
     scan_topk.launches = 0
+    replays = tracing.snapshot()["counters"].get("scan.graph.replay", 0)
     index.search_device(q, 10)
     torch.cuda.synchronize()
     out["topk_launches"] = scan_topk.launches
     log(f"[ivf-scale] mode='auto' at batch {BATCH}, nprobe {index.nprobe} picks "
         f"{mode!r}; scan_topk launches {out['topk_launches']}")
+    if tracing.snapshot()["counters"].get("scan.graph.replay", 0) != replays:
+        fail("the counted batch-512 search replayed a graph, which the kernel's "
+             "launch counter does not see")
     if mode != "exact" or out["topk_launches"] < 1:
         fail("the auto-mode batch-512 search did not select through scan_topk")
     out["breakdown"] = device_breakdown(

@@ -27,7 +27,7 @@ Routes, with the JAX meanings of ``scan_impl``:
   ``torch._int_mm`` on the card and an exact float64 product on the CPU).
   Both give the same entries in the same order, bit for bit; the counters
   ``scan.select.kernel`` and ``scan.select.matrix`` count shard calls by
-  route.
+  route (a replayed graph's call is counted by ``scan.graph.replay`` alone).
 
 Then, per shard: the top-W gather slice, the fused rescore in true f32 (f32
 mirror, or the two-level int8 residual reconstruction) and the shard's
@@ -40,18 +40,26 @@ exact.
 ``ExactRoute`` is the one caller of the step for both indexes: it holds an
 index's options and decides from them the rescore tier, the candidate
 widths, the score dtype and the scan impl, and ``ExactRows`` names the row
-operands both indexes hand it.
+operands both indexes hand it. Where a call's device work is a fixed chain
+of launches (one CUDA shard in the process, the ``xla`` impl, the kernel
+route, an unbatched query), the route replays it as a CUDA graph captured
+once a (snapshot, query bucket) key (``_ScanGraphs``): the same kernels on
+the same operands, so the same bits, without the host's dispatch of each
+launch.
 """
 
 from __future__ import annotations
 
 import collections
-from dataclasses import dataclass
+import threading
+import weakref
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..logger import get_logger
 from ..ops.scan_top2 import MAX_WIDTH, NEG, scan_topk, top2_scan
 from ..parallel.mesh import (
     Mesh,
@@ -63,6 +71,8 @@ from ..parallel.mesh import (
 )
 from ..utils import tracing
 
+log = get_logger("index.scan")
+
 _NEG_F16 = -6.0e4
 # bound on the (query chunk x rows) score matrix of the xla route
 _SCORE_BLOCK_ELEMS = 1 << 27
@@ -72,6 +82,17 @@ _SCORE_BLOCK_ELEMS = 1 << 27
 # to host rescoring (device-memory budget guards, as the reference)
 DEVICE_RESCORE_MAX_BYTES = 4 << 30
 RESIDUAL_RESCORE_MAX_BYTES = 6 << 30
+
+# the keys an ExactRoute keeps entries for, least recently used dropped first
+# (more than a process's calls make: Q's buckets x k x merged x the allow
+# list's bucket), and the bytes its graphs' memory pools may hold together
+# before the least recently used graphs go (the newest always stays)
+SCAN_GRAPHS = 64
+SCAN_GRAPH_BYTES = 2 << 30
+# a key's calls on one snapshot up to its capture: a capture costs what 10 to
+# 40 replays save (PERF.md §6), so a snapshot that serves fewer calls, as
+# a flat index's does under a stream of writes, stays eager
+SCAN_CAPTURE_CALLS = 16
 
 # The exact scan's row operands, swapped as one tuple: the flat index's
 # device snapshot and the IVF index's flat mirror (whose snapshot carries the
@@ -203,6 +224,19 @@ def _select_pallas(qq, q_scales, vecs, nrm, vld, scl, storage, metric,
     return s, pos
 
 
+def _shard_widths(shard_rows: int, k: int, fetch: int, rescore_width: int,
+                  tiered: bool) -> Tuple[int, int, int, int]:
+    """``(fetch, k, W, width)`` of one shard call, clamped to its rows: W 0
+    gathers the whole fetch; ``width`` is what the select step returns, the
+    top-W slice's when a rescore tier slices the fetch (the selection is
+    sorted, so its first W are the slice), else the fetch."""
+    fetch = min(fetch, shard_rows)
+    k = min(k, fetch)
+    w = int(rescore_width)
+    w = max(w, k) if 0 < w < fetch else 0  # 0 = gather the whole fetch
+    return fetch, k, w, (w if w and tiered else fetch)
+
+
 def exact_scan(
     mesh: Mesh,
     vecs,                      # (R, d) storage dtype
@@ -235,10 +269,8 @@ def exact_scan(
         None if t is None else ShardedRows.of(mesh, t)
         for t in (vecs, norms, valid, scales, rescore, tags, resid, rscales))
     shard_rows = vecs.shard_rows
-    fetch = min(fetch, shard_rows)
-    k = min(k, fetch)
-    w = int(rescore_width)
-    w = max(w, k) if 0 < w < fetch else 0  # 0 = gather the whole fetch
+    fetch, k, w, width = _shard_widths(shard_rows, k, fetch, rescore_width,
+                                       rescore is not None or resid is not None)
     k_out = min(k_out, k * n_shards)
     f16 = score_dtype == "float16" and scan_impl == "xla"
     neg = _NEG_F16 if f16 else NEG
@@ -250,10 +282,6 @@ def exact_scan(
     if scan_impl not in ("xla", "pallas"):
         raise ValueError(f"unknown scan_impl: {scan_impl}")
     q = q.to(torch.float32)
-    # the width the select step must return: the top-W slice's, when a
-    # rescore tier slices the fetch (the selection is sorted, so its first W
-    # are the slice), else the fetch
-    width = w if w and (rescore is not None or resid is not None) else fetch
     if storage == "int8":
         with tracing.span("scan.quantize"):
             qq, q_scales = quantize_queries_device(q)
@@ -400,10 +428,10 @@ def exact_scan_batched(mesh, vecs, norms, valid, scales, rescore, qs, k,
             torch.stack([o[1] for o in outs]))
 
 
-def allow_device(allow_tags, device) -> Optional[torch.Tensor]:
-    """An allowed-tag list as the scan's int32 operand on ``device``, padded
-    to a power-of-two bucket with -1 sentinels (tags are >= 0, so -1 never
-    matches); None (no filter) stays None."""
+def _padded_allow(allow_tags) -> Optional[np.ndarray]:
+    """An allowed-tag list as int32, padded to a power-of-two bucket with -1
+    sentinels (tags are >= 0, so -1 never matches); None (no filter) stays
+    None."""
     if allow_tags is None:
         return None
     a = np.asarray(allow_tags, dtype=np.int32).ravel()
@@ -414,7 +442,199 @@ def allow_device(allow_tags, device) -> Optional[torch.Tensor]:
         n *= 2
     out = np.full((n,), -1, dtype=np.int32)
     out[: a.size] = a
-    return torch.from_numpy(out).to(device)
+    return out
+
+
+def _allow_on(device, allow: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+    return None if allow is None else torch.from_numpy(allow).to(device)
+
+
+def allow_device(allow_tags, device) -> Optional[torch.Tensor]:
+    """An allowed-tag list as the scan's int32 operand on ``device``
+    (``_padded_allow``'s bucket); None (no filter) stays None."""
+    return _allow_on(device, _padded_allow(allow_tags))
+
+
+def _q_bucket(n: int) -> int:
+    """A graph's query rows for a call of ``n`` queries: ``n`` itself up to
+    16, else the next power of two. The step's f32 row sums (the rescore's
+    and the l2 tail's) take CUDA's reduction, whose block shape follows the
+    number of rows summed up to 16 rows and no further: from 16 rows on, a
+    query's bits do not depend on how many rows the batch is padded to, and
+    below 16 every Q is its own bucket."""
+    return n if n <= 16 else 1 << (n - 1).bit_length()
+
+
+def _snapshot_tensors(mesh: Mesh, rows) -> tuple:
+    """The shard tensors that a graph reads of a one-shard ``ExactRows`` (or
+    a snapshot with its fields); None for an absent field."""
+    rank = local_shards(mesh)[0][0]
+    out = []
+    for f in (rows.fvecs, rows.fnorms, rows.fvalid, rows.fscales, rows.frescore,
+              rows.ftags):
+        for t in (f if isinstance(f, tuple) else (f,)):
+            out.append(None if t is None else t.shard(rank))
+    return tuple(out)
+
+
+def _pool_bytes(pool) -> int:
+    """The bytes of the allocator's segments in a graph's memory pool."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+class _ScanGraph:
+    """One key's ``exact_scan`` captured in a CUDA graph over a static query
+    buffer of ``_q_bucket`` rows and a static allow list, both allocated in
+    the graph's own memory pool as its temporaries and outputs are
+    (``bytes``, measured at capture). The first replay fills the whole
+    buffer, its pad rows with the call's own queries (so they cost what a
+    query costs); later ones copy their Q rows, and the allow list when its
+    values change. ``graph`` is None until captured; ``failed`` marks a key
+    whose capture raised."""
+
+    def __init__(self):
+        self.graph = None
+        self.failed = self.filled = False
+        self.q = self.allow = self.allow_vals = self.out = None
+        self.bytes = self.calls = 0
+
+    def capture(self, run, q: torch.Tensor, allow: Optional[np.ndarray],
+                stream) -> None:
+        """Capture ``run`` on ``stream``, thread-local, so other threads'
+        work goes on; a capture that raised sets ``failed``."""
+        graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(q.device))
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.q = torch.empty((_q_bucket(q.shape[0]), q.shape[1]),
+                                         dtype=torch.float32, device=q.device)
+                    if allow is not None:
+                        self.allow = torch.empty(allow.shape, dtype=torch.int32,
+                                                 device=q.device)
+                    self.out = run(self.q, self.allow)
+                finally:
+                    graph.capture_end()
+        except RuntimeError:
+            log.warning("scan_graph_capture_failed", queries=q.shape[0],
+                        exc_info=True)
+            self.failed, self.q, self.allow, self.out = True, None, None, None
+            return
+        self.graph, self.bytes = graph, _pool_bytes(graph.pool())
+
+    def replay(self, q: torch.Tensor, allow: Optional[np.ndarray]):
+        """The captured call on ``q``: fresh copies of its (scores, ids)."""
+        n = q.shape[0]
+        if self.filled:
+            self.q[:n].copy_(q)
+        else:
+            self.q.copy_(q[torch.arange(self.q.shape[0], device=q.device) % n])
+            self.filled = True
+        if allow is not None and not np.array_equal(allow, self.allow_vals):
+            self.allow.copy_(torch.from_numpy(allow))
+            self.allow_vals = allow
+        self.graph.replay()
+        return tuple(t[:n].clone() for t in self.out)
+
+
+class _ScanGraphs:
+    """An ``ExactRoute``'s graphs, for one snapshot: its tensors are held by
+    weak reference and told apart by identity (``ShardedRows`` never swap a
+    shard's tensor, so identity fixes every data pointer a graph reads), and
+    a call on another snapshot, as after an add, a remove, a fold or a
+    growth, drops every graph. A key's calls on a snapshot run eagerly
+    until the ``SCAN_CAPTURE_CALLS``-th, which captures; later calls
+    replay. At most ``SCAN_GRAPHS`` entries, least recently used dropped
+    first, and past ``SCAN_GRAPH_BYTES`` in the graphs' pools the least
+    recently used graphs other than the newest go; a key whose capture
+    raised runs eagerly while its entry lives.
+
+    Replays run one at a time, in order on the device (``replaying``, and
+    each waits on ``done``), so one caller's copy-in, replay and copies out
+    never overlap another's. Captures run one at a time too
+    (``capturing``, on one side stream), apart from the lock over the
+    entries, so a capture holds up no other key's calls.
+
+    Counters: ``scan.graph.capture`` (the capturing call, which also counts
+    what an eager call counts), ``scan.graph.replay`` (a replayed call,
+    counted by nothing else), ``scan.graph.eager`` (a call that could have
+    replayed and did not: a call before the capture, a failed key)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()       # the entries and the snapshot
+        self.capturing = threading.Lock()
+        self.replaying = threading.Lock()
+        self.refs: tuple = ()
+        self.graphs: "collections.OrderedDict[tuple, _ScanGraph]" = collections.OrderedDict()
+        self.stream = None   # the captures' side stream
+        self.done = None     # recorded after the last replay's copies out
+
+    def _holds(self, tensors: tuple) -> bool:
+        return len(tensors) == len(self.refs) and all(
+            t is None if r is None else r() is t for r, t in zip(self.refs, tensors))
+
+    def scan(self, tensors: tuple, key: tuple, q: torch.Tensor,
+             allow: Optional[np.ndarray], run):
+        """``run(q, allow on the device)`` for this call, or its graph's
+        replay; ``tensors`` are the snapshot's (``_snapshot_tensors``)."""
+        with self.lock:
+            if not self._holds(tensors):
+                self.refs = tuple(None if t is None else weakref.ref(t)
+                                  for t in tensors)
+                self.graphs.clear()
+            entry = self.graphs.get(key)
+            if entry is None:
+                entry = self.graphs[key] = _ScanGraph()
+                if len(self.graphs) > SCAN_GRAPHS:
+                    self.graphs.popitem(last=False)
+            else:
+                self.graphs.move_to_end(key)
+            entry.calls += 1
+        counter = "scan.graph.replay"
+        if (entry.graph is None and not entry.failed
+                and entry.calls >= SCAN_CAPTURE_CALLS):
+            with self.capturing:
+                if entry.graph is None and not entry.failed:
+                    self._capture(entry, q, allow, run)
+                    self._fit(entry)
+                    counter = "scan.graph.capture"
+        if entry.graph is None:
+            tracing.count("scan.graph.eager")
+            return run(q, _allow_on(q.device, allow))
+        return self._replay(entry, q, allow, counter)
+
+    def _replay(self, entry: _ScanGraph, q, allow, counter: str):
+        """``entry``'s replay on the caller's stream, after the last replay
+        on whatever stream it ran (one event wait a call, not a test of the
+        stream: ``None != stream`` reads False); counted under
+        ``counter``."""
+        cur = torch.cuda.current_stream(q.device)
+        with tracing.span("scan.graph"), self.replaying:
+            cur.wait_event(self.done)
+            out = entry.replay(q, allow)
+            self.done.record(cur)
+        tracing.count(counter)
+        return out
+
+    def _capture(self, entry: _ScanGraph, q, allow, run) -> None:
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(q.device)
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(q.device))
+        entry.capture(run, q, allow, self.stream)
+
+    def _fit(self, newest: _ScanGraph) -> None:
+        """Drop the least recently used graphs but ``newest`` while the
+        pools hold more than ``SCAN_GRAPH_BYTES``."""
+        with self.lock:
+            total = sum(e.bytes for e in self.graphs.values())
+            for key in [k for k, e in self.graphs.items() if e.graph is not None]:
+                if total <= SCAN_GRAPH_BYTES:
+                    break
+                if self.graphs[key] is not newest:
+                    total -= self.graphs.pop(key).bytes
 
 
 def route_option(name: str) -> property:
@@ -441,6 +661,8 @@ class ExactRoute:
     scan_impl: str = "auto"    # auto | xla | pallas (exact-scan kernel)
     rescore_mode: str = "auto"  # auto | f32 | residual | off
     device_rescore: Optional[bool] = None  # None = auto by memory budget
+    _graphs: _ScanGraphs = field(default_factory=_ScanGraphs, init=False,
+                                 repr=False, compare=False)
 
     def __post_init__(self):
         for name, known in (("metric", ("ip", "cosine", "l2")),
@@ -522,23 +744,56 @@ class ExactRoute:
         metric-normalized on the mesh's home device. The result's width is
         the merged pool's min(k, n_shards * min(k, shard rows)) when
         ``merged`` (the host searches), else min(k, shard rows) (the device
-        entries, as the reference's). Returns device (scores, ids)."""
+        entries, as the reference's). Returns device (scores, ids).
+
+        On one CUDA shard in this process, unbatched, with the ``xla`` impl
+        on the kernel route, the call replays a captured graph of the same
+        step (``_ScanGraphs``), keyed on the snapshot, Q's bucket, d, k,
+        ``merged``, the widths and the allow list's bucket; every other call
+        runs eagerly."""
         shard_rows = rows.fvecs.shard_rows
         k_shard = min(k, shard_rows)
         fetch, w = self.widths(k, shard_rows, rows.frescore)
         residual = isinstance(rows.frescore, tuple)
         resid, rscales = rows.frescore if residual else (None, None)
-        fn = exact_scan_batched if batched else exact_scan
-        return fn(
-            mesh, rows.fvecs, rows.fnorms, rows.fvalid, rows.fscales,
-            None if residual else rows.frescore, q, k_shard, fetch,
-            self.metric, self.storage,
-            k_out=min(k, k_shard * mesh_shards(mesh)) if merged else k_shard,
-            score_dtype=self.select_dtype(rows.frescore),
-            tags=rows.ftags if allow_tags is not None else None,
-            allow=allow_device(allow_tags, mesh.home),
-            scan_impl=self.impl(),
-            resid=resid,
-            rscales=rscales,
-            rescore_width=w,
-        )
+        score_dtype = self.select_dtype(rows.frescore)
+        allow = _padded_allow(allow_tags)
+
+        def run(q, allow_dev):
+            fn = exact_scan_batched if batched else exact_scan
+            return fn(
+                mesh, rows.fvecs, rows.fnorms, rows.fvalid, rows.fscales,
+                None if residual else rows.frescore, q, k_shard, fetch,
+                self.metric, self.storage,
+                k_out=min(k, k_shard * mesh_shards(mesh)) if merged else k_shard,
+                score_dtype=score_dtype,
+                tags=rows.ftags if allow_tags is not None else None,
+                allow=allow_dev,
+                scan_impl=self.impl(),
+                resid=resid,
+                rscales=rscales,
+                rescore_width=w,
+            )
+
+        if not batched and self._graphed(mesh, rows, q, shard_rows, k_shard,
+                                         fetch, w, score_dtype):
+            key = (_q_bucket(q.shape[0]), q.shape[1], k, merged, fetch, w,
+                   None if allow is None else allow.size)
+            return self._graphs.scan(_snapshot_tensors(mesh, rows), key, q,
+                                     allow, run)
+        return run(q, _allow_on(mesh.home, allow))
+
+    def _graphed(self, mesh: Mesh, rows, q: torch.Tensor, shard_rows: int,
+                 k: int, fetch: int, w: int, score_dtype: str) -> bool:
+        """Whether an unbatched call replays a graph: queries, one shard in
+        this process, on ``q``'s CUDA device, the ``xla`` impl, and the kernel
+        route (the matrix route's chunks and host-made constants stay
+        eager)."""
+        if (not q.is_cuda or not q.shape[0] or mesh.process_count != 1
+                or len(local_shards(mesh)) != 1 or self.impl() != "xla"):
+            return False
+        v = rows.fvecs.shard(0)
+        width = _shard_widths(shard_rows, k, fetch, w, rows.frescore is not None)[3]
+        return (v.device == q.device
+                and select_route("cuda", self.storage, score_dtype, width,
+                                 v.shape[1]) == "kernel")
